@@ -378,6 +378,7 @@ def phase_profile(G, hub, torch) -> dict:
     """Device time against wall time for one blocked PageRank and one
     blocked BFS from the hub (torch.profiler, CUDA activity)."""
     import repro_torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     pol = repro_torch.ExecutionPolicy(backend="blocked")
@@ -391,8 +392,11 @@ def phase_profile(G, hub, torch) -> dict:
             call()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+        # kernel events only: an aten op's self device time repeats the
+        # time of the kernels it launched.
         events = [e for e in prof.key_averages()
-                  if e.self_device_time_total > 0]
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0]
         device_ms = sum(e.self_device_time_total for e in events) / 1e3
         top = sorted(events, key=lambda e: e.self_device_time_total,
                      reverse=True)[:4]
