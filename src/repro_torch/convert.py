@@ -3,7 +3,8 @@
 Each function takes an object with the reference's field names — a
 ``repro`` ``EdgeChunkStore`` / ``BlockedGraph`` / ``SemGraph``, or any
 namespace holding the same fields — reads every array leaf with
-``np.asarray`` and builds the port's counterpart on ``device``.  Feeding
+``np.asarray`` and builds the port's counterpart on ``device`` (None: the
+CUDA device).  Feeding
 both packages byte-identical edge stores this way lets a test hold the
 port's engine against the reference on the same inputs, and check that the
 port's own tilers reproduce them.  Nothing here imports ``repro`` or
@@ -14,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ._device import resolve_device
 from .core.sem import EdgeChunkStore, SemGraph
 from .kernels.spmv.ops import BlockedGraph, blocked_graph
 
@@ -24,8 +26,9 @@ def _arr(a, device):
     return None if a is None else torch.as_tensor(np.array(a)).to(device)
 
 
-def edge_store(store, device="cpu") -> EdgeChunkStore:
+def edge_store(store, device=None) -> EdgeChunkStore:
     """The port's :class:`EdgeChunkStore` from a reference chunk store."""
+    device = resolve_device(device)
     return EdgeChunkStore(
         major=_arr(store.major, device),
         minor=_arr(store.minor, device),
@@ -38,18 +41,20 @@ def edge_store(store, device="cpu") -> EdgeChunkStore:
     )
 
 
-def blocked_view(bg, device="cpu") -> BlockedGraph:
+def blocked_view(bg, device=None) -> BlockedGraph:
     """The port's :class:`BlockedGraph` from a reference tile view."""
     return blocked_graph(
         bg.tiles, bg.dbid, bg.sbid, bg.first, bg.last, bg.accum, bg.nnz,
-        n=bg.n, bd=bg.bd, bs=bg.bs, semiring=bg.semiring, tile_order=getattr(bg, "tile_order", "dest"),
-        device=device,
+        n=bg.n, bd=bg.bd, bs=bg.bs, semiring=bg.semiring,
+        tile_order=getattr(bg, "tile_order", "dest"), device=device,
     )
 
 
-def sem_graph(sg, device="cpu") -> SemGraph:
+def sem_graph(sg, device=None) -> SemGraph:
     """The port's :class:`SemGraph` from a reference SEM view (chunk
     stores, CSR arrays and any tile views)."""
+    device = resolve_device(device)
+
     def opt(obj, fn):
         return None if obj is None else fn(obj, device)
 

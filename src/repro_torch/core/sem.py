@@ -21,6 +21,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from ..graph.csr import Graph
 from .semiring import Semiring
 
@@ -204,9 +205,11 @@ def _t(a, device) -> Optional[torch.Tensor]:
 
 
 def build_store(
-    g: Graph, *, sorted_by: str, chunk_size: int = 4096, device="cpu"
+    g: Graph, *, sorted_by: str, chunk_size: int = 4096, device=None
 ) -> EdgeChunkStore:
-    """Chop a CSR/CSC view into chunks and place them on ``device``."""
+    """Chop a CSR/CSC view into chunks and place them on ``device`` (None:
+    the CUDA device)."""
+    device = resolve_device(device)
     a = build_store_arrays(g, sorted_by=sorted_by, chunk_size=chunk_size)
     return EdgeChunkStore(
         major=_t(a["major"], device),
@@ -227,7 +230,7 @@ def _pad_indptr(ip: np.ndarray) -> np.ndarray:
 def device_graph(
     g: Graph,
     *,
-    device="cpu",
+    device=None,
     chunk_size: int = 4096,
     pull: bool = True,
     push: bool = True,
@@ -238,8 +241,10 @@ def device_graph(
     blocked_semiring: str = "plus_times",
     tile_order: str = "dest",
 ) -> SemGraph:
-    """Build the full device-resident SEM view of ``g`` on ``device``
-    (arguments as in the reference's ``device_graph``)."""
+    """Build the full device-resident SEM view of ``g`` on ``device`` (None:
+    the CUDA device; other arguments as in the reference's
+    ``device_graph``)."""
+    device = resolve_device(device)
     out_blocked = out_blocked_rev = None
     if blocked:
         from ..kernels.spmv import build_blocked

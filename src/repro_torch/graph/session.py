@@ -24,6 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from ..algs.bfs import BFSProgram
 from ..algs.pagerank import PageRankPullProgram, PageRankPushProgram
 from ..core import ExecutionPolicy, ProgramResult, SemGraph, run_program
@@ -35,19 +36,6 @@ from . import csr
 __all__ = ["Graph", "resolve_device"]
 
 _BLOCKED = ("blocked", "blocked_compact")
-
-
-def resolve_device(device=None) -> torch.device:
-    """``device``, or the CUDA device when it is None.  Raises when no CUDA
-    device is present: the port never falls back to the CPU by itself."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "repro_torch runs on a CUDA device by default and none is "
-            "available; pass device='cpu' to run on the CPU"
-        )
-    return torch.device("cuda")
 
 
 def _nbytes(obj, seen: set) -> int:

@@ -24,6 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..._device import resolve_device
 from ...graph.csr import Graph
 from .kernel import spmv_blocked, spmv_blocked_compact
 from .order import TILE_ORDERS, tile_curve_key
@@ -211,9 +212,11 @@ def build_blocked_arrays(
 
 
 def blocked_graph(tiles, dbid, sbid, first, last, accum, nnz, *, n, bd, bs,
-                  semiring, tile_order="dest", device="cpu") -> BlockedGraph:
-    """A :class:`BlockedGraph` on ``device`` from its arrays (numpy or
-    torch), deriving the per-block tile table."""
+                  semiring, tile_order="dest", device=None) -> BlockedGraph:
+    """A :class:`BlockedGraph` on ``device`` (None: the CUDA device) from its
+    arrays (numpy or torch), deriving the per-block tile table."""
+    device = resolve_device(device)
+
     def t(a):
         if not isinstance(a, torch.Tensor):
             a = torch.as_tensor(np.array(a))
@@ -249,14 +252,16 @@ def build_blocked(
     semiring: str = "plus_times",
     reverse: bool = False,
     tile_order: str = "dest",
-    device="cpu",
+    device=None,
 ) -> BlockedGraph:
-    """Tile ``g``'s edges into dense (bd, bs) blocks on ``device``.
+    """Tile ``g``'s edges into dense (bd, bs) blocks on ``device`` (None:
+    the CUDA device).
 
     The dense tile array is filled on the device from the occupied slots,
     so the host never holds the O(T * Bd * Bs) array.  Arguments as in the
     reference's ``build_blocked``.
     """
+    device = resolve_device(device)
     lay = _tile_layout(g, bd=bd, bs=bs, direction=direction,
                        semiring=semiring, reverse=reverse,
                        tile_order=tile_order)

@@ -50,7 +50,7 @@ def graphs():
     for enc in ("plus_times", "min_plus"):
         ref = rsem.device_graph(g, chunk_size=128, blocked=True, bd=32, bs=32,
                                 blocked_semiring=enc)
-        out[enc] = (ref, convert.sem_graph(ref))
+        out[enc] = (ref, convert.sem_graph(ref, device="cpu"))
     return out
 
 
@@ -118,7 +118,7 @@ def test_p2p_spmv(direction, weighted):
         w = np.random.default_rng(1).integers(1, 5, g.m).astype(np.float32)
         g = from_edges(src, g.indices, n=g.n, weights=w)
     ref = rsem.device_graph(g, chunk_size=64)
-    port = convert.sem_graph(ref)
+    port = convert.sem_graph(ref, device="cpu")
     x = _x(g.n, "plus_times", 1, seed=3)
     act = np.random.default_rng(4).random(g.n) < 0.2
     y_init = np.random.default_rng(5).integers(0, 9, g.n).astype(np.float32)

@@ -25,7 +25,8 @@ import repro_torch
 import repro_torch.graph.csr as tcsr
 import repro_torch.graph.generators as tgen
 from repro_torch import convert
-from repro_torch.core.sem import build_store_arrays, device_graph
+from repro_torch.core.sem import (build_store, build_store_arrays,
+                                  device_graph)
 from repro_torch.kernels.spmv import build_blocked, build_blocked_arrays
 
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -129,9 +130,10 @@ def test_convert_matches_own_build():
     g = rgen.rmat(8, edge_factor=8, seed=2)
     ref = r_device_graph(g, chunk_size=128, blocked=True, bd=32, bs=32,
                          blocked_reverse=True, tile_order="hilbert")
-    got = convert.sem_graph(ref)
+    got = convert.sem_graph(ref, device="cpu")
     own = device_graph(g, chunk_size=128, blocked=True, bd=32, bs=32,
-                       blocked_reverse=True, tile_order="hilbert")
+                       blocked_reverse=True, tile_order="hilbert",
+                       device="cpu")
     for name in ("indptr", "indices", "in_indptr", "in_indices", "out_degree",
                  "in_degree"):
         assert torch.equal(getattr(got, name), getattr(own, name)), name
@@ -150,7 +152,8 @@ def test_convert_matches_own_build():
 
 def test_block_table_lists_each_block_in_schedule_order():
     g = rgen.rmat(8, edge_factor=8, seed=2)
-    bg = build_blocked(g, bd=32, bs=16, tile_order="morton")
+    bg = build_blocked(g, bd=32, bs=16, tile_order="morton",
+                       device="cpu")
     ptr, tiles = bg.blk_ptr.numpy(), bg.blk_tiles.numpy()
     dbid = bg.dbid.numpy()
     for b in range(bg.n_dst_blocks):
@@ -187,4 +190,38 @@ def test_default_device_needs_cuda():
         repro_torch.Graph(g)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         repro_torch.Graph.from_edges([0, 1], [1, 2])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        device_graph(g)
     assert repro_torch.Graph(g, device="cpu").torch_device.type == "cpu"
+    assert device_graph(g, device="cpu").indptr.device.type == "cpu"
+
+
+@pytest.mark.parametrize("builder", [
+    "build_store", "build_blocked", "edge_store", "blocked_view", "sem_graph",
+])
+def test_builders_default_to_cuda(builder):
+    """Every builder of device views resolves ``device=None`` as the façade
+    does: the card, or an error that names ``device='cpu'``."""
+    g = rgen.rmat(6, edge_factor=4, seed=1)
+    ref = r_device_graph(g, chunk_size=64, blocked=True, bd=32, bs=32)
+    call = {
+        "build_store": lambda **kw: build_store(g, sorted_by="src", **kw),
+        "build_blocked": lambda **kw: build_blocked(g, bd=32, bs=32, **kw),
+        "edge_store": lambda **kw: convert.edge_store(ref.out_store, **kw),
+        "blocked_view": lambda **kw: convert.blocked_view(ref.out_blocked,
+                                                          **kw),
+        "sem_graph": lambda **kw: convert.sem_graph(ref, **kw),
+    }[builder]
+    if torch.cuda.is_available():
+        assert _any_tensor(call()).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
+    assert _any_tensor(call(device="cpu")).device.type == "cpu"
+
+
+def _any_tensor(view) -> torch.Tensor:
+    for name in ("major", "tiles", "indptr"):
+        if hasattr(view, name):
+            return getattr(view, name)
+    raise AssertionError(f"no tensor field on {type(view).__name__}")

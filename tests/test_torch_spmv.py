@@ -25,7 +25,8 @@ F32_TOL = dict(atol=1e-5, rtol=1e-5)
 def _views(order="dest", semiring="plus_times", seed=2):
     g = rmat(8, edge_factor=8, seed=seed)
     kw = dict(bd=32, bs=32, semiring=semiring, tile_order=order)
-    return g, rk.build_blocked(g, **kw), tk.build_blocked(g, **kw)
+    return (g, rk.build_blocked(g, **kw),
+            tk.build_blocked(g, device="cpu", **kw))
 
 
 def _frontier(n, density, seed):
@@ -133,7 +134,7 @@ def test_cpu_wrappers_launch_nothing():
 def test_plain_matches_coo_ground_truth():
     """With every vertex active the tiles equal the plain edge list."""
     g = erdos_renyi(150, 1200, seed=3)
-    bg = tk.build_blocked(g, bd=32, bs=16)
+    bg = tk.build_blocked(g, bd=32, bs=16, device="cpu")
     x = torch.as_tensor(np.random.default_rng(0).normal(size=g.n),
                         dtype=torch.float32)
     y, st = tk.blocked_spmv(bg, x)
