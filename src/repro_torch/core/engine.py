@@ -14,8 +14,10 @@ a device scalar, so every branch decision synchronises with the device
 once; the values and every IOStats field are those the reference's chosen
 branch gives.  The four multicast backends are ``'scan'``/``'compact'``
 (:mod:`repro_torch.core.sem`) and ``'blocked'``/``'blocked_compact'``
-(:func:`repro_torch.kernels.spmv.blocked_spmv`, the CUDA kernels B1/B2 on
-the card).
+(:func:`repro_torch.kernels.spmv.blocked_spmv`, the CUDA kernels B1/B2 and,
+on min_plus tiles, B3/B4 on the card).  A host view routes each superstep
+to :func:`repro_torch.core.residency.host_traverse`, which has the same
+dispatch over streamed edges.
 """
 from __future__ import annotations
 
@@ -74,8 +76,8 @@ class ExecutionPolicy:
 
     ``interpret`` is kept for signature parity and ignored: the device of
     the tensors decides between the CUDA kernels and their plain versions.
-    ``residency='host'`` and the ``stream_*`` fields belong to host
-    residency, which this package does not have yet (ROADMAP A9).
+    ``residency='host'`` and the ``stream_*`` fields drive host residency
+    (:mod:`repro_torch.core.residency`).
     """
 
     backend: str = "scan"
@@ -448,6 +450,30 @@ def batched_union_frontier(
     return xm, union, un_union, frontier_edge_mass(deg, active)
 
 
+def check_residency(sg, pol: ExecutionPolicy) -> bool:
+    """True when ``sg`` is a host view under a host policy, False for a
+    device view under a device policy; raises :class:`ResidencyError` on a
+    mismatched pair."""
+    is_host = bool(getattr(sg, "is_host_view", False))
+    if pol.residency == "host" and not is_host:
+        raise ResidencyError(
+            "residency='host' policy met a device-resident graph: this "
+            "SemGraph's edge store already lives in device memory, so "
+            "streaming it from host would misreport residency.  Run "
+            "through repro_torch.Graph (sessions key views on residency) "
+            "or build a host view with "
+            "repro_torch.core.residency.host_graph()"
+        )
+    if is_host and pol.residency != "host":
+        raise ResidencyError(
+            "device-residency policy met a host-resident graph view: "
+            "its edge store has no device copy to dispatch on.  Use "
+            "ExecutionPolicy(residency='host') or build a device view "
+            "with device_graph()"
+        )
+    return is_host
+
+
 def traverse(
     sg: SemGraph,
     x: torch.Tensor,
@@ -468,10 +494,11 @@ def traverse(
     execution choice; ``messages`` then reports the frontier's logical
     out-edge mass on every path.  ``active`` may be (n, Q): the union of the
     lanes is fetched once, each lane identity-masked by its own frontier.
+    A host view (``residency='host'``) streams the superstep through
+    :func:`repro_torch.core.residency.host_traverse`; a host policy on a
+    device view, or the reverse, raises :class:`ResidencyError`.
     """
     pol = policy if policy is not None else ExecutionPolicy()
-    if pol.residency == "host":
-        raise NotImplementedError("residency='host': ROADMAP A9")
     if active.ndim > 1:
         xm, union, un_union, mass = batched_union_frontier(
             sg, x, active, sr, unexplored=unexplored, reverse=reverse,
@@ -480,6 +507,12 @@ def traverse(
         y, st = traverse(sg, xm, union, sr, policy=pol,
                          unexplored=un_union, reverse=reverse, y_init=y_init)
         return y, st._replace(messages=mass)
+    if check_residency(sg, pol):
+        from .residency import host_traverse
+
+        return host_traverse(sg, x, active, sr, policy=pol,
+                             unexplored=unexplored, reverse=reverse,
+                             y_init=y_init)
     if reverse or unexplored is None:
         direction = pol.direction if pol.direction in ("out", "in") else "out"
         return _dispatch(sg, x, active, sr, direction=direction,

@@ -115,15 +115,29 @@ def run_program(
     before the first superstep, and ``IOStats.supersteps`` counts the
     iterations.  ``policy`` falls back to ``prog.default_policy``, then to
     a plain :class:`ExecutionPolicy`; ``prog.prepare_policy`` pins the
-    fields the algorithm owns.
+    fields the algorithm owns.  A ``residency='host'`` policy or a host
+    view runs :func:`repro_torch.core.residency.run_program_host`, the same
+    loop over streamed supersteps.
     """
     if checkpoint is not None:
         raise NotImplementedError("checkpointed runs: ROADMAP A12")
     pol = policy if policy is not None else prog.default_policy
     pol = pol if pol is not None else ExecutionPolicy()
-    if pol.residency == "host":
-        raise NotImplementedError("residency='host': ROADMAP A9")
-    pol = prog.prepare_policy(sg, pol)
+    if pol.residency == "host" or getattr(sg, "is_host_view", False):
+        # run_program_host validates the policy/view pairing.
+        from .residency import run_program_host
+
+        return run_program_host(sg, prog, pol, seeds=seeds,
+                                max_supersteps=max_supersteps)
+    return bsp_loop(sg, prog, prog.prepare_policy(sg, pol), seeds=seeds,
+                    max_supersteps=max_supersteps)
+
+
+def bsp_loop(sg, prog: VertexProgram, pol: ExecutionPolicy, *, seeds,
+             max_supersteps: Optional[int]) -> ProgramResult:
+    """The superstep loop of :func:`run_program` under a prepared policy,
+    on a device or a host view alike (the traverse inside ``gather`` and
+    ``activate`` routes by residency)."""
     state = prog.init(sg, seeds)
     budget = max_supersteps if max_supersteps is not None \
         else prog.max_supersteps(sg)

@@ -326,13 +326,18 @@ def bucket_index(count, buckets: tuple) -> int:
     return sum(int(count) > b for b in buckets[:-1])
 
 
-def _fetch(sr, xp, active, n, gather_on_major, major, minor, w, y):
+def _fetch(sr, xp, active, n, gather_on_major, major, minor, w, y,
+           valid=None):
     """The SEM hot loop over a batch of edge records: gather, mask,
-    scatter-combine.  Returns ``(y, messages)``."""
+    scatter-combine.  ``valid`` (bool per record) additionally masks
+    records out, as host residency does with its padding chunks.  Returns
+    ``(y, messages)``."""
     gather_idx = major if gather_on_major else minor
     key = minor if gather_on_major else major
     xv = xp[gather_idx.long()]
     mask = active[torch.clamp(major, max=n - 1).long()] & (major < n)
+    if valid is not None:
+        mask = mask & valid
     contrib = sr.edge_op(xv, w)
     m2 = mask.reshape((-1,) + (1,) * (contrib.ndim - 1))
     ident = torch.tensor(sr.identity, dtype=contrib.dtype, device=contrib.device)

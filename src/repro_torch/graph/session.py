@@ -1,16 +1,18 @@
 """``repro_torch.Graph`` — the library façade (torch port of
 ``repro.graph.session``).
 
-One object holds the host CSR image, builds and caches its device views
-lazily (chunk stores on first use, dense tile views only when a blocked
-backend asks, one per (encoding, reverse, tile_order)), and runs
-algorithms through :func:`~repro_torch.core.run_program`::
+One object holds the host CSR image, builds and caches its views lazily
+(device chunk stores on first use, dense tile views only when a blocked
+backend asks, one per (encoding, reverse, tile_order); the host-resident
+view only when a ``residency='host'`` policy asks), and runs algorithms
+through :func:`~repro_torch.core.run_program`::
 
     import repro_torch
 
     g = repro_torch.Graph.from_edges(src, dst)      # on the CUDA device
     pr = g.pagerank()                               # ProgramResult
     bf = g.bfs([0, 3, 5], policy=repro_torch.ExecutionPolicy(backend="blocked"))
+    sem = g.pagerank(policy=repro_torch.ExecutionPolicy(residency="host"))
 
 Views live on ``device``, which defaults to the CUDA device; without one
 the constructor raises instead of carrying on on the CPU, so a CPU run is
@@ -29,7 +31,7 @@ from ..algs.bfs import BFSProgram
 from ..algs.pagerank import PageRankPullProgram, PageRankPushProgram
 from ..core import ExecutionPolicy, ProgramResult, SemGraph, run_program
 from ..core.program import VertexProgram
-from ..core.sem import device_graph
+from ..core.sem import _store_record_bytes, device_graph
 from ..core.semiring import PLUS_TIMES
 from . import csr
 
@@ -74,6 +76,7 @@ class Graph:
         self._base: Optional[SemGraph] = None
         self._tiles: dict = {}  # (semiring, reverse, tile_order) -> BlockedGraph
         self._views: dict = {}  # (semiring, with_reverse, tile_order) -> SemGraph
+        self._host_view = None  # HostGraph, built by the first host run
 
     @classmethod
     def from_edges(cls, src, dst, n: Optional[int] = None, weights=None, *,
@@ -115,6 +118,7 @@ class Graph:
     def __repr__(self) -> str:
         built = ["base"] if self._base is not None else []
         built += [f"tiles{k}" for k in sorted(self._tiles)]
+        built += ["host"] if self._host_view is not None else []
         return (f"Graph(n={self.n}, m={self.m}, chunk_size={self._chunk_size},"
                 f" device={self.torch_device}, cached={built or 'none'})")
 
@@ -155,11 +159,48 @@ class Graph:
             )
         return self._tiles[key]
 
-    def memory_report(self) -> dict:
-        """Device bytes of the cached views: ``device_views`` (``'base'``
-        plus one ``'tiles:<encoding>:<fwd|rev>:<order>'`` entry per tile
-        view), ``device_total`` and ``device_edge_total`` (the O(m) part:
-        chunk stores, CSR index/weight columns, tile views)."""
+    def host_view(self):
+        """The cached host-resident SEM view (``residency='host'``).
+
+        Lazy like every other view and keyed apart from them: a host run
+        never calls :meth:`device`, so no O(m) device copy is built.  Host
+        tile stores are sub-cached inside the view per (encoding,
+        direction, tile_order)."""
+        if self._host_view is None:
+            from ..core.residency import host_graph
+
+            self._host_view = host_graph(self._host,
+                                         chunk_size=self._chunk_size,
+                                         bd=self._bd, bs=self._bs,
+                                         device=self.torch_device)
+        return self._host_view
+
+    def memory_report(self, policy: Optional[ExecutionPolicy] = None, *,
+                      batch: int = 1) -> dict:
+        """Where this session's graph bytes live now (the reference's
+        fields):
+
+          * ``residency`` — ``policy.residency`` (default ``'device'``);
+          * ``device_views`` — bytes per cached device view (``'base'``
+            plus one ``'tiles:<encoding>:<fwd|rev>:<order>'`` entry per
+            tile view), each storage counted once;
+          * ``device_total`` — their sum;
+          * ``device_edge_total`` — the O(m) part: chunk stores, CSR
+            index/weight columns, tile views.  Host residency keeps it 0;
+          * ``host_store_bytes`` — the host view's edge-store bytes;
+          * ``peak_stage_bytes`` — the largest in-flight staging footprint
+            measured so far;
+          * ``stream_buffer_bytes`` — the model size of ONE staging batch
+            under ``policy`` (tile batches for blocked backends, chunk
+            batches otherwise, at least the p2p arm's single ``ecap``-lane
+            payload when that arm is on).  Peak staging is at most two of
+            these unless a blocked run is longer than ``stream_buffer``
+            tiles: runs are never split, so such a run ships alone;
+          * ``query_state_bytes`` — the O(n·Q) vertex-state model of a
+            ``batch=Q`` run: per vertex and lane two bool masks and one
+            4-byte value.
+        """
+        pol = policy if policy is not None else ExecutionPolicy()
         seen: set = set()
         device_views = {}
         if self._base is not None:
@@ -177,17 +218,44 @@ class Graph:
                 device_edge_total += _nbytes(part, edge_seen)
         for tv in self._tiles.values():
             device_edge_total += _nbytes(tv, edge_seen)
+
+        B = pol.stream_buffer
+        if pol.backend in _BLOCKED:
+            # tile batches round up to a power of two of steps; each step
+            # ships its tile plus six int32 schedule flags (+ one count).
+            G = 1
+            while G < B:
+                G *= 2
+            stream_buffer_bytes = G * (self._bd * self._bs * 4 + 6 * 4) + 4
+        else:
+            # chunk batches ship record columns plus one valid flag a slot.
+            stream_buffer_bytes = B * (
+                self._chunk_size * _store_record_bytes(self._host.weights)
+                + 1)
+        if pol.switch_fraction is not None:
+            # the p2p arm ships its ecap lanes in one piece.
+            ecap = (pol.ecap if pol.ecap is not None
+                    else max(int(self._host.m), 1))
+            lane = 9 + (4 if self._host.weights is not None else 0)
+            stream_buffer_bytes = max(stream_buffer_bytes, ecap * lane)
+        hv = self._host_view
         return {
-            "residency": "device",
+            "residency": pol.residency,
             "device_views": device_views,
             "device_total": sum(device_views.values()),
             "device_edge_total": device_edge_total,
+            "host_store_bytes": hv.store_nbytes if hv is not None else 0,
+            "peak_stage_bytes": hv.peak_stage_bytes if hv is not None else 0,
+            "stream_buffer_bytes": int(stream_buffer_bytes),
+            "query_state_bytes": int(self.n) * max(int(batch), 1) * 6,
         }
 
-    def _sem(self, policy: Optional[ExecutionPolicy], prog=None) -> SemGraph:
-        """The view a (program, policy) pair needs, built/cached on demand."""
+    def _sem(self, policy: Optional[ExecutionPolicy], prog=None):
+        """The view a (program, policy) pair needs, built/cached on demand.
+        Views are keyed on residency first: a host policy gets the host
+        view and never builds a device copy."""
         if policy is not None and policy.residency == "host":
-            raise NotImplementedError("residency='host': ROADMAP A9")
+            return self.host_view()
         if policy is None or policy.backend not in _BLOCKED:
             return self.device()
         sr = getattr(prog, "semiring", None) or PLUS_TIMES

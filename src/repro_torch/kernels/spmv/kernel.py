@@ -1,13 +1,15 @@
-"""Blocked semiring SpMV kernels B1/B2: CUDA for Hopper, plain torch beside.
+"""Blocked semiring SpMV kernels B1-B4: CUDA for Hopper, plain torch beside.
 
 The reference streams dense ``(Bd, Bs)`` edge tiles through a sequential
-Pallas grid (``repro/kernels/spmv/kernel.py``: ``spmv_pallas``, body
-``_kernel_plus_times`` lines 86-110, and ``spmv_pallas_compact``, body
-``_kernel_plus_times_compact`` lines 199-224), carrying a ``(Bd, K)``
-accumulator from one grid step to the next and flushing it at each run's
-end::
+Pallas grid (``repro/kernels/spmv/kernel.py``: ``spmv_pallas``, bodies
+``_kernel_plus_times`` lines 86-110 and ``_kernel_min_plus`` lines 113-136,
+and ``spmv_pallas_compact``, bodies ``_kernel_plus_times_compact`` lines
+199-224 and ``_kernel_min_plus_compact`` lines 227-250), carrying a
+``(Bd, K)`` accumulator from one grid step to the next and flushing it at
+each run's end::
 
-    y[dst_block] (+)= tile (Bd, Bs) @ x[src_block] (Bs, K)
+    plus_times: y[dst_block] (+)= tile (Bd, Bs) @ x[src_block] (Bs, K)
+    min_plus:   y[dst_block] (min)= min_s(tile[:, s] + x[src_block][s, :])
 
 On the GPU the thread blocks run in parallel and in no order, so the
 kernels in ``repro_torch/csrc/spmv.cu`` give each destination block to its
@@ -15,21 +17,22 @@ own thread blocks, which walk that block's tiles in schedule order (see
 the source for the design and its bound).  The two entry points differ in
 their work-list:
 
-  * :func:`spmv_blocked` (B1) — every tile of the schedule; each thread
-    block reads the activity flag of each of its block's tiles and skips
-    inactive ones.  The per-block tile table is static
-    (``BlockedGraph.blk_ptr``/``blk_tiles``).
-  * :func:`spmv_blocked_compact` (B2) — only the live tiles ``perm[:nact]``
-    of the compacted schedule, grouped by destination block in torch each
-    call; run boundaries come from the recomputed ``first`` flags.
+  * :func:`spmv_blocked` (B1, B3 on min_plus tiles) — every tile of the
+    schedule; each thread block reads the activity flag of each of its
+    block's tiles and skips inactive ones.  The per-block tile table is
+    static (``BlockedGraph.blk_ptr``/``blk_tiles``).
+  * :func:`spmv_blocked_compact` (B2, B4 on min_plus tiles) — only the live
+    tiles ``perm[:nact]`` of the compacted schedule, grouped by destination
+    block in torch each call; run boundaries come from the recomputed
+    ``first`` flags.  It also takes a :class:`TileBatch`, the batch-local
+    view that host residency stages per batch.
 
 On a CPU tensor each wrapper runs its plain torch version
 (:func:`blocked_spmv_plain`, :func:`blocked_spmv_plain_compact`), which
 keeps the reference's per-run summation structure: per-run sums of the
 tile products, combined into the block in run order.  On a CUDA tensor it
-launches the kernel or raises; ``launches`` counts kernel launches.  The
-min_plus bodies (B3/B4) are not ported yet: a min_plus tile view on a
-CUDA tensor raises.
+launches the kernel or raises; ``launches`` counts kernel launches, one
+key per kernel.  'bool' occupancy tiles run the plus_times kernels.
 
 The shared library is built with ``nvcc`` at first use into
 ``build/kernels/`` at the repository root (git-ignored), keyed by the
@@ -38,6 +41,7 @@ source's hash, and loaded with ``ctypes``.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -47,6 +51,7 @@ from pathlib import Path
 import torch
 
 __all__ = [
+    "TileBatch",
     "blocked_spmv_plain",
     "blocked_spmv_plain_compact",
     "build_library",
@@ -62,8 +67,14 @@ _ROWS_PER_CTA = 32  # rows of a destination block per thread block (spmv.cu)
 _MAX_K = 192  # lanes the kernel's 48 KB of shared accumulators hold
 _PLAIN_CHUNK = 512  # tiles per batched product in the plain versions
 
-#: Kernel launches per wrapper since the last :func:`reset_launches`.
-launches = {"spmv_blocked": 0, "spmv_blocked_compact": 0}
+#: Kernel launches since the last :func:`reset_launches`: B1, B2, B3, B4.
+launches = {"spmv_blocked": 0, "spmv_blocked_compact": 0,
+            "spmv_blocked_min_plus": 0, "spmv_blocked_compact_min_plus": 0}
+# launch key -> the function spmv.cu exports for it
+_ENTRY = {"spmv_blocked": "spmv_full",
+          "spmv_blocked_compact": "spmv_compact",
+          "spmv_blocked_min_plus": "spmv_full_min_plus",
+          "spmv_blocked_compact_min_plus": "spmv_compact_min_plus"}
 
 _lib = None
 
@@ -71,6 +82,34 @@ _lib = None
 def reset_launches() -> None:
     for key in launches:
         launches[key] = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class TileBatch:
+    """A batch-local tile view for :func:`spmv_blocked_compact`: ``tiles``
+    [G, Bd, Bs] staged for one batch and ``sbid`` [G] the global source
+    block of each staged tile, so work-list entry ``i`` reads
+    ``x_blocks[sbid[i]]``.  ``n`` sizes the output's destination blocks as
+    in the graph's own view."""
+
+    tiles: torch.Tensor
+    sbid: torch.Tensor
+    n: int
+    bd: int
+    bs: int
+    semiring: str
+
+    @property
+    def num_tiles(self) -> int:
+        return int(self.tiles.shape[0])
+
+    @property
+    def n_dst_blocks(self) -> int:
+        return -(-self.n // self.bd)
+
+    @property
+    def n_src_blocks(self) -> int:
+        return -(-self.n // self.bs)
 
 
 def build_library() -> Path:
@@ -100,10 +139,12 @@ def _library():
     if _lib is None:
         lib = ctypes.CDLL(str(build_library()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.spmv_full.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
-        lib.spmv_full.restype = i
-        lib.spmv_compact.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
-        lib.spmv_compact.restype = i
+        for fn in ("spmv_full", "spmv_full_min_plus"):
+            getattr(lib, fn).argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
+            getattr(lib, fn).restype = i
+        for fn in ("spmv_compact", "spmv_compact_min_plus"):
+            getattr(lib, fn).argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
+            getattr(lib, fn).restype = i
         _lib = lib
     return _lib
 
@@ -119,8 +160,6 @@ def _on_cpu(x_blocks: torch.Tensor) -> bool:
 
 def _check_cuda(bg, x_blocks: torch.Tensor) -> None:
     """Refuse what the CUDA kernel does not take (no fallback)."""
-    if bg.semiring == "min_plus":
-        raise NotImplementedError("min_plus blocked kernel: ROADMAP B3/B4")
     if bg.tiles.device != x_blocks.device:
         raise ValueError("tiles and x_blocks lie on different devices")
     if bg.tiles.dtype != torch.float32 or x_blocks.dtype != torch.float32:
@@ -144,7 +183,10 @@ def _ptr(t: torch.Tensor):
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _launch(fn, name: str, args, bg, k: int, device) -> torch.Tensor:
+def _launch(name: str, args, bg, k: int, device) -> torch.Tensor:
+    if bg.semiring == "min_plus":
+        name += "_min_plus"
+    fn = getattr(_library(), _ENTRY[name])
     y = torch.empty((bg.n_dst_blocks, bg.bd, k), dtype=torch.float32,
                     device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -158,25 +200,29 @@ def _launch(fn, name: str, args, bg, k: int, device) -> torch.Tensor:
 
 
 def spmv_blocked(bg, act: torch.Tensor, x_blocks: torch.Tensor) -> torch.Tensor:
-    """B1: y_blocks [nDB, Bd, K] f32 over the full tile schedule.
+    """B1 (B3 on min_plus tiles): y_blocks [nDB, Bd, K] f32 over the full
+    tile schedule.
 
-    A block whose tiles are all inactive flushes 0; a block with no tile at
-    all is left for the caller to fill (``ops.blocked_spmv``).
+    A block whose tiles are all inactive flushes the identity (0, or +inf
+    under min_plus); a block with no tile at all is left for the caller to
+    fill (``ops.blocked_spmv``).
     """
     if _on_cpu(x_blocks):
         return blocked_spmv_plain(bg, act, x_blocks)
     _check_cuda(bg, x_blocks)
     args = (x_blocks, bg.blk_ptr, bg.blk_tiles, bg.first, bg.sbid,
             act.to(torch.int32).contiguous())
-    return _launch(_library().spmv_full, "spmv_blocked", args, bg,
-                   x_blocks.shape[-1], x_blocks.device)
+    return _launch("spmv_blocked", args, bg, x_blocks.shape[-1],
+                   x_blocks.device)
 
 
 def spmv_blocked_compact(bg, perm, dbid, sbid, first, last, accum, nact: int,
                          x_blocks: torch.Tensor) -> torch.Tensor:
-    """B2: the same over the compacted work-list ``perm[:nact]`` (arguments
-    as returned by ``ops.compact_tile_order``, sliced to the grid bucket).
-    Blocks with no live tile are left for the caller to fill."""
+    """B2 (B4 on min_plus tiles): the same over the compacted work-list
+    ``perm[:nact]`` (arguments as returned by ``ops.compact_tile_order``,
+    sliced to the grid bucket).  ``bg`` is a ``BlockedGraph`` or a
+    :class:`TileBatch`.  Blocks with no live tile are left for the caller
+    to fill."""
     if _on_cpu(x_blocks):
         return blocked_spmv_plain_compact(bg, perm, dbid, sbid, first, last,
                                           accum, nact, x_blocks)
@@ -189,8 +235,8 @@ def spmv_blocked_compact(bg, perm, dbid, sbid, first, last, accum, nact: int,
     args = (x_blocks, seg_ptr.to(torch.int32),
             perm[:nact][order].to(torch.int32).contiguous(),
             first[:nact][order].to(torch.int32).contiguous(), bg.sbid)
-    return _launch(_library().spmv_compact, "spmv_blocked_compact", args, bg,
-                   x_blocks.shape[-1], x_blocks.device)
+    return _launch("spmv_blocked_compact", args, bg, x_blocks.shape[-1],
+                   x_blocks.device)
 
 
 def _runs_into_blocks(bg, ids, runs, run_db, x_blocks) -> torch.Tensor:
@@ -225,7 +271,7 @@ def _runs_into_blocks(bg, ids, runs, run_db, x_blocks) -> torch.Tensor:
 
 def blocked_spmv_plain(bg, act: torch.Tensor,
                        x_blocks: torch.Tensor) -> torch.Tensor:
-    """Plain torch version of B1 (and of the min_plus body B3)."""
+    """Plain torch version of B1 (and of B3 on min_plus tiles)."""
     runs = torch.cumsum(bg.first.long(), 0) - 1
     ids = torch.nonzero(act).flatten()
     return _runs_into_blocks(bg, ids, runs[ids], bg.dbid[bg.first == 1],
@@ -235,7 +281,7 @@ def blocked_spmv_plain(bg, act: torch.Tensor,
 def blocked_spmv_plain_compact(bg, perm, dbid, sbid, first, last, accum,
                                nact: int, x_blocks: torch.Tensor
                                ) -> torch.Tensor:
-    """Plain torch version of B2 (and of the min_plus body B4)."""
+    """Plain torch version of B2 (and of B4 on min_plus tiles)."""
     f = first[:nact].long()
     runs = torch.cumsum(f, 0) - 1
     return _runs_into_blocks(bg, perm[:nact], runs, dbid[:nact][f == 1],

@@ -179,6 +179,27 @@ def test_traverse_plain_spmv(graphs, backend, direction, sr_name):
     _io_equal(st_t, st_r)
 
 
+@pytest.mark.parametrize("backend", ["blocked", "blocked_compact"])
+@pytest.mark.parametrize("direction", ["out", "in"])
+@pytest.mark.parametrize("chunk_cap", [None, 4])
+def test_traverse_min_plus_lanes(graphs, backend, direction, chunk_cap):
+    """WCC-shaped supersteps through the min_plus tile kernels' CPU route:
+    K label lanes (unreached = +inf), the compact band on and off."""
+    ref, port = graphs["min_plus"]
+    rng = np.random.default_rng(14)
+    x = _x(ref.n, "min_plus", 2, seed=15)
+    x[rng.random(x.shape) < 0.25] = np.inf
+    act = rng.random(ref.n) < 0.2
+    kw = dict(backend=backend, direction=direction, switch_fraction=None,
+              chunk_cap=chunk_cap)
+    y_r, st_r = reng.traverse(ref, jnp.asarray(x), jnp.asarray(act),
+                              rsr.MIN_PLUS, policy=reng.ExecutionPolicy(**kw))
+    y_t, st_t = teng.traverse(port, torch.as_tensor(x), torch.as_tensor(act),
+                              tsr.MIN_PLUS, policy=teng.ExecutionPolicy(**kw))
+    _eq(y_t, y_r)
+    _io_equal(st_t, st_r)
+
+
 @pytest.mark.parametrize("direction", ["out", "in"])
 def test_flat_spmv(graphs, direction):
     ref, port = graphs["plus_times"]

@@ -111,8 +111,9 @@ def test_views_are_cached(sessions):
 
 def test_later_slices_raise(sessions):
     _, port = sessions
-    with pytest.raises(NotImplementedError, match="A9"):
-        port.pagerank(policy=repro_torch.ExecutionPolicy(residency="host"))
+    with pytest.raises(NotImplementedError, match="A12"):
+        port.pagerank(policy=repro_torch.ExecutionPolicy(residency="host"),
+                      checkpoint=object())
     with pytest.raises(NotImplementedError, match="A10"):
         port.pagerank(reset=[0, 1])
     with pytest.raises(NotImplementedError, match="A10"):

@@ -1,13 +1,14 @@
-"""The port's blocked SpMV (kernels B1/B2 and their plain versions) against
+"""The port's blocked SpMV (kernels B1-B4 and their plain versions) against
 the reference's Pallas kernels in interpret mode.
 
 Inputs are made with numpy from a seed and handed to both packages.  The
 schedule helpers (``compact_tile_order``, ``tile_activity``,
-``x_fetch_count``) must agree exactly; the products agree within f32
-rounding (``atol=rtol=1e-5``: the tile products sum in another order);
-the tile counters exactly.  On the CPU the wrappers run the plain torch
-versions; the CUDA kernels themselves are held against those in
-``tests/test_torch_cuda.py``, which needs a card.
+``x_fetch_count``) must agree exactly; plus_times products agree within
+f32 rounding (``atol=rtol=1e-5``: the tile products sum in another order),
+min_plus products (B3/B4) bit for bit; the tile counters exactly.  On the
+CPU the wrappers run the plain torch versions; the CUDA kernels themselves
+are held against those in ``tests/test_torch_cuda.py``, which needs a
+card.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +17,7 @@ import torch
 
 from repro.graph.generators import erdos_renyi, rmat
 from repro.kernels import spmv as rk
+from repro.kernels.spmv import kernel as rpk
 
 from repro_torch.kernels import spmv as tk
 
@@ -122,13 +124,78 @@ def test_ref_twin_matches_reference_oracle(semiring):
 
 def test_cpu_wrappers_launch_nothing():
     """On a CPU tensor the wrappers run the plain versions and count no
-    kernel launch."""
-    g, _, tbg = _views()
+    kernel launch, on plus_times and min_plus tiles alike."""
     tk.reset_launches()
-    x = torch.ones(g.n)
-    tk.blocked_spmv(tbg, x)
-    tk.blocked_spmv(tbg, x, compact=True)
-    assert tk.launches == {"spmv_blocked": 0, "spmv_blocked_compact": 0}
+    for semiring in ("plus_times", "min_plus"):
+        g, _, tbg = _views(semiring=semiring)
+        x = torch.ones(g.n)
+        tk.blocked_spmv(tbg, x)
+        tk.blocked_spmv(tbg, x, compact=True)
+    assert tk.launches == {"spmv_blocked": 0, "spmv_blocked_compact": 0,
+                           "spmv_blocked_min_plus": 0,
+                           "spmv_blocked_compact_min_plus": 0}
+
+
+@pytest.mark.parametrize("compact", [False, True])
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("order", ["dest", "hilbert"])
+@pytest.mark.parametrize("density", [1.0, 0.15])
+def test_min_plus_wrappers_match_pallas(compact, k, order, density):
+    """B3/B4's wrappers (their plain versions on the CPU) against the
+    reference's min_plus Pallas bodies in interpret mode: bit for bit, as
+    min is order-free and each w + x rounds once."""
+    g, rbg, tbg = _views(order, semiring="min_plus", seed=4)
+    rng = np.random.default_rng(k)
+    x = rng.integers(0, 50, (rbg.n_src_blocks * rbg.bs, k)).astype(np.float32)
+    x[rng.random(x.shape) < 0.2] = np.inf  # unreached labels
+    x_blocks = x.reshape(rbg.n_src_blocks, rbg.bs, k)
+    act = _frontier(g.n, density, seed=k)
+    r_act = rk.tile_activity(rbg, jnp.asarray(act))
+    t_act = tk.tile_activity(tbg, torch.as_tensor(act))
+    if compact:
+        perm, dbid, sbid, first, last, accum, nact = rk.compact_tile_order(
+            rbg, r_act)
+        want = rpk.spmv_pallas_compact(
+            rbg.tiles, perm, dbid, sbid, first, last, accum,
+            jnp.asarray([nact], jnp.int32), jnp.asarray(x_blocks),
+            rbg.n_dst_blocks, semiring="min_plus", interpret=True)
+        args = tk.compact_tile_order(tbg, t_act)
+        got = tk.spmv_blocked_compact(tbg, *args[:6], args[6],
+                                      torch.as_tensor(x_blocks))
+        flushed = np.zeros(rbg.n_dst_blocks, bool)
+        flushed[np.asarray(rbg.dbid)[np.asarray(r_act) > 0]] = True
+    else:
+        want = rpk.spmv_pallas(
+            rbg.tiles, rbg.dbid, rbg.sbid, rbg.first, rbg.last, rbg.accum,
+            r_act, jnp.asarray(x_blocks), rbg.n_dst_blocks,
+            semiring="min_plus", interpret=True)
+        got = tk.spmv_blocked(tbg, t_act, torch.as_tensor(x_blocks))
+        flushed = np.zeros(rbg.n_dst_blocks, bool)
+        flushed[np.asarray(rbg.dbid)] = True
+    # only flushed blocks are defined outputs of the kernels
+    np.testing.assert_array_equal(got.numpy()[flushed],
+                                  np.asarray(want)[flushed])
+
+
+@pytest.mark.parametrize("semiring", ["plus_times", "min_plus"])
+def test_tile_batch_view_matches_full_view(semiring):
+    """A batch-local ``TileBatch`` (staged tiles + their global source
+    blocks), as host residency builds it, gives the full view's result."""
+    g, _, tbg = _views("hilbert", semiring=semiring, seed=6)
+    x = torch.as_tensor(np.random.default_rng(1).random(
+        (tbg.n_src_blocks, tbg.bs, 2)), dtype=torch.float32)
+    act = tk.tile_activity(tbg, torch.as_tensor(_frontier(g.n, 0.4, seed=2)))
+    perm, dbid, sbid, first, last, accum, nact = tk.compact_tile_order(tbg,
+                                                                       act)
+    want = tk.spmv_blocked_compact(tbg, perm, dbid, sbid, first, last, accum,
+                                   nact, x)
+    ids = perm[:nact].long()
+    view = tk.TileBatch(tiles=tbg.tiles[ids], sbid=tbg.sbid[ids], n=tbg.n,
+                        bd=tbg.bd, bs=tbg.bs, semiring=semiring)
+    local = torch.arange(nact, dtype=torch.int32)
+    got = tk.spmv_blocked_compact(view, local, dbid, sbid[:nact], first, last,
+                                  accum, nact, x)
+    assert torch.equal(got, want)
 
 
 def test_plain_matches_coo_ground_truth():
