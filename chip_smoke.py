@@ -5,34 +5,65 @@
 
 Phases, each of which raises (and so exits non-zero) on failure:
 
-  1. build   — compile ``src/repro_torch/csrc/spmv.cu`` (kernels B1-B4) for
-               sm_90a with nvcc (into the git-ignored ``build/kernels/``).
-  2. graph   — ``rmat(16, edge_factor=16, seed=1)``: n=65,536, m=955,396;
+  1. build     — compile ``src/repro_torch/csrc/spmv.cu`` (kernels B1-B4)
+                 and ``decode_attn.cu`` (B5) for sm_90a, one nvcc each,
+                 started together (into the git-ignored ``build/kernels/``);
+                 logs ptxas's registers and spills.
+
+  The LM slice runs first, while the card holds nothing else:
+
+  2. lm_kernel — B5 against its plain version on the card within
+                 atol=rtol=1e-4 (the same inputs, f32 math in another
+                 summation order): the serve shape (B=4, KV=1, G=8, hd=256,
+                 T=1024) in bf16 and f32 at several fill levels, a rotated
+                 slot order, gemma3-4b's window 1024 over T=8192 (whole
+                 blocks skipped), an empty row (must be 0), KV=4 with G=2.
+  3. lm_serve  — ``serve_batch('gemma-2b', smoke=False, n_requests=8,
+                 max_batch=4, max_new=16, max_len=1024, seed=0)`` at the
+                 published width and depth, weights from the port's own
+                 ``Model.init`` with a seeded generator; the cache wraps past
+                 1024.  B5's count is zeroed just before and read just
+                 after: it must be 18 x decode_steps.  Logs ms per decode
+                 step, tokens/s and the weight-streaming bound of a step.
+                 Then 32 teacher-forced steps of the same tokens through B5
+                 and through the plain attention (one set of weights): logits
+                 within 0.05 x max|logits|, argmax equal wherever the plain
+                 run's top-two margin exceeds twice that.
+  4. lm_time   — B5 beside its bound, its plain version and one
+                 ``scaled_dot_product_attention`` call at (a) the serve shape
+                 and (b) the decode_32k shape (B=128, T=32,768, 4.3 GB of K/V)
+                 full and with half its blocks unneeded.
+  5. lm_profile — device time and idle share over 32 decode steps of the
+                 full-width serve loop.
+
+  The graph slices (views freed of the LM's weights):
+
+  6. graph   — ``rmat(16, edge_factor=16, seed=1)``: n=65,536, m=955,396;
                its 128x128 f32 tile view (239,398 tiles, ~15.7 GB) lives on
                the card.
-  3. main    — after one warm-up run per backend and residency on rmat(10),
+  7. main    — after one warm-up run per backend and residency on rmat(10),
                the slice-1 path through ``repro_torch.Graph``:
                ``pagerank()`` push and pull and ``bfs(0)``/``bfs(hub)`` on the
                backends scan, compact, blocked and blocked_compact, plus
                ``bfs([0, 1, 2, 3])`` on blocked.  Kernel launch counts are
                zeroed just before and read just after; B1 and B2 must have
                run.
-  4. check   — BFS levels equal across backends and equal a numpy BFS of the
+  8. check   — BFS levels equal across backends and equal a numpy BFS of the
                host CSR; K-lane BFS equals K single-source numpy BFS runs;
                PageRank agrees across backends (atol 1e-6, rtol 1e-5) and
                with a numpy power iteration within the push/pull error bound
                (L1 <= tol / (1 - damping)); BFS IOStats agree field for field
                between backends sharing a layout and in the layout-free
                fields (messages, supersteps) across all four.
-  5. wcc     — ``Graph.run(WCC)`` (min-label propagation, the MIN_PLUS
+  9. wcc     — ``Graph.run(WCC)`` (min-label propagation, the MIN_PLUS
                program of ``examples/custom_program.py``) on
                ``rmat(16, edge_factor=16, seed=1, symmetrize=True)``
                (n=65,536, m=1,820,044; its min_plus tile view holds 257,273
                tiles, ~16.9 GB) on all four backends, device residency, with
                the counts zeroed just before and read just after: B3 and B4
                must have run.  Labels equal across backends and equal a
-               numpy union-find labelling; IOStats as in phase 4.
-  6. host    — host residency (edges in host RAM, streamed per superstep)
+               numpy union-find labelling; IOStats as in phase 8.
+  10. host    — host residency (edges in host RAM, streamed per superstep)
                against device residency in this process:
                (a) ``rmat(20, edge_factor=16, seed=1)`` (n=1,048,576) on scan
                    and compact: ``pagerank()`` push and pull (pull capped
@@ -54,19 +85,19 @@ Phases, each of which raises (and so exits non-zero) on failure:
                streamed bytes per second beside the pinned host-to-device
                rate of a plain 1 GB copy.  Host launches of B2/B4 are counted
                apart from the main paths'.
-  7. kernels — B1-B4 held against their plain torch versions on the card
+  11. kernels — B1-B4 held against their plain torch versions on the card
                (K=1 and K=4; full and n/8 frontiers; the 'dest' views at the
                main paths' shapes and 'hilbert' views of rmat(14)): B1/B2
                within atol=rtol=1e-5, B3/B4 with ``torch.equal``.
-  8. time    — each kernel at K=1 beside its bound, its plain version and a
+  12. time    — each kernel at K=1 beside its bound, its plain version and a
                library call over the same live edges (``torch.sparse.mm``
                for B1/B2, ``scatter_reduce_(..., 'amin')`` for B3/B4).
-  9. profile — device time and idle share of blocked PageRank, blocked BFS,
+  13. profile — device time and idle share of blocked PageRank, blocked BFS,
                host scan PageRank (10 supersteps) and host blocked_compact
                WCC.
 
-Prints the card's ``name, power.limit``, a ``{"kernels": [...]}`` line and,
-last, ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA
+Prints the card's ``name, power.limit``, a ``{"kernels": [...]}`` line
+(B1-B5) and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA
 device, and when the repository's ``src/`` is not beside it.
 """
 from __future__ import annotations
@@ -76,6 +107,7 @@ import subprocess
 import sys
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -808,6 +840,322 @@ def phase_profile(runs, torch) -> dict:
     return out
 
 
+# ------------------------------------------------------------ LM phases
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+LM_ATOL = LM_RTOL = 1e-4  # B5 vs plain: same inputs, f32 math, other order
+LM_ARCH = "gemma-2b"
+# serve_batch's arguments in the lm_serve phase (the reference's defaults
+# but for max_len, which makes the cache wrap: ~2,100 steps > 1,024 slots)
+SERVE = dict(n_requests=8, max_batch=4, max_new=16, max_len=1024, seed=0)
+TEACHER_STEPS = PROFILE_STEPS = 32
+LOGIT_BOUND = 0.05  # tests/test_serving_parity.py:73
+B5 = "decode_attention"
+
+
+def _attn_case(dev, torch, b, kv, g, hd, t, dtype, fill, seed,
+               rotate=False):
+    """Random q/k/v and a cache of ``t`` slots filled with positions
+    0..fill[i]-1 (row i; -1 beyond), or after ``fill[i]`` steps of a
+    rotating cache (slot = pos % t) when ``rotate``; cur = fill - 1."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, kv * g, hd), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, t, kv, hd), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, t, kv, hd), generator=gen, device=dev).to(dtype)
+    slots = torch.arange(t, device=dev)
+    rows = []
+    for f in fill:
+        if rotate:
+            last = f - 1  # the newest position; slot s holds the newest p
+            rows.append(last - (last - slots) % t)  # with p % t == s
+        else:
+            rows.append(torch.where(slots < f, slots, -1))
+    pos = torch.stack(rows).to(torch.int32)
+    cur = torch.tensor([f - 1 for f in fill], dtype=torch.int32, device=dev)
+    return q, k, v, pos, cur
+
+
+def phase_lm_kernel(torch, dev="cuda"):
+    """B5 against its plain version (``atol=rtol=1e-4`` on the f32 output:
+    the same bf16/f32 inputs, f32 math in another summation order).
+    Returns the largest error."""
+    from repro_torch.kernels import decode_attn as tda
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [
+        # name, (b, kv, g, hd, t, dtype, fill), window, rotate
+        ("serve bf16, fills 1/200/700/1024",
+         (4, 1, 8, 256, 1024, bf16, (1, 200, 700, 1024)), 0, False),
+        ("serve f32, fills 1/200/700/1024",
+         (4, 1, 8, 256, 1024, f32, (1, 200, 700, 1024)), 0, False),
+        ("serve bf16, rotated slots after 1500/1030/2049/1024 steps",
+         (4, 1, 8, 256, 1024, bf16, (1500, 1030, 2049, 1024)), 0, True),
+        ("gemma3 window 1024 over T=8192",
+         (2, 4, 2, 256, 8192, bf16, (8192, 5000)), 1024, False),
+        ("empty row (fill 0) beside a full one",
+         (2, 1, 8, 256, 1024, bf16, (0, 1024)), 0, False),
+        ("KV=4 G=2 (gemma3's grouping), fills 300/1024",
+         (2, 4, 2, 256, 1024, bf16, (300, 1024)), 0, False),
+    ]
+    worst = 0.0
+    for i, (name, (b, kv, g, hd, t, dtype, fill), window, rot) in enumerate(
+            cases):
+        q, k, v, pos, cur = _attn_case(dev, torch, b, kv, g, hd, t, dtype,
+                                       fill, seed=i, rotate=rot)
+        bt = tda.block_size(t)
+        live = tda.live_blocks(pos, cur, bt, window)
+        got = tda.decode_attention(q, k, v, pos, cur, window=window)
+        want = tda.decode_attention_plain(q, k, v, pos, cur, window=window)
+        torch.testing.assert_close(got, want, atol=LM_ATOL, rtol=LM_RTOL)
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        for row, f in enumerate(fill):
+            if f == 0 and torch.count_nonzero(got[row]):
+                raise AssertionError(f"{name}: an empty row is not 0")
+        log(f"lm_kernel {name}: live blocks {int(live.sum())}/{live.numel()}"
+            f" max_abs_err={err:.3g}")
+        if window and int(live.sum()) * 4 > live.numel():
+            raise AssertionError(f"{name}: the window skips no block")
+    return worst
+
+
+def phase_lm_serve(torch, arch=LM_ARCH, dev="cuda", serve=SERVE,
+                   smoke=False):
+    """The slice-3 main path: ``serve_batch`` at the configuration's full
+    width and depth, B5's count zeroed just before and read just after;
+    then teacher-forced steps through B5 against the plain attention."""
+    import numpy as np
+
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.kernels import decode_attn as tda
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import build_model
+
+    cfg = get_smoke(arch) if smoke else get_config(arch)
+    model = build_model(cfg, dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(params))
+    w_bytes = sum(p.numel() * p.element_size() for p in _leaves(params))
+    log(f"lm_serve: {cfg.name} {cfg.n_layers} layers d={cfg.d_model} "
+        f"heads={cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim} "
+        f"d_ff={cfg.d_ff} vocab={cfg.vocab}: {n_params} parameters, "
+        f"{w_bytes / 1e9:.3f} GB of bf16 weights on the card, initialised "
+        f"in {time.perf_counter() - t0:.1f} s")
+
+    tda.reset_launches()
+    res = serve_batch(arch, smoke=smoke, device=dev, params=params, **serve)
+    launched = tda.launches[B5]
+    steps = res["decode_steps"]
+    log(f"lm_serve launches: {{'{B5}': {launched}}} for {steps} decode "
+        f"steps x {cfg.n_layers} layers")
+    if launched != cfg.n_layers * steps:
+        raise AssertionError(f"B5 ran {launched} times, not "
+                             f"{cfg.n_layers} x {steps}")
+    want_tokens = serve["n_requests"] * serve["max_new"]
+    outs = [t for v in res["outputs"].values() for t in v]
+    if res["tokens"] != want_tokens or not all(0 <= t < cfg.vocab
+                                               for t in outs):
+        raise AssertionError(f"serve_batch: {res['tokens']} tokens, "
+                             f"ids {min(outs)}..{max(outs)}")
+    if steps <= serve["max_len"]:
+        raise AssertionError(f"{steps} steps never wrap the "
+                             f"{serve['max_len']}-slot cache")
+    cache_bytes = (cfg.n_layers * 2 * serve["max_batch"] * serve["max_len"]
+                   * cfg.n_kv_heads * cfg.head_dim * 2)
+    bound_ms = (w_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+    step_ms = res["seconds"] / steps * 1e3
+    log(f"lm_serve: {res['tokens']} tokens, {steps} decode steps in "
+        f"{res['seconds']:.3f} s: {step_ms:.3f} ms per step, "
+        f"{res['tokens'] / res['seconds']:.2f} generated tok/s, "
+        f"{steps * serve['max_batch'] / res['seconds']:.1f} slot-tokens/s; "
+        f"weight-streaming bound {bound_ms:.3f} ms per step "
+        f"({w_bytes / 1e9:.3f} GB weights + {cache_bytes / 1e9:.3f} GB "
+        f"cache over 3.35 TB/s)")
+
+    # Teacher-forced: the same tokens through B5 and through the plain
+    # attention, one set of weights, two caches.
+    from repro_torch.kernels.decode_attn import decode_attention_plain
+
+    plain = build_model(cfg, dev, attention=decode_attention_plain)
+    b = serve["max_batch"]
+    ca = model.init_cache(b, serve["max_len"])
+    cb = plain.init_cache(b, serve["max_len"])
+    tokens = np.random.default_rng(1).integers(1, cfg.vocab,
+                                               (TEACHER_STEPS, b, 1))
+    worst = unsure = 0
+    for s in range(TEACHER_STEPS):
+        tok = torch.as_tensor(tokens[s], device=dev)
+        la, ca = model.decode_step(params, ca, tok)
+        lb, cb = plain.decode_step(params, cb, tok)
+        if not (torch.isfinite(la).all() and torch.isfinite(lb).all()):
+            raise AssertionError(f"teacher step {s}: non-finite logits")
+        scale = max(float(lb.abs().max()), 1.0)
+        err = float((la - lb).abs().max())
+        if err >= LOGIT_BOUND * scale:
+            raise AssertionError(f"teacher step {s}: |B5 - plain| {err} >= "
+                                 f"{LOGIT_BOUND} x {scale}")
+        top2 = lb.topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > 2 * LOGIT_BOUND * scale
+        if not torch.equal(la.argmax(-1)[sure], lb.argmax(-1)[sure]):
+            raise AssertionError(f"teacher step {s}: argmax differs")
+        worst = max(worst, err / scale)
+        unsure += int((~sure).sum())
+    log(f"lm_serve teacher-forced: {TEACHER_STEPS} steps x {b} rows, B5 "
+        f"against the plain attention: max |dlogits| / max|logits| = "
+        f"{worst:.3g} (bound {LOGIT_BOUND}); argmax equal on every row with "
+        f"a clear margin ({unsure} rows within the margin)")
+    del plain, ca, cb
+    return model, params, res, dict(step_ms=step_ms, bound_ms=bound_ms,
+                                    launches=launched)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def attn_bound(q, k, pos, cur, window, torch):
+    """(bound_ms, bound_by) of one decode attention: the bytes of the live
+    K/V blocks, all of ``pos``, q and the f32 output over the memory rate,
+    against 4 operations per query head, live slot and head_dim column
+    (q.k and p.v) over the bf16 tensor-core peak."""
+    from repro_torch.kernels import decode_attn as tda
+
+    b, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    bt = tda.block_size(t)
+    n_live_blocks = int(tda.live_blocks(pos, cur, bt, window).sum())
+    valid = (pos >= 0) & (pos <= cur[:, None])
+    if window:
+        valid &= pos > cur[:, None] - window
+    live_slots = int(valid.sum())
+    nbytes = (n_live_blocks * bt * kv * hd * 2 * k.element_size()
+              + pos.numel() * 4 + q.numel() * q.element_size()
+              + b * h * hd * 4)
+    ops = 4.0 * h * hd * live_slots
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def sdpa_call(q, k, v, pos, cur, window, torch):
+    """One ``scaled_dot_product_attention`` computing B5's function (timed
+    only, never used by the port): the G query heads of each KV head as G
+    query rows against that head's K/V, a boolean mask over the slots.
+    This is grouped-query attention without ``enable_gqa=True``, whose
+    masked path repeats K/V once per query head (8x 4.3 GB at the
+    decode_32k shape)."""
+    import torch.nn.functional as F
+
+    b, h, hd = q.shape
+    kv = k.shape[2]
+    qg = q.reshape(b, kv, h // kv, hd)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)  # [B, KV, T, hd] views
+    valid = (pos >= 0) & (pos <= cur[:, None])
+    if window:
+        valid &= pos > cur[:, None] - window
+    mask = valid[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(qg, kt, vt, attn_mask=mask)
+
+
+def _time_attn(name, sets, torch):
+    """Time B5, its plain version and one SDPA call over ``sets`` of
+    (q, k, v, pos, cur), taken in turn; check B5 on the first set (on 8
+    rows where the plain version's f32 upcast of a large cache would not
+    fit beside it)."""
+    from repro_torch.kernels import decode_attn as tda
+
+    turn = [0]
+
+    def cycle(fn):
+        def run():
+            turn[0] += 1
+            return fn(turn[0] % len(sets))
+        return run
+
+    libs = [sdpa_call(*s, 0, torch) for s in sets]
+    q, k, v, pos, cur = sets[0]
+    b, t = pos.shape
+    bound_ms, bound_by = attn_bound(q, k, pos, cur, 0, torch)
+    ms = cuda_ms(cycle(lambda i: tda.decode_attention(*sets[i])), reps=50)
+    lib_ms = cuda_ms(cycle(lambda i: libs[i]()), reps=20)
+    big = b > 8
+    plain_ms = cuda_ms(cycle(lambda i: tda.decode_attention_plain(*sets[i])),
+                       reps=2 if big else 20, warmup=1)
+    rows = [x[:8] for x in sets[0]] if big else sets[0]
+    got, want = tda.decode_attention(*rows), tda.decode_attention_plain(*rows)
+    torch.testing.assert_close(got, want, atol=LM_ATOL, rtol=LM_RTOL)
+    err = float((got - want).abs().max())
+    live = tda.live_blocks(pos, cur, tda.block_size(t))
+    log(f"time {B5} ({name}): B={b} T={t} live blocks "
+        f"{int(live.sum())}/{live.numel()}, K/V "
+        f"{2 * k.numel() * k.element_size() / 1e9:.3f} GB x {len(sets)} "
+        f"copies: ms={ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
+        f"plain_ms={plain_ms:.3f} library_ms={lib_ms:.4f} "
+        f"max_abs_err={err:.3g}" + (" (checked on 8 rows)" if big else ""))
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by, err=err)
+
+
+def phase_lm_time(torch, dev="cuda", copies=18, big=(128, 32768)):
+    """B5 at bf16 K/V: (a) the serve shape B=4, KV=1, G=8, hd=256, T=1024
+    over 18 copies taken in turn (one per layer, 75 MB: the serve loop finds
+    them cold in L2); (b) the decode_32k shape (``configs/base.py``:
+    B=128, T=32768) at gemma-2b's heads, 4.3 GB of K/V, full and with half
+    its blocks unneeded (cur = T/2 - 1)."""
+    bf16 = torch.bfloat16
+    rows = {}
+    sets = [_attn_case(dev, torch, 4, 1, 8, 256, 1024, bf16, (1024,) * 4,
+                       seed=100 + i) for i in range(copies)]
+    rows["a"] = _time_attn("a, serve shape", sets, torch)
+    del sets
+    b, t = big
+    q, k, v, pos, cur = _attn_case(dev, torch, b, 1, 8, 256, t, bf16,
+                                   (t,) * b, seed=200)
+    rows["b_full"] = _time_attn("b, decode_32k full", [(q, k, v, pos, cur)],
+                                torch)
+    rows["b_half"] = _time_attn("b, decode_32k half the blocks unneeded",
+                                [(q, k, v, pos, cur // 2)], torch)
+    del q, k, v, pos, cur
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_lm_profile(model, params, torch, steps=PROFILE_STEPS,
+                     batch=4, max_len=1024):
+    """Device time and idle share over ``steps`` decode steps of the
+    full-width serve loop: its decode step, on a cache that has wrapped (as
+    the serve phase's is after its first 1,024 steps), so every block is
+    live."""
+    import numpy as np
+
+    from repro_torch.launch.steps import make_decode_step
+
+    decode = make_decode_step(model)
+    cache = model.init_cache(batch, max_len)
+    cache["len"] = last = max_len + 100
+    for c in cache["layers"]:  # slot s holds the newest p with p % T == s
+        slots = torch.arange(c.pos.shape[1], device=model.device)
+        c.pos.copy_((last - 1 - (last - 1 - slots) % c.pos.shape[1])
+                    .expand_as(c.pos))
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        1, model.cfg.vocab, (steps, batch, 1)), device=model.device)
+
+    def run():
+        nonlocal cache
+        for s in range(steps):
+            nxt, _, cache = decode(params, cache, toks[s])
+        return nxt.cpu()
+
+    run()  # warm
+    out = phase_profile(((f"lm_serve/{steps}_decode_steps", run),), torch)
+    return next(iter(out.values()))
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -817,6 +1165,7 @@ def main() -> int:
         return 2
     import repro_torch
     from repro_torch.graph.generators import rmat
+    from repro_torch.kernels import decode_attn as tda
     from repro_torch.kernels.spmv import kernel as K
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -828,11 +1177,23 @@ def main() -> int:
     t_start = time.perf_counter()
 
     t0 = time.perf_counter()
-    lib = K.build_library()
-    log(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
-    for line in Path(str(lib) + ".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log(f"ptxas: {line.strip()}")
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
+        libs = list(pool.map(lambda build: build(),
+                             (K.build_library, tda.build_library)))
+    log(f"build: {', '.join(lib.name for lib in libs)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for lib in libs:
+        for line in Path(str(lib) + ".log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"ptxas {lib.name.split('_')[0][3:]}: {line.strip()}")
+
+    # The LM slice first, while the card holds nothing else.
+    lm_err = phase_lm_kernel(torch)
+    model, params, served, lm = phase_lm_serve(torch)
+    lm_times = phase_lm_time(torch)
+    lm_profile = phase_lm_profile(model, params, torch)
+    del model, params
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     g = rmat(16, edge_factor=16, seed=1)
@@ -879,6 +1240,22 @@ def main() -> int:
          "library_ms": times[name]["library_ms"]}
         for name in KERNELS
     ]
+    serve_t = lm_times["a"]
+    kernels.append(
+        {"name": B5, "route": "cuda",
+         "source": "src/repro_torch/csrc/decode_attn.cu",
+         "replaces": "src/repro/kernels/decode_attn/kernel.py:44",
+         "launches": lm["launches"],
+         "max_abs_err": max([lm_err] + [r["err"] for r in lm_times.values()]),
+         "ms": serve_t["ms"], "plain_ms": serve_t["plain_ms"],
+         "bound_ms": serve_t["bound_ms"], "bound_by": serve_t["bound_by"],
+         "library_ms": serve_t["library_ms"]})
+    log("lm: " + json.dumps({
+        "decode_steps": served["decode_steps"], "tokens": served["tokens"],
+        "seconds": served["seconds"], "ms_per_step": lm["step_ms"],
+        "bound_ms_per_step": lm["bound_ms"],
+        "idle_share": 1 - lm_profile["device_ms"] / lm_profile["wall_ms"],
+        "b5_decode_32k": {k: lm_times[k] for k in ("b_full", "b_half")}}))
     main_ms = {f"{b}/{r}": round(v, 3) for (b, r), v in wall.items()}
     log(f"main path wall ms: {json.dumps(main_ms)}")
     log(f"wcc wall ms: {json.dumps({b: round(v, 3) for b, v in wcc_wall.items()})}")

@@ -7,8 +7,9 @@ namespace holding the same fields — reads every array leaf with
 CUDA device).  Feeding
 both packages byte-identical edge stores this way lets a test hold the
 port's engine against the reference on the same inputs, and check that the
-port's own tilers reproduce them.  Nothing here imports ``repro`` or
-``jax``: the objects are read by attribute.
+port's own tilers reproduce them.  :func:`model_params` does the same for
+a language model's parameter tree.  Nothing here imports ``repro``,
+``jax`` or ``ml_dtypes``: the objects are read by attribute.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from ._device import resolve_device
 from .core.sem import EdgeChunkStore, SemGraph
 from .kernels.spmv.ops import BlockedGraph, blocked_graph
 
-__all__ = ["blocked_view", "edge_store", "sem_graph"]
+__all__ = ["blocked_view", "edge_store", "model_params", "sem_graph"]
 
 
 def _arr(a, device):
@@ -74,3 +75,26 @@ def sem_graph(sg, device=None) -> SemGraph:
         out_blocked=opt(sg.out_blocked, blocked_view),
         out_blocked_rev=opt(sg.out_blocked_rev, blocked_view),
     )
+
+
+def _leaf(a, device) -> torch.Tensor:
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        # ml_dtypes.bfloat16, which torch.from_numpy refuses: carry the bits
+        bits = torch.from_numpy(a.view(np.uint16).view(np.int16).copy())
+        return bits.view(torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def model_params(np_tree, device=None):
+    """The port's parameter tree from the JAX package's, read leaf by leaf
+    as numpy arrays (``jax.tree.map(np.asarray, params)``): the same nested
+    dict keys, shapes, layouts and dtypes, bf16 leaves bit for bit."""
+    device = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return _leaf(node, device)
+
+    return walk(np_tree)

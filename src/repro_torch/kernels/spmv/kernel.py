@@ -36,19 +36,18 @@ key per kernel.  'bool' occupancy tiles run the plus_times kernels.
 
 The shared library is built with ``nvcc`` at first use into
 ``build/kernels/`` at the repository root (git-ignored), keyed by the
-source's hash, and loaded with ``ctypes``.
+source's hash (:mod:`repro_torch.kernels.build`), and loaded with
+``ctypes``.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
+
+from .. import build
 
 __all__ = [
     "TileBatch",
@@ -61,8 +60,6 @@ __all__ = [
     "spmv_blocked_compact",
 ]
 
-_SRC = Path(__file__).resolve().parents[2] / "csrc" / "spmv.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
 _ROWS_PER_CTA = 32  # rows of a destination block per thread block (spmv.cu)
 _MAX_K = 192  # lanes the kernel's 48 KB of shared accumulators hold
 _PLAIN_CHUNK = 512  # tiles per batched product in the plain versions
@@ -114,24 +111,8 @@ class TileBatch:
 
 def build_library() -> Path:
     """Compile ``csrc/spmv.cu`` for ``sm_90a`` (once per source hash) and
-    return the shared library's path.  ``nvcc``'s ``-Xptxas -v`` report is
-    kept beside it as ``<lib>.log``."""
-    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    out = _BUILD_DIR / f"libspmv_{digest}.so"
-    if out.exists():
-        return out
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", str(tmp), str(_SRC)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    out.with_name(out.name + ".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
-    return out
+    return the shared library's path (see :mod:`repro_torch.kernels.build`)."""
+    return build.build_library("spmv")
 
 
 def _library():

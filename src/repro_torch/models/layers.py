@@ -1,0 +1,141 @@
+"""Shared neural-net building blocks: the torch twin of the JAX package's
+``repro/models/layers.py`` (plain functions on tensors, bf16 by default).
+
+The reference's ``shard_ctx.constrain`` calls are left out: with no mesh
+they do nothing.  Parameters are nested dicts of tensors with the JAX
+tree's keys, shapes and layouts.  Only what the dense family uses is here:
+the untied head, learned positions, the ungated MLP and M-RoPE come with
+the families that use them (ROADMAP §A A15).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ModelConfig
+from .param import Mk
+
+__all__ = [
+    "apply_rope",
+    "embed",
+    "init_embedding",
+    "init_mlp",
+    "init_rmsnorm",
+    "mlp",
+    "residual_add",
+    "rmsnorm",
+    "rope",
+    "unembed",
+]
+
+
+def residual_add(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """``x + h`` on the residual stream, rounded to bf16.
+
+    The reference pins ``h`` and the sum to bf16 with
+    ``lax.reduce_precision`` so that XLA cannot keep them in f32 inside a
+    compiled layer.  torch runs eagerly: a bf16 ``h`` is already rounded and
+    a bf16 add rounds its sum, so plain bf16 arithmetic is the same.
+    """
+    if x.dtype != torch.bfloat16:
+        return x + h
+    return x + h.to(x.dtype)
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * (1.0 + w.float())
+    return out.to(x.dtype)
+
+
+def init_rmsnorm(mk: Mk, d: int, layers: Optional[int] = None):
+    # Stored as (scale - 1) like gemma/llama so zeros-init is identity.
+    return {"w": mk.param((d,), init="zeros", layers=layers)}
+
+
+def init_mlp(mk: Mk, cfg: ModelConfig, layers: Optional[int] = None):
+    d, ff = cfg.d_model, cfg.d_ff
+    return {
+        "up": mk.param((d, ff), layers=layers),
+        "down": mk.param((ff, d), layers=layers),
+        "gate": mk.param((d, ff), layers=layers),
+    }
+
+
+def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "silu":
+        return F.silu(x)
+    if kind == "gelu":
+        return F.gelu(x, approximate="tanh")
+    raise ValueError(kind)
+
+
+def mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Gated MLP: GeGLU or SwiGLU."""
+    h = _act(x @ p["gate"], cfg.act) * (x @ p["up"])
+    return h @ p["down"]
+
+
+def init_embedding(mk: Mk, cfg: ModelConfig):
+    # d^-0.5 table init keeps tied-unembed logits O(1) at init (archs with
+    # embed_scale multiply inputs back up by sqrt(d), gemma-style).
+    return {"table": mk.param((cfg.vocab_padded, cfg.d_model),
+                              scale=cfg.d_model**-0.5)}
+
+
+def embed(p, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    x = p["table"][tokens]
+    if cfg.embed_scale:
+        # a constant of the activation dtype, as the reference's
+        # jnp.asarray(sqrt(d), x.dtype): sqrt(2048) = 45.2548 is 45.25 in bf16
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    return x
+
+
+def unembed(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """f32 logits [..., V] of a bf16 product with the tied table, never
+    rounded to bf16.
+
+    On the card ``torch.mm(..., out_dtype=torch.float32)`` accumulates in
+    f32 and writes f32 from the bf16 operands, as the reference's
+    ``preferred_element_type``.  The CPU build has no such ``mm``: there
+    both operands are upcast, which gives the same exact f32 products.
+    """
+    table = p["table"].T
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if x2.device.type == "cuda":
+        logits = torch.mm(x2, table, out_dtype=torch.float32)
+    else:
+        logits = x2.float() @ table.float()
+    logits = logits.reshape(*lead, -1)
+    if cfg.vocab_padded > cfg.vocab:
+        # Padding columns (vocab rounded up for clean TP sharding) must
+        # never win the softmax/argmax.
+        logits[..., cfg.vocab:] = -1e30
+    return logits
+
+
+def rope(positions: torch.Tensor, dim: int, theta: float) -> tuple:
+    """cos/sin tables for ``positions`` [..., S] -> [..., S, dim/2]."""
+    exps = torch.arange(0, dim, 2, dtype=torch.float32,
+                        device=positions.device) / dim
+    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32), exps)
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """Rotary embedding on [..., S, H, hd] at positions [..., S]."""
+    half = x.shape[-1] // 2
+    xf = x.float()
+    x1, x2 = xf[..., :half], xf[..., half:]
+    cos, sin = rope(positions, x.shape[-1], theta)
+    cos, sin = cos[..., None, :], sin[..., None, :]  # broadcast over heads
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)

@@ -1,0 +1,51 @@
+"""Parameter creation: the torch twin of the JAX package's
+``repro/models/param.py`` factory, without its logical sharding axes (one
+card has no mesh).
+
+:class:`Mk` draws each parameter from one ``torch.Generator``: a
+fan-in-scaled normal drawn in f32 and cast to the parameter dtype (bf16 by
+default), or zeros.  Shapes, dtypes, scales and tree keys are the JAX
+tree's; the numbers are not, since ``torch`` and ``jax.random`` give
+different draws from one seed.  A test that needs both packages on the same
+weights carries the JAX tree across (``repro_torch.convert.model_params``).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+__all__ = ["Mk"]
+
+
+class Mk:
+    """Parameter factory over one generator and device.
+
+    ``layers=L`` draws a stack of ``L`` independent parameters of ``shape``
+    in one call, with the per-layer fan-in: the JAX package builds the same
+    stacked ``blocks`` tree by vmapping a per-layer init.
+    """
+
+    def __init__(self, generator: torch.Generator, device,
+                 dtype: torch.dtype = torch.bfloat16):
+        self.generator = generator
+        self.device = torch.device(device)
+        self.dtype = dtype
+
+    def param(
+        self,
+        shape: Tuple[int, ...],
+        *,
+        scale: Optional[float] = None,
+        init: str = "normal",
+        layers: Optional[int] = None,
+    ) -> torch.Tensor:
+        full = ((layers,) if layers else ()) + tuple(shape)
+        if init == "zeros":
+            return torch.zeros(full, dtype=self.dtype, device=self.device)
+        if scale is None:
+            fan_in = shape[0] if len(shape) > 1 else shape[-1]
+            scale = fan_in**-0.5
+        v = torch.randn(full, generator=self.generator, dtype=torch.float32,
+                        device=self.device)
+        return v.mul_(scale).to(self.dtype)

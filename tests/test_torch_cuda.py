@@ -9,7 +9,9 @@ the same inputs (``atol=rtol=1e-5``: a tile row's dot product sums in
 another order), B3/B4 with ``torch.equal`` (min is order-free), and the
 card's façade results against the CPU's and host residency against device
 residency (BFS, WCC and their IOStats exact, PageRank ``atol=1e-6,
-rtol=1e-5``).
+rtol=1e-5``).  Kernel B5 (decode attention) is held against its plain
+version within ``atol=rtol=1e-4``, and the LM serve path on the card must
+launch it on every layer of every step.
 """
 from typing import NamedTuple
 
@@ -20,7 +22,11 @@ import torch
 import repro_torch
 from repro_torch.core.semiring import MIN_PLUS
 from repro_torch.graph.generators import rmat
+from repro_torch.configs import get_smoke
+from repro_torch.kernels import decode_attn as tda
 from repro_torch.kernels import spmv as tk
+from repro_torch.launch.serve import serve_batch
+from repro_torch.models import build_model
 
 pytestmark = pytest.mark.cuda
 
@@ -179,3 +185,82 @@ def test_host_matches_device_on_card(card, backend):
     report = host.memory_report(hpol)
     assert report["device_edge_total"] == 0
     assert report["peak_stage_bytes"] > 0
+
+
+# ------------------------------------------------ B5: decode attention
+def _decode_inputs(card, b, kv, g, hd, t, dtype, seed):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn((b, kv * g, hd), generator=gen, device=card).to(dtype)
+    k = torch.randn((b, t, kv, hd), generator=gen, device=card).to(dtype)
+    v = torch.randn((b, t, kv, hd), generator=gen, device=card).to(dtype)
+    perm = torch.randperm(t, generator=gen, device=card)
+    pos = perm[None].repeat(b, 1).to(torch.int32)  # rotated slot order
+    return q, k, v, pos
+
+
+@pytest.mark.parametrize("b,kv,g,hd,t,dtype,window", [
+    (2, 1, 8, 256, 256, torch.bfloat16, 0),  # gemma-2b's heads
+    (3, 2, 4, 80, 96, torch.float32, 0),  # danube's head_dim, T % 128 != 0
+    (2, 4, 2, 64, 512, torch.bfloat16, 100),  # a window, gemma3's grouping
+])
+def test_decode_attn_kernel_matches_plain(card, b, kv, g, hd, t, dtype,
+                                          window):
+    """B5 against its plain version on the same inputs, ``atol=rtol=1e-4``
+    (the same f32 math over the same bf16/f32 inputs in another summation
+    order); the last row's cache is empty and must give 0."""
+    q, k, v, pos = _decode_inputs(card, b, kv, g, hd, t, dtype, seed=hd)
+    pos[-1] = -1
+    cur = torch.tensor([t // 2 + i for i in range(b)], dtype=torch.int32,
+                       device=card)
+    tda.reset_launches()
+    got = tda.decode_attention(q, k, v, pos, cur, window=window)
+    torch.cuda.synchronize()
+    assert tda.launches["decode_attention"] == 1
+    want = tda.decode_attention_plain(q, k, v, pos, cur, window=window)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    assert torch.count_nonzero(got[-1]) == 0
+
+
+def test_decode_attn_kernel_refuses_what_it_does_not_take(card):
+    q, k, v, pos = _decode_inputs(card, 1, 1, 32, 16, 64, torch.float32, 1)
+    cur = torch.zeros(1, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="query heads"):
+        tda.decode_attention(q, k, v, pos, cur)  # G = 32 > 16
+    q, k, v, pos = _decode_inputs(card, 1, 1, 4, 16, 64, torch.float32, 1)
+    with pytest.raises(TypeError, match="int32"):
+        tda.decode_attention(q, k, v, pos.long(), cur)
+    with pytest.raises(TypeError, match="share"):
+        tda.decode_attention(q, k.to(torch.bfloat16), v, pos, cur)
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "gemma3-4b"])
+def test_serve_batch_on_card_launches_b5(card, arch):
+    """A smoke-size ``serve_batch`` on the card runs every layer's
+    attention through B5, and its schedule is the CPU run's."""
+    tda.reset_launches()
+    res = serve_batch(arch, n_requests=4, max_batch=2, max_new=4,
+                      max_len=32, device=card)
+    n_layers = get_smoke(arch).n_layers
+    assert tda.launches["decode_attention"] == n_layers * res["decode_steps"]
+    cpu = serve_batch(arch, n_requests=4, max_batch=2, max_new=4,
+                      max_len=32, device="cpu")
+    assert res["decode_steps"] == cpu["decode_steps"]
+    assert res["tokens"] == cpu["tokens"] == 16
+
+
+def test_decode_step_kernel_matches_plain_route(card):
+    """Teacher-forced steps of one model through B5 and through the plain
+    attention: logits within 0.05 * max|logits| (the bound of
+    ``tests/test_serving_parity.py``)."""
+    cfg = get_smoke("gemma3-4b")
+    fast = build_model(cfg, card)
+    plain = build_model(cfg, card, attention=tda.decode_attention_plain)
+    params = fast.init(torch.Generator(device=card).manual_seed(2))
+    a, b = fast.init_cache(2, 12), plain.init_cache(2, 12)
+    tokens = np.random.default_rng(4).integers(1, cfg.vocab, (16, 2, 1))
+    for s in range(16):
+        tok = torch.as_tensor(tokens[s], device=card)
+        la, a = fast.decode_step(params, a, tok)
+        lb, b = plain.decode_step(params, b, tok)
+        scale = max(float(lb.abs().max()), 1.0)
+        assert float((la - lb).abs().max()) < 0.05 * scale
