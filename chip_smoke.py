@@ -40,7 +40,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
 
   6. graph   — ``rmat(16, edge_factor=16, seed=1)``: n=65,536, m=955,396;
                its 128x128 f32 tile view (239,398 tiles, ~15.7 GB) lives on
-               the card.
+               the card, with the row payload B1 reads (955,396 entries of
+               12 B, built from the tiles on the card): logs the payload's
+               build time and bytes.
   7. main    — after one warm-up run per backend and residency on rmat(10),
                the slice-1 path through ``repro_torch.Graph``:
                ``pagerank()`` push and pull and ``bfs(0)``/``bfs(hub)`` on the
@@ -59,7 +61,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
                program of ``examples/custom_program.py``) on
                ``rmat(16, edge_factor=16, seed=1, symmetrize=True)``
                (n=65,536, m=1,820,044; its min_plus tile view holds 257,273
-               tiles, ~16.9 GB) on all four backends, device residency, with
+               tiles, ~16.9 GB, and a row payload of 1,820,044 entries, whose
+               build time and bytes are logged) on all four backends, device
+               residency, with
                the counts zeroed just before and read just after: B3 and B4
                must have run.  Labels equal across backends and equal a
                numpy union-find labelling; IOStats as in phase 8.
@@ -85,16 +89,27 @@ Phases, each of which raises (and so exits non-zero) on failure:
                streamed bytes per second beside the pinned host-to-device
                rate of a plain 1 GB copy.  Host launches of B2/B4 are counted
                apart from the main paths'.
-  11. kernels — B1-B4 held against their plain torch versions on the card
-               (K=1 and K=4; full and n/8 frontiers; the 'dest' views at the
-               main paths' shapes and 'hilbert' views of rmat(14)): B1/B2
-               within atol=rtol=1e-5, B3/B4 with ``torch.equal``.
+  11. kernels — the row payload scattered back equals the dense tiles of
+               the full-size main and wcc views (a chunk of tiles at a time,
+               on the card); B1-B4 held against their plain torch versions
+               on the card (K=1 and K=4; full and n/8 frontiers; the 'dest'
+               views at the main paths' shapes and 'hilbert' views of
+               rmat(14)): B1/B2 within atol=rtol=1e-5, B3/B4 with
+               ``torch.equal``.  B1/B3 (which read the row payload) are held
+               against both the dense plain version and the plain version of
+               their row arithmetic, and two B1/B3 launches must give the
+               same bits.
   12. time    — each kernel at K=1 beside its bound, its plain version and a
                library call over the same live edges (``torch.sparse.mm``
-               for B1/B2, ``scatter_reduce_(..., 'amin')`` for B3/B4).
+               for B1/B2, ``scatter_reduce_(..., 'amin')`` for B3/B4).  B1/B3's
+               bound counts the bytes the payload design must read (12 B a
+               live entry, a row pointer and a y value a row, the x rows
+               read, the activity flags); the dense tile bound of the
+               earlier design is logged beside it, as is the dense plain
+               version's time.
   13. profile — device time and idle share of blocked PageRank, blocked BFS,
-               host scan PageRank (10 supersteps) and host blocked_compact
-               WCC.
+               blocked WCC, host scan PageRank (10 supersteps) and host
+               blocked_compact WCC.
 
 Prints the card's ``name, power.limit``, a ``{"kernels": [...]}`` line
 (B1-B5) and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA
@@ -195,6 +210,66 @@ def check_io(label: str, a: dict, b: dict, fields) -> None:
     bad = {f: (a[f], b[f]) for f in fields if a[f] != b[f]}
     if bad:
         raise AssertionError(f"{label}: IOStats differ {bad}")
+
+
+PAYLOAD = ("row_ptr", "ent_tile", "ent_src", "ent_w", "seg_ptr", "row_seg")
+
+
+def payload_build(label: str, bg, torch) -> None:
+    """Build the view's row payload once more from its tiles, timed, and
+    check that it is the view's own; log its time and bytes."""
+    from repro_torch.kernels.spmv import ops
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    payload = ops.row_payload(bg.tiles, bg.dbid, bg.sbid, n=bg.n, bd=bg.bd,
+                              bs=bg.bs, semiring=bg.semiring)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    for name in PAYLOAD:
+        if not torch.equal(payload[name], getattr(bg, name)):
+            raise AssertionError(f"{label}: payload {name} differs between "
+                                 "two builds")
+    nbytes = sum(getattr(bg, name).nbytes for name in PAYLOAD)
+    counts = torch.diff(bg.row_ptr.long()).float()
+    p50, p99 = torch.quantile(counts, torch.tensor([0.5, 0.99],
+                                                   device=counts.device))
+    log(f"{label}: row payload {bg.ent_tile.numel()} entries, "
+        f"{bg.seg_ptr.numel() - 1} segments, {nbytes} B "
+        f"({nbytes / bg.tiles.nbytes:.2e} of the tiles' bytes), built from "
+        f"the tiles in {ms:.1f} ms; entries a row: mean "
+        f"{float(counts.mean()):.1f}, median {float(p50):.0f}, p99 "
+        f"{float(p99):.0f}, max {int(counts.max())}, empty rows "
+        f"{int((counts == 0).sum())}")
+
+
+def payload_tiles(bg, lo: int, hi: int, torch):
+    """Tiles ``lo:hi`` rebuilt from the view's row payload alone, the other
+    slots holding the absent value."""
+    from repro_torch.kernels.spmv import kernel as K
+
+    absent = float("inf") if bg.semiring == "min_plus" else 0.0
+    out = torch.full((hi - lo, bg.bd, bg.bs), absent, dtype=torch.float32,
+                     device=bg.tiles.device)
+    t = bg.ent_tile.long()
+    keep = (t >= lo) & (t < hi)
+    t = t[keep]
+    row = K.entry_rows(bg)[keep]
+    src = bg.ent_src[keep].long()
+    out[t - lo, row - bg.dbid[t].long() * bg.bd,
+        src - bg.sbid[t].long() * bg.bs] = bg.ent_w[keep]
+    return out
+
+
+def check_payload(label: str, bg, torch, chunk: int = 4096) -> None:
+    """The payload scattered back equals the dense tiles, chunk by chunk."""
+    for t0 in range(0, bg.num_tiles, chunk):
+        t1 = min(t0 + chunk, bg.num_tiles)
+        if not torch.equal(payload_tiles(bg, t0, t1, torch), bg.tiles[t0:t1]):
+            raise AssertionError(f"{label}: payload does not rebuild tiles "
+                                 f"{t0}:{t1}")
+    log(f"kernel check {label}: the row payload rebuilds all "
+        f"{bg.num_tiles} tiles ({bg.tiles.nbytes / 1e9:.2f} GB)")
 
 
 def phase_main(G, hub, torch):
@@ -392,6 +467,7 @@ def phase_wcc(torch):
     log(f"wcc graph: n={wg.n} m={wg.m} min_plus tiles={wbg.num_tiles} "
         f"({wbg.tiles.nbytes / 1e9:.2f} GB on the card) built in "
         f"{time.perf_counter() - t0:.1f} s")
+    payload_build("wcc graph", wbg, torch)
     want = numpy_wcc(wg)
     results, wall = {}, {}
     K.reset_launches()
@@ -669,6 +745,8 @@ def phase_kernels(G, W, torch):
             blocked=True, blocked_semiring="min_plus",
             tile_order="hilbert").out_blocked,
     }
+    check_payload("main view", views[("plus_times", "dest")], torch)
+    check_payload("wcc view", views[("min_plus", "dest")], torch)
     errs = {name: 0.0 for name in KERNELS}
     for (enc, order), bg in views.items():
         full_name, compact_name = [n for n, (e, _) in KERNELS.items()
@@ -680,9 +758,14 @@ def phase_kernels(G, W, torch):
             for fname, frontier in (("full", full), ("sparse", sparse)):
                 x_blocks, act = kernel_inputs(bg, frontier, k, torch, seed=k)
                 exact = enc == "min_plus"
-                e1 = max_err(K.spmv_blocked(bg, act, x_blocks),
-                             K.blocked_spmv_plain(bg, act, x_blocks), exact,
-                             torch)
+                y1 = K.spmv_blocked(bg, act, x_blocks)
+                if not torch.equal(y1, K.spmv_blocked(bg, act, x_blocks)):
+                    raise AssertionError(f"{full_name}: two launches differ")
+                e1 = max(max_err(y1, K.blocked_spmv_plain(bg, act, x_blocks),
+                                 exact, torch),
+                         max_err(y1, K.blocked_spmv_plain_rows(bg, act,
+                                                               x_blocks),
+                                 exact, torch))
                 args = compact_args(bg, act)
                 e2 = max_err(K.spmv_blocked_compact(bg, *args, x_blocks),
                              K.blocked_spmv_plain_compact(bg, *args, x_blocks),
@@ -691,19 +774,19 @@ def phase_kernels(G, W, torch):
                 errs[compact_name] = max(errs[compact_name], e2)
                 log(f"kernel check {enc:10s} {order:7s} k={k} {fname:6s} "
                     f"live={int(act.sum())}/{bg.num_tiles} full err={e1:.3g}"
-                    f" compact err={e2:.3g}")
+                    f" (two launches equal) compact err={e2:.3g}")
     torch.cuda.synchronize()
     return errs
 
 
 def bound(bg, act, k: int, schedule_entries: int):
-    """(bound_ms, bound_by) of one product over the live tiles (``act``):
+    """(bound_ms, bound_by) of one product over the live dense tiles
+    (``act``; B2/B4, and the tile form B1/B3 had before the row payload):
     their tile bytes, the x blocks they read, all of y, and 16 bytes of
-    int32 schedule per entry the kernel walks (B1/B3: every tile's id, run
-    flag, activity flag and source block; B2/B4: each live tile's id, run
-    flag, destination and source block) over the memory rate, against 2
-    operations per tile slot and lane (multiply-add, or add and min) over
-    the f32 peak."""
+    int32 schedule per entry the kernel walks (each live tile's id, run
+    flag, destination and source block; the earlier B1/B3 walked every
+    tile) over the memory rate, against 2 operations per tile slot and
+    lane (multiply-add, or add and min) over the f32 peak."""
     import torch
 
     live = act.bool()
@@ -713,6 +796,26 @@ def bound(bg, act, k: int, schedule_entries: int):
               + live_src_blocks * bg.bs * k * 4
               + bg.n_dst_blocks * bg.bd * k * 4 + schedule_entries * 16)
     flops = 2.0 * live_tiles * bg.bd * bg.bs * k
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def bound_rows(bg, act, k: int):
+    """(bound_ms, bound_by) of B1/B3 over the row payload: 12 B of each
+    live entry (tile, source row, weight), a 4-byte row pointer and K y
+    values a row, the x rows the live entries read and the 4-byte activity
+    flag of each tile over the memory rate, against 2 operations a live
+    entry and lane over the f32 peak."""
+    import torch
+
+    live = act[bg.ent_tile.long()] != 0
+    live_entries = int(live.sum())
+    x_rows = int(torch.unique(bg.ent_src[live]).numel())
+    n_rows = bg.row_ptr.numel() - 1
+    nbytes = (live_entries * 12 + (n_rows + 1) * 4 + n_rows * k * 4
+              + x_rows * k * 4 + bg.num_tiles * 4)
+    flops = 2.0 * live_entries * k
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -787,7 +890,7 @@ def phase_time(g, G, wg, W, torch):
                 return K.spmv_blocked(bg, act, x_blocks)
 
             def plain():
-                return K.blocked_spmv_plain(bg, act, x_blocks)
+                return K.blocked_spmv_plain_rows(bg, act, x_blocks)
         else:
             args = compact_args(bg, act)
 
@@ -797,17 +900,46 @@ def phase_time(g, G, wg, W, torch):
             def plain():
                 return K.blocked_spmv_plain_compact(bg, *args, x_blocks)
         lib = library_call(name, graph, frontier_np, x_blocks, torch)
-        ms = cuda_ms(run, reps=20)
+        ms = cuda_ms(run, reps=50 if full_schedule else 20)
         plain_ms = cuda_ms(plain, reps=3, warmup=1)
         library_ms = cuda_ms(lib, reps=20)
-        bound_ms, bound_by = bound(bg, act, 1,
-                                   bg.num_tiles if full_schedule else live)
+        if full_schedule:
+            bound_ms, bound_by = bound_rows(bg, act, 1)
+            tile_bound_ms = bound(bg, act, 1, bg.num_tiles)[0]
+            dense_ms = cuda_ms(lambda: K.blocked_spmv_plain(bg, act,
+                                                            x_blocks),
+                               reps=3, warmup=1)
+            extra = (f" (dense-tile bound of the earlier design "
+                     f"{tile_bound_ms:.4f} ms; dense plain_ms {dense_ms:.3f};"
+                     f" device time a call (CUDA graph): kernel "
+                     f"{device_ms(run, torch):.4f} ms, library "
+                     f"{device_ms(lib, torch):.4f} ms)")
+        else:
+            bound_ms, bound_by = bound(bg, act, 1, live)
+            extra = ""
         rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                           bound_ms=bound_ms, bound_by=bound_by, live=live)
-        log(f"time {name}: live={live}/{bg.num_tiles} ms={ms:.3f} "
-            f"bound_ms={bound_ms:.3f} ({bound_by}) plain_ms={plain_ms:.3f} "
-            f"library_ms={library_ms:.3f}")
+        log(f"time {name}: live={live}/{bg.num_tiles} ms={ms:.4f} "
+            f"bound_ms={bound_ms:.5f} ({bound_by}) plain_ms={plain_ms:.3f} "
+            f"library_ms={library_ms:.4f}{extra}")
     return rows
+
+
+def device_ms(fn, torch, calls: int = 20) -> float:
+    """Device time of one call: ``calls`` calls captured in one CUDA graph
+    and replayed, timed with events, so the host's launch overhead (which
+    an event loop over eager calls can include) drops out."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()  # allocations and lazy set-up outside the capture
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(calls):
+                fn()
+    torch.cuda.synchronize()
+    return cuda_ms(graph.replay, reps=10) / calls
 
 
 def phase_profile(runs, torch) -> dict:
@@ -1205,6 +1337,7 @@ def main() -> int:
     log(f"graph: n={g.n} m={g.m} tiles={bg.num_tiles} "
         f"({bg.tiles.nbytes / 1e9:.2f} GB on the card) built in "
         f"{time.perf_counter() - t0:.1f} s")
+    payload_build("graph", bg, torch)
 
     hub = int(np.argmax(np.diff(g.indptr)))
     phase_warmup()
@@ -1221,6 +1354,7 @@ def main() -> int:
     phase_profile((
         ("blocked/pr_push", lambda: G.pagerank(policy=blocked)),
         ("blocked/bfs_hub", lambda: G.bfs(hub, policy=blocked)),
+        ("blocked/wcc", lambda: W.run(wcc_program(), policy=blocked)),
         ("host/scan/pr_push", lambda: Ha.pagerank(
             max_iters=PROFILE_ITERS, policy=host_scan)),
         ("host/blocked_compact/wcc", lambda: Hb.run(wcc_program(),

@@ -11,27 +11,32 @@ each run's end::
     plus_times: y[dst_block] (+)= tile (Bd, Bs) @ x[src_block] (Bs, K)
     min_plus:   y[dst_block] (min)= min_s(tile[:, s] + x[src_block][s, :])
 
-On the GPU the thread blocks run in parallel and in no order, so the
-kernels in ``repro_torch/csrc/spmv.cu`` give each destination block to its
-own thread blocks, which walk that block's tiles in schedule order (see
-the source for the design and its bound).  The two entry points differ in
-their work-list:
+On the GPU the thread blocks run in parallel and in no order, and most
+slots of a 128x128 tile are empty (a few edges a tile on an RMAT graph),
+so the kernels in ``repro_torch/csrc/spmv.cu`` (see the source for the
+design and its bound) differ in what they read:
 
   * :func:`spmv_blocked` (B1, B3 on min_plus tiles) — every tile of the
-    schedule; each thread block reads the activity flag of each of its
-    block's tiles and skips inactive ones.  The per-block tile table is
-    static (``BlockedGraph.blk_ptr``/``blk_tiles``).
+    schedule, read from the view's *row payload* (``BlockedGraph.row_ptr``,
+    ``ent_tile``/``ent_src``/``ent_w`` and the segment table
+    ``seg_ptr``/``row_seg``) and never from the dense tiles: a 16-lane
+    group a segment of a destination row's entries, entries of tiles
+    inactive under the frontier skipped, then the segments of each row
+    combined in order.  Its plain version is
+    :func:`blocked_spmv_plain_rows`.
   * :func:`spmv_blocked_compact` (B2, B4 on min_plus tiles) — only the live
-    tiles ``perm[:nact]`` of the compacted schedule, grouped by destination
-    block in torch each call; run boundaries come from the recomputed
-    ``first`` flags.  It also takes a :class:`TileBatch`, the batch-local
-    view that host residency stages per batch.
+    tiles ``perm[:nact]`` of the compacted schedule, dense, grouped by
+    destination block in torch each call; one thread block walks a
+    block's live runs in schedule order, run boundaries from the
+    recomputed ``first`` flags.  It also takes a :class:`TileBatch`, the
+    batch-local view that host residency stages per batch.
 
-On a CPU tensor each wrapper runs its plain torch version
-(:func:`blocked_spmv_plain`, :func:`blocked_spmv_plain_compact`), which
-keeps the reference's per-run summation structure: per-run sums of the
-tile products, combined into the block in run order.  On a CUDA tensor it
-launches the kernel or raises; ``launches`` counts kernel launches, one
+On a CPU tensor each wrapper runs its plain torch version over the dense
+tiles (:func:`blocked_spmv_plain`, :func:`blocked_spmv_plain_compact`),
+which keeps the reference's per-run summation structure: per-run sums of
+the tile products, combined into the block in run order, so the full and
+the compacted schedule agree bit for bit.  On a CUDA tensor it launches
+the kernel or raises; ``launches`` counts kernel launches, one
 key per kernel.  'bool' occupancy tiles run the plus_times kernels.
 
 The shared library is built with ``nvcc`` at first use into
@@ -53,14 +58,15 @@ __all__ = [
     "TileBatch",
     "blocked_spmv_plain",
     "blocked_spmv_plain_compact",
+    "blocked_spmv_plain_rows",
     "build_library",
+    "entry_rows",
     "launches",
     "reset_launches",
     "spmv_blocked",
     "spmv_blocked_compact",
 ]
 
-_ROWS_PER_CTA = 32  # rows of a destination block per thread block (spmv.cu)
 _MAX_K = 192  # lanes the kernel's 48 KB of shared accumulators hold
 _PLAIN_CHUNK = 512  # tiles per batched product in the plain versions
 
@@ -68,9 +74,9 @@ _PLAIN_CHUNK = 512  # tiles per batched product in the plain versions
 launches = {"spmv_blocked": 0, "spmv_blocked_compact": 0,
             "spmv_blocked_min_plus": 0, "spmv_blocked_compact_min_plus": 0}
 # launch key -> the function spmv.cu exports for it
-_ENTRY = {"spmv_blocked": "spmv_full",
+_ENTRY = {"spmv_blocked": "spmv_rows",
           "spmv_blocked_compact": "spmv_compact",
-          "spmv_blocked_min_plus": "spmv_full_min_plus",
+          "spmv_blocked_min_plus": "spmv_rows_min_plus",
           "spmv_blocked_compact_min_plus": "spmv_compact_min_plus"}
 
 _lib = None
@@ -120,8 +126,8 @@ def _library():
     if _lib is None:
         lib = ctypes.CDLL(str(build_library()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        for fn in ("spmv_full", "spmv_full_min_plus"):
-            getattr(lib, fn).argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
+        for fn in ("spmv_rows", "spmv_rows_min_plus"):
+            getattr(lib, fn).argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, p]
             getattr(lib, fn).restype = i
         for fn in ("spmv_compact", "spmv_compact_min_plus"):
             getattr(lib, fn).argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
@@ -164,16 +170,22 @@ def _ptr(t: torch.Tensor):
     return ctypes.c_void_p(t.data_ptr())
 
 
+def _stream(device) -> int:
+    """The raw handle of PyTorch's current stream on ``device`` (the call
+    that skips building a ``torch.cuda.Stream`` object)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
 def _launch(name: str, args, bg, k: int, device) -> torch.Tensor:
+    """B2/B4: launch over the dense tiles; returns y_blocks."""
     if bg.semiring == "min_plus":
         name += "_min_plus"
     fn = getattr(_library(), _ENTRY[name])
     y = torch.empty((bg.n_dst_blocks, bg.bd, k), dtype=torch.float32,
                     device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
     err = fn(_ptr(bg.tiles), _ptr(args[0]), _ptr(y),
              *[_ptr(a) for a in args[1:]],
-             bg.n_dst_blocks, bg.bd, bg.bs, k, ctypes.c_void_p(stream))
+             bg.n_dst_blocks, bg.bd, bg.bs, k, _stream(device))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     launches[name] += 1
@@ -184,17 +196,32 @@ def spmv_blocked(bg, act: torch.Tensor, x_blocks: torch.Tensor) -> torch.Tensor:
     """B1 (B3 on min_plus tiles): y_blocks [nDB, Bd, K] f32 over the full
     tile schedule.
 
-    A block whose tiles are all inactive flushes the identity (0, or +inf
-    under min_plus); a block with no tile at all is left for the caller to
-    fill (``ops.blocked_spmv``).
+    A row none of whose entries lies in an active tile gets the identity
+    (0, or +inf under min_plus), as a block whose tiles are all inactive
+    flushes it; a block with no tile at all is left for the caller to fill
+    (``ops.blocked_spmv``).  On the card the kernel reads the row payload
+    and ``x_blocks`` only.
     """
     if _on_cpu(x_blocks):
         return blocked_spmv_plain(bg, act, x_blocks)
     _check_cuda(bg, x_blocks)
-    args = (x_blocks, bg.blk_ptr, bg.blk_tiles, bg.first, bg.sbid,
-            act.to(torch.int32).contiguous())
-    return _launch("spmv_blocked", args, bg, x_blocks.shape[-1],
-                   x_blocks.device)
+    name = "spmv_blocked" + ("_min_plus" if bg.semiring == "min_plus" else "")
+    k = x_blocks.shape[-1]
+    dev = x_blocks.device
+    n_rows = bg.row_ptr.numel() - 1
+    n_segs = bg.seg_ptr.numel() - 1
+    # y and the segment partials in one allocation: y first, then part.
+    out = torch.empty((n_rows + n_segs) * k, dtype=torch.float32, device=dev)
+    act = act.to(device=dev, dtype=torch.int32).contiguous()
+    err = getattr(_library(), _ENTRY[name])(
+        x_blocks.data_ptr(), out.data_ptr(), out.data_ptr() + n_rows * k * 4,
+        bg.row_seg.data_ptr(), bg.seg_ptr.data_ptr(), bg.ent_tile.data_ptr(),
+        bg.ent_src.data_ptr(), bg.ent_w.data_ptr(), act.data_ptr(), n_rows,
+        n_segs, k, _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    launches[name] += 1
+    return out[: n_rows * k].view(bg.n_dst_blocks, bg.bd, k)
 
 
 def spmv_blocked_compact(bg, perm, dbid, sbid, first, last, accum, nact: int,
@@ -267,3 +294,37 @@ def blocked_spmv_plain_compact(bg, perm, dbid, sbid, first, last, accum,
     runs = torch.cumsum(f, 0) - 1
     return _runs_into_blocks(bg, perm[:nact], runs, dbid[:nact][f == 1],
                              x_blocks)
+
+
+def entry_rows(bg) -> torch.Tensor:
+    """int64[E]: the destination row of each row-payload entry."""
+    n_rows = bg.row_ptr.numel() - 1
+    return torch.repeat_interleave(
+        torch.arange(n_rows, device=bg.row_ptr.device),
+        torch.diff(bg.row_ptr.long()), output_size=bg.ent_tile.numel())
+
+
+def blocked_spmv_plain_rows(bg, act: torch.Tensor,
+                            x_blocks: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of the card's B1/B3 arithmetic: over the row
+    payload's entries in live tiles (``act[ent_tile] != 0``), one
+    ``index_add_`` (plus_times) or ``scatter_reduce_('amin')`` (min_plus)
+    by destination row of ``w * x[src]`` or ``w + x[src]``.  A row with no
+    live entry gets the identity."""
+    k = x_blocks.shape[-1]
+    minp = bg.semiring == "min_plus"
+    live = act[bg.ent_tile.long()] != 0
+    src = bg.ent_src[live].long()
+    w = bg.ent_w[live][:, None]
+    rows = entry_rows(bg)[live]
+    xin = x_blocks.reshape(-1, k)[src]
+    y = torch.full((bg.n_dst_blocks * bg.bd, k),
+                   float("inf") if minp else 0.0, dtype=torch.float32,
+                   device=x_blocks.device)
+    if minp:
+        val = w + xin
+        y.scatter_reduce_(0, rows[:, None].expand_as(val), val, "amin",
+                          include_self=True)
+    else:
+        y.index_add_(0, rows, w * xin)
+    return y.view(bg.n_dst_blocks, bg.bd, k)

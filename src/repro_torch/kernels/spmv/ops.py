@@ -9,7 +9,10 @@ dense ``(Bd, Bs)`` weight tile.  ``tile_order`` picks the streaming
 schedule ('dest', or a Morton/Hilbert curve, see :mod:`.order`); under a
 curve order a destination block occupies several *runs*, and a run whose
 block was already flushed carries ``accum=1``.  The tiles and the schedule
-are byte-identical to the reference tiler's.
+are byte-identical to the reference tiler's.  Each view also carries a
+row payload (:func:`row_payload`): its non-absent slots as a CSR by
+destination row, which the full-schedule kernels B1/B3 read on the card
+in place of the dense tiles.
 
 :func:`blocked_spmv` counts fetched/skipped tiles so the kernel path
 reports the same I/O metrics as the scan engine.  On a CUDA tensor it runs
@@ -31,6 +34,7 @@ from .order import TILE_ORDERS, tile_curve_key
 
 __all__ = [
     "BlockedGraph",
+    "SEG_ENTRIES",
     "TILE_ORDERS",
     "blocked_graph",
     "build_blocked",
@@ -38,6 +42,7 @@ __all__ = [
     "blocked_spmv",
     "compact_grid_size",
     "compact_tile_order",
+    "row_payload",
     "tile_activity",
     "tile_byte_size",
     "x_fetch_count",
@@ -48,11 +53,20 @@ __all__ = [
 class BlockedGraph:
     """Dense-tile blocked view of a graph (edges as (Bd, Bs) tiles).
 
-    The first seven tensors are the reference's.  ``blk_ptr``/``blk_tiles``
-    are derived from ``dbid``: the schedule positions of each destination
-    block's tiles, in schedule order (``blk_tiles[blk_ptr[b]:blk_ptr[b+1]]``)
-    — the per-block walk the CUDA kernel does in place of the sequential
-    Pallas grid.
+    The first seven tensors are the reference's.  The rest are the *row
+    payload* the full-schedule kernels B1/B3 read in place of the dense
+    tiles: every slot that does not hold the semiring's absent value (0,
+    or +inf under min_plus), as a CSR by destination row of the view
+    (``row = dbid * Bd + slot row``).  Entry ``e`` of row ``r``
+    (``row_ptr[r] <= e < row_ptr[r+1]``) is the slot of schedule position
+    ``ent_tile[e]`` that reads row ``ent_src[e]`` of ``x_blocks.view(-1,
+    K)`` with weight ``ent_w[e]``; a row's entries go in ascending
+    schedule position, then column.  Rows are cut into segments of at
+    most :data:`SEG_ENTRIES` entries (``seg_ptr``: each segment's first
+    entry; ``row_seg``: each row's first segment), so a hub row spreads
+    over many lane groups.  Built from the tiles themselves
+    (:func:`row_payload`), so a view carried across from the reference
+    gets the same payload.
     """
 
     tiles: torch.Tensor  # [T, Bd, Bs] f32 edge weights (0 or +inf = absent)
@@ -62,8 +76,12 @@ class BlockedGraph:
     last: torch.Tensor  # [T] int32 — tile ends a run of its dst block
     accum: torch.Tensor  # [T] int32 — run's flush combines into y
     nnz: torch.Tensor  # [T] int32 — edge records baked into each tile
-    blk_ptr: torch.Tensor  # [nDB + 1] int32
-    blk_tiles: torch.Tensor  # [T] int32
+    row_ptr: torch.Tensor  # [nDB * Bd + 1] int32
+    ent_tile: torch.Tensor  # [E] int32 schedule position of each entry
+    ent_src: torch.Tensor  # [E] int32 row of x_blocks.view(-1, K) it reads
+    ent_w: torch.Tensor  # [E] f32 the tile's value at that slot
+    seg_ptr: torch.Tensor  # [S + 1] int32 first entry of each segment
+    row_seg: torch.Tensor  # [nDB * Bd + 1] int32 first segment of each row
     n: int
     bd: int
     bs: int
@@ -211,10 +229,63 @@ def build_blocked_arrays(
     return out
 
 
+#: Most entries in one segment of the row payload: one pass of a 16-lane
+#: group of B1/B3 (16 lanes x 8 entries, ``csrc/spmv.cu``).
+SEG_ENTRIES = 128
+_PAYLOAD_CHUNK_SLOTS = 1 << 27  # tile slots compared per step of the build
+
+
+def row_payload(tiles: torch.Tensor, dbid: torch.Tensor, sbid: torch.Tensor,
+                *, n: int, bd: int, bs: int, semiring: str) -> dict:
+    """The row payload of a tile view (fields as in :class:`BlockedGraph`),
+    read from the dense tiles.
+
+    The tiles are compared with the absent value a chunk of tiles at a
+    time, so no index over the whole tensor (up to 2**32 slots and more)
+    is formed and coordinates stay (tile, row, column).  The chunks come
+    in schedule order and each in row-major order, so one stable sort by
+    destination row leaves every row's entries in schedule order, then
+    column.
+    """
+    absent = float("inf") if semiring == "min_plus" else 0.0
+    n_rows = -(-n // bd) * bd
+    db, sb = dbid.long(), sbid.long()
+    step = max(1, _PAYLOAD_CHUNK_SLOTS // (bd * bs))
+    rows, ts, srcs, ws = [], [], [], []
+    for t0 in range(0, tiles.shape[0], step):
+        chunk = tiles[t0:t0 + step]
+        t, r, c = (chunk != absent).nonzero(as_tuple=True)
+        ws.append(chunk[t, r, c])
+        t = t + t0
+        ts.append(t)
+        rows.append(db[t] * bd + r)
+        srcs.append(sb[t] * bs + c)
+    row = torch.cat(rows)
+    order = torch.sort(row, stable=True).indices
+    counts = torch.bincount(row, minlength=n_rows)
+    row_ptr = torch.zeros(n_rows + 1, dtype=torch.int64, device=tiles.device)
+    row_ptr[1:] = torch.cumsum(counts, 0)
+    # Segments: row r's entries cut into ceil(count / SEG_ENTRIES) pieces.
+    n_seg = (counts + SEG_ENTRIES - 1) // SEG_ENTRIES
+    row_seg = torch.zeros_like(row_ptr)
+    row_seg[1:] = torch.cumsum(n_seg, 0)
+    seg_row = torch.repeat_interleave(
+        torch.arange(n_rows, device=tiles.device), n_seg)
+    piece = (torch.arange(seg_row.numel(), device=tiles.device)
+             - row_seg[seg_row])
+    seg_ptr = torch.cat([row_ptr[seg_row] + piece * SEG_ENTRIES,
+                         row_ptr[-1:]])
+    i32 = torch.int32
+    return dict(row_ptr=row_ptr.to(i32), ent_tile=torch.cat(ts)[order].to(i32),
+                ent_src=torch.cat(srcs)[order].to(i32),
+                ent_w=torch.cat(ws)[order], seg_ptr=seg_ptr.to(i32),
+                row_seg=row_seg.to(i32))
+
+
 def blocked_graph(tiles, dbid, sbid, first, last, accum, nnz, *, n, bd, bs,
                   semiring, tile_order="dest", device=None) -> BlockedGraph:
     """A :class:`BlockedGraph` on ``device`` (None: the CUDA device) from its
-    arrays (numpy or torch), deriving the per-block tile table."""
+    arrays (numpy or torch), deriving the row payload from the tiles."""
     device = resolve_device(device)
 
     def t(a):
@@ -222,22 +293,20 @@ def blocked_graph(tiles, dbid, sbid, first, last, accum, nnz, *, n, bd, bs,
             a = torch.as_tensor(np.array(a))
         return a.to(device)
 
+    tiles_t = t(tiles).to(torch.float32)
     dbid_t = t(dbid).to(torch.int32)
-    n_dst_blocks = -(-int(n) // int(bd))
-    order = torch.argsort(dbid_t.long(), stable=True)
-    counts = torch.bincount(dbid_t.long(), minlength=n_dst_blocks)
-    blk_ptr = torch.zeros(n_dst_blocks + 1, dtype=torch.int64, device=device)
-    blk_ptr[1:] = torch.cumsum(counts, 0)
+    sbid_t = t(sbid).to(torch.int32)
+    payload = row_payload(tiles_t, dbid_t, sbid_t, n=int(n), bd=int(bd),
+                          bs=int(bs), semiring=str(semiring))
     return BlockedGraph(
-        tiles=t(tiles).to(torch.float32),
+        tiles=tiles_t,
         dbid=dbid_t,
-        sbid=t(sbid).to(torch.int32),
+        sbid=sbid_t,
         first=t(first).to(torch.int32),
         last=t(last).to(torch.int32),
         accum=t(accum).to(torch.int32),
         nnz=t(nnz).to(torch.int32),
-        blk_ptr=blk_ptr.to(torch.int32),
-        blk_tiles=order.to(torch.int32),
+        **payload,
         n=int(n), bd=int(bd), bs=int(bs), semiring=str(semiring),
         tile_order=str(tile_order),
     )
@@ -372,11 +441,14 @@ def blocked_spmv(
     source (``'src'``) or destination (``'dst'``) side — skipping is block
     granular.  ``compact=True`` runs the frontier-compacted work-list
     (kernel B2) sized to the power-of-two bucket over the live count;
-    otherwise the full schedule (kernel B1).  Both give the same values.
+    otherwise the full schedule (kernel B1).  Both give the same values
+    (B1 up to f32 summation order on the card).
 
-    Every tile order is taken: the CUDA kernel walks each destination
-    block's runs in schedule order inside one thread block, so a block
-    split over several curve runs combines them exactly as the reference.
+    Every tile order is taken.  On the card B1 reads the view's row
+    payload (each row's entries, tiles inactive under the frontier
+    skipped), and B2 walks each destination block's live runs in schedule
+    order inside one thread block, so a block split over several curve
+    runs combines them as the reference does.
 
     Returns ``(y, stats)`` with ``tiles_fetched``, ``tiles_skipped``,
     ``tile_bytes``, ``messages`` (edge records in fetched tiles) and

@@ -6,7 +6,9 @@ where only torch is installed):
 Each test needs a CUDA device and skips without one (the kernels have no
 CPU mode).  Kernels B1/B2 are held against their plain torch versions on
 the same inputs (``atol=rtol=1e-5``: a tile row's dot product sums in
-another order), B3/B4 with ``torch.equal`` (min is order-free), and the
+another order), B3/B4 with ``torch.equal`` (min is order-free); B1/B3 also
+against the plain version of their row-payload arithmetic, and two B1
+launches must give the same bits; and the
 card's façade results against the CPU's and host residency against device
 residency (BFS, WCC and their IOStats exact, PageRank ``atol=1e-6,
 rtol=1e-5``).  Kernel B5 (decode attention) is held against its plain
@@ -21,7 +23,7 @@ import torch
 
 import repro_torch
 from repro_torch.core.semiring import MIN_PLUS
-from repro_torch.graph.generators import rmat
+from repro_torch.graph.generators import rmat, star_graph
 from repro_torch.configs import get_smoke
 from repro_torch.kernels import decode_attn as tda
 from repro_torch.kernels import spmv as tk
@@ -90,9 +92,11 @@ def test_kernels_match_plain(card, order, k, bd, bs):
         mask = np.random.default_rng(k).random(g.n) < density
         act = tk.tile_activity(bg, torch.as_tensor(mask, device=card))
         tk.reset_launches()
-        torch.testing.assert_close(tk.spmv_blocked(bg, act, x_blocks),
-                                   tk.blocked_spmv_plain(bg, act, x_blocks),
+        y = tk.spmv_blocked(bg, act, x_blocks)
+        torch.testing.assert_close(y, tk.blocked_spmv_plain(bg, act, x_blocks),
                                    **F32_TOL)
+        torch.testing.assert_close(
+            y, tk.blocked_spmv_plain_rows(bg, act, x_blocks), **F32_TOL)
         sl = _compact_args(bg, act)
         torch.testing.assert_close(
             tk.spmv_blocked_compact(bg, *sl, x_blocks),
@@ -118,13 +122,47 @@ def test_min_plus_kernels_match_plain(card, order, k, bd, bs):
         mask = rng.random(g.n) < density
         act = tk.tile_activity(bg, torch.as_tensor(mask, device=card))
         tk.reset_launches()
-        assert torch.equal(tk.spmv_blocked(bg, act, x_blocks),
-                           tk.blocked_spmv_plain(bg, act, x_blocks))
+        y = tk.spmv_blocked(bg, act, x_blocks)
+        assert torch.equal(y, tk.blocked_spmv_plain(bg, act, x_blocks))
+        assert torch.equal(y, tk.blocked_spmv_plain_rows(bg, act, x_blocks))
         sl = _compact_args(bg, act)
         assert torch.equal(tk.spmv_blocked_compact(bg, *sl, x_blocks),
                            tk.blocked_spmv_plain_compact(bg, *sl, x_blocks))
         assert tk.launches == dict(NO_LAUNCH, spmv_blocked_min_plus=1,
                                    spmv_blocked_compact_min_plus=1)
+
+
+def test_b1_is_deterministic(card):
+    """No atomics and a fixed reduction order: two launches of B1 on the
+    same inputs give the same bits, at K=1 and K=4."""
+    g = rmat(12, edge_factor=16, seed=2)
+    bg = tk.build_blocked(g, tile_order="hilbert", device=card)
+    act = torch.ones(bg.num_tiles, dtype=torch.int32, device=card)
+    for k in (1, 4):
+        gen = torch.Generator(device=card).manual_seed(k)
+        x_blocks = torch.randn((bg.n_src_blocks, bg.bs, k), generator=gen,
+                               device=card)
+        assert torch.equal(tk.spmv_blocked(bg, act, x_blocks),
+                           tk.spmv_blocked(bg, act, x_blocks))
+
+
+@pytest.mark.parametrize("semiring", ["plus_times", "min_plus"])
+def test_star_hub_row_splits_on_card(card, semiring):
+    """A hub row of 20,000 entries runs as ceil(20,000 / SEG_ENTRIES)
+    segments combined by the second pass; B1/B3 against both plain
+    versions."""
+    n = 20_001
+    bg = tk.build_blocked(star_graph(n), semiring=semiring, device=card)
+    assert int(bg.row_seg[1] - bg.row_seg[0]) > 1
+    x_blocks = torch.rand((bg.n_src_blocks, bg.bs, 1), device=card)
+    act = torch.ones(bg.num_tiles, dtype=torch.int32, device=card)
+    y = tk.spmv_blocked(bg, act, x_blocks)
+    for plain in (tk.blocked_spmv_plain, tk.blocked_spmv_plain_rows):
+        if semiring == "min_plus":
+            assert torch.equal(y, plain(bg, act, x_blocks))
+        else:
+            torch.testing.assert_close(y, plain(bg, act, x_blocks),
+                                       **F32_TOL)
 
 
 def test_unsupported_shape_raises(card):

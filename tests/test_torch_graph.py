@@ -144,21 +144,11 @@ def test_convert_matches_own_build():
     for view in ("out_blocked", "out_blocked_rev"):
         a, b = getattr(got, view), getattr(own, view)
         for name in ("tiles", "dbid", "sbid", "first", "last", "accum", "nnz",
-                     "blk_ptr", "blk_tiles"):
+                     "row_ptr", "ent_tile", "ent_src", "ent_w", "seg_ptr",
+                     "row_seg"):
             assert torch.equal(getattr(a, name), getattr(b, name)), (view, name)
         assert (a.n, a.bd, a.bs, a.semiring, a.tile_order) == (
             b.n, b.bd, b.bs, b.semiring, b.tile_order)
-
-
-def test_block_table_lists_each_block_in_schedule_order():
-    g = rgen.rmat(8, edge_factor=8, seed=2)
-    bg = build_blocked(g, bd=32, bs=16, tile_order="morton",
-                       device="cpu")
-    ptr, tiles = bg.blk_ptr.numpy(), bg.blk_tiles.numpy()
-    dbid = bg.dbid.numpy()
-    for b in range(bg.n_dst_blocks):
-        ids = tiles[ptr[b]:ptr[b + 1]]
-        assert np.array_equal(ids, np.flatnonzero(dbid == b))
 
 
 def test_port_imports_no_jax():
