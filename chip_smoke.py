@@ -40,9 +40,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
 
   6. graph   — ``rmat(16, edge_factor=16, seed=1)``: n=65,536, m=955,396;
                its 128x128 f32 tile view (239,398 tiles, ~15.7 GB) lives on
-               the card, with the row payload B1 reads (955,396 entries of
-               12 B, built from the tiles on the card): logs the payload's
-               build time and bytes.
+               the card, with the row payload B1 reads and the tile-major
+               payload B2 reads (955,396 entries of 12 B each, built from
+               the tiles on the card): logs the payloads' build time and
+               bytes.
   7. main    — after one warm-up run per backend and residency on rmat(10),
                the slice-1 path through ``repro_torch.Graph``:
                ``pagerank()`` push and pull and ``bfs(0)``/``bfs(hub)`` on the
@@ -61,7 +62,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
                program of ``examples/custom_program.py``) on
                ``rmat(16, edge_factor=16, seed=1, symmetrize=True)``
                (n=65,536, m=1,820,044; its min_plus tile view holds 257,273
-               tiles, ~16.9 GB, and a row payload of 1,820,044 entries, whose
+               tiles, ~16.9 GB, and payloads of 1,820,044 entries, whose
                build time and bytes are logged) on all four backends, device
                residency, with
                the counts zeroed just before and read just after: B3 and B4
@@ -84,32 +85,41 @@ Phases, each of which raises (and so exits non-zero) on failure:
                retries (PageRank's are logged: f32 rounding order moves its
                counters, ROADMAP §C P2), ``device_edge_total == 0`` under
                host residency, and ``peak_stage_bytes <= 2 *
-               stream_buffer_bytes`` where no run exceeds the buffer.  Logs
-               each wall beside its device twin and their ratio, and the
-               streamed bytes per second beside the pinned host-to-device
-               rate of a plain 1 GB copy.  Host launches of B2/B4 are counted
-               apart from the main paths'.
-  11. kernels — the row payload scattered back equals the dense tiles of
-               the full-size main and wcc views (a chunk of tiles at a time,
-               on the card); B1-B4 held against their plain torch versions
-               on the card (K=1 and K=4; full and n/8 frontiers; the 'dest'
+               stream_buffer_bytes`` where no run exceeds the buffer.  Tile
+               batches stage the tile-major payload of their tiles:
+               ``streamed_bytes`` must equal the bytes of the tensors staged,
+               and ``IOStats.host_bytes`` the reference's dense batch layout
+               (G tiles and the schedule) modulo 2^32.  Logs each wall
+               beside its device twin and their ratio, and the streamed
+               bytes per second beside the pinned host-to-device rate of a
+               plain 1 GB copy.  Host launches of B2/B4 are counted apart
+               from the main paths'.
+  11. kernels — both payloads scattered back equal the dense tiles of the
+               full-size main and wcc views (a chunk of tiles at a time, on
+               the card); B1-B4 held against their plain torch versions on
+               the card (K=1 and K=4; full and n/8 frontiers; the 'dest'
                views at the main paths' shapes and 'hilbert' views of
                rmat(14)): B1/B2 within atol=rtol=1e-5, B3/B4 with
-               ``torch.equal``.  B1/B3 (which read the row payload) are held
-               against both the dense plain version and the plain version of
-               their row arithmetic, and two B1/B3 launches must give the
-               same bits.
+               ``torch.equal``, each against both the dense plain version
+               and the plain version of its payload arithmetic, and two
+               launches of each must give the same bits.  Then, on an x
+               holding +inf, -inf and NaN, all four against their plain
+               versions, NaN for NaN (ROADMAP §C P12).
   12. time    — each kernel at K=1 beside its bound, its plain version and a
                library call over the same live edges (``torch.sparse.mm``
-               for B1/B2, ``scatter_reduce_(..., 'amin')`` for B3/B4).  B1/B3's
-               bound counts the bytes the payload design must read (12 B a
-               live entry, a row pointer and a y value a row, the x rows
-               read, the activity flags); the dense tile bound of the
-               earlier design is logged beside it, as is the dense plain
-               version's time.
+               for B1/B2, ``scatter_reduce_(..., 'amin')`` for B3/B4), and
+               one call's device time in a CUDA graph and by kernel
+               (torch.profiler).  The bound counts the
+               bytes the payload design must read (B1/B3 ``bound_rows``: 12 B
+               a live entry, a row pointer and a y value a row, the x blocks
+               of live tiles, the activity flag and source block of each
+               tile; B2/B4 ``bound_compact_rows``: 12 B a live entry, four
+               words of list and pointers a live tile, the x blocks of live
+               tiles, y); the dense tile bound of the earlier design is
+               logged beside it, as is the dense plain version's time.
   13. profile — device time and idle share of blocked PageRank, blocked BFS,
-               blocked WCC, host scan PageRank (10 supersteps) and host
-               blocked_compact WCC.
+               blocked WCC, blocked_compact PageRank and WCC, host scan
+               PageRank (10 supersteps) and host blocked_compact WCC.
 
 Prints the card's ``name, power.limit``, a ``{"kernels": [...]}`` line
 (B1-B5) and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA
@@ -212,12 +222,15 @@ def check_io(label: str, a: dict, b: dict, fields) -> None:
         raise AssertionError(f"{label}: IOStats differ {bad}")
 
 
-PAYLOAD = ("row_ptr", "ent_tile", "ent_src", "ent_w", "seg_ptr", "row_seg")
+ROW_PAYLOAD = ("row_ptr", "ent_tile", "ent_src", "ent_w", "seg_ptr",
+               "row_seg")
+TILE_PAYLOAD = ("tile_ptr", "tent_row", "tent_src", "tent_w")
+PAYLOAD = ROW_PAYLOAD + TILE_PAYLOAD
 
 
 def payload_build(label: str, bg, torch) -> None:
-    """Build the view's row payload once more from its tiles, timed, and
-    check that it is the view's own; log its time and bytes."""
+    """Build the view's payloads once more from its tiles, timed, and
+    check that they are the view's own; log their time and bytes."""
     from repro_torch.kernels.spmv import ops
 
     torch.cuda.synchronize()
@@ -230,17 +243,20 @@ def payload_build(label: str, bg, torch) -> None:
         if not torch.equal(payload[name], getattr(bg, name)):
             raise AssertionError(f"{label}: payload {name} differs between "
                                  "two builds")
-    nbytes = sum(getattr(bg, name).nbytes for name in PAYLOAD)
+    nbytes = sum(getattr(bg, name).nbytes for name in ROW_PAYLOAD)
+    tbytes = sum(getattr(bg, name).nbytes for name in TILE_PAYLOAD)
     counts = torch.diff(bg.row_ptr.long()).float()
     p50, p99 = torch.quantile(counts, torch.tensor([0.5, 0.99],
                                                    device=counts.device))
+    per_tile = torch.diff(bg.tile_ptr.long())
     log(f"{label}: row payload {bg.ent_tile.numel()} entries, "
-        f"{bg.seg_ptr.numel() - 1} segments, {nbytes} B "
-        f"({nbytes / bg.tiles.nbytes:.2e} of the tiles' bytes), built from "
-        f"the tiles in {ms:.1f} ms; entries a row: mean "
-        f"{float(counts.mean()):.1f}, median {float(p50):.0f}, p99 "
+        f"{bg.seg_ptr.numel() - 1} segments, {nbytes} B; tile-major payload "
+        f"{tbytes} B; together {(nbytes + tbytes) / bg.tiles.nbytes:.2e} of "
+        f"the tiles' bytes, built from the tiles in {ms:.1f} ms; entries a "
+        f"row: mean {float(counts.mean()):.1f}, median {float(p50):.0f}, p99 "
         f"{float(p99):.0f}, max {int(counts.max())}, empty rows "
-        f"{int((counts == 0).sum())}")
+        f"{int((counts == 0).sum())}; entries a tile: max "
+        f"{int(per_tile.max())}")
 
 
 def payload_tiles(bg, lo: int, hi: int, torch):
@@ -261,14 +277,33 @@ def payload_tiles(bg, lo: int, hi: int, torch):
     return out
 
 
+def tile_payload_tiles(bg, lo: int, hi: int, torch):
+    """Tiles ``lo:hi`` rebuilt from the view's tile-major payload alone."""
+    absent = float("inf") if bg.semiring == "min_plus" else 0.0
+    out = torch.full((hi - lo, bg.bd, bg.bs), absent, dtype=torch.float32,
+                     device=bg.tiles.device)
+    tp = bg.tile_ptr.long()
+    e0, e1 = int(tp[lo]), int(tp[hi])
+    t = torch.repeat_interleave(torch.arange(lo, hi, device=tp.device),
+                                torch.diff(tp[lo:hi + 1]),
+                                output_size=e1 - e0)
+    out[t - lo, bg.tent_row[e0:e1].long(),
+        bg.tent_src[e0:e1].long() - bg.sbid[t].long() * bg.bs] = (
+            bg.tent_w[e0:e1])
+    return out
+
+
 def check_payload(label: str, bg, torch, chunk: int = 4096) -> None:
-    """The payload scattered back equals the dense tiles, chunk by chunk."""
+    """Both payloads scattered back equal the dense tiles, chunk by
+    chunk."""
     for t0 in range(0, bg.num_tiles, chunk):
         t1 = min(t0 + chunk, bg.num_tiles)
-        if not torch.equal(payload_tiles(bg, t0, t1, torch), bg.tiles[t0:t1]):
-            raise AssertionError(f"{label}: payload does not rebuild tiles "
-                                 f"{t0}:{t1}")
-    log(f"kernel check {label}: the row payload rebuilds all "
+        for name, rebuild in (("row", payload_tiles),
+                              ("tile-major", tile_payload_tiles)):
+            if not torch.equal(rebuild(bg, t0, t1, torch), bg.tiles[t0:t1]):
+                raise AssertionError(f"{label}: {name} payload does not "
+                                     f"rebuild tiles {t0}:{t1}")
+    log(f"kernel check {label}: the row and tile-major payloads rebuild all "
         f"{bg.num_tiles} tiles ({bg.tiles.nbytes / 1e9:.2f} GB)")
 
 
@@ -521,6 +556,43 @@ def max_run_tiles(session, semiring: str, tile_order: str) -> int:
     return int(np.diff(np.append(starts, st.num_tiles)).max())
 
 
+class StageLog:
+    """Within the ``with`` block, counts what host residency hands to the
+    host-to-device copy: ``staged``, the bytes of every staged tensor, and
+    ``dense``, the bytes of the reference's batch layout.  A tile batch
+    stages 11 tensors (the tile-major payload, then G schedule steps of
+    perm, dbid, sbid, first, last, accum, then the live count), where the
+    reference ships G dense Bd x Bs f32 tiles, the six G-step int32 arrays
+    and the count; any other payload ships as it is."""
+
+    def __init__(self, bd: int, bs: int):
+        self.tile_bytes = bd * bs * 4
+        self.staged = self.dense = 0
+
+    def __enter__(self):
+        from repro_torch.core import residency
+
+        self._stager = residency._Stager
+        self._stage = stage = self._stager.stage
+
+        def counted(stager, layout, fill):
+            out = stage(stager, layout, fill)
+            nbytes = sum(t.nbytes for t in out.arrays)
+            self.staged += nbytes
+            if len(out.arrays) == 11:
+                steps = out.arrays[4].numel()
+                self.dense += steps * (self.tile_bytes + 6 * 4) + 4
+            else:
+                self.dense += nbytes
+            return out
+
+        self._stager.stage = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._stager.stage = self._stage
+
+
 def check_host(label, dev, host, exact, torch) -> None:
     """Host against device residency: values, and for BFS/WCC every IOStats
     field but host_bytes and retries."""
@@ -564,22 +636,28 @@ def phase_host(torch):
         hpol = pol.with_(residency="host")
         hv = H.host_view()
         before = hv.streamed_bytes
-        hres, hms, launched = timed(lambda: call(H, hpol), torch)
+        with StageLog(hv.bd, hv.bs) as staged:
+            hres, hms, launched = timed(lambda: call(H, hpol), torch)
         streamed = hv.streamed_bytes - before
         for k, v in launched.items():
             host_counts[k] = host_counts.get(k, 0) + v
         name = f"{label}/{pol.backend}/{pol.tile_order}/sb{pol.stream_buffer}"
         check_host(name, dres, hres, exact, torch)
+        if streamed != staged.staged:
+            raise AssertionError(f"{name}: streamed_bytes {streamed} is not "
+                                 f"the {staged.staged} B staged")
         hb = int(hres.iostats.host_bytes)
-        # IOStats.host_bytes is int32 and wraps like the reference's.
-        if hb != (streamed + 2**31) % 2**32 - 2**31:
+        # IOStats.host_bytes counts the reference's dense batches, and is
+        # int32 and wraps like the reference's.
+        if hb != (staged.dense + 2**31) % 2**32 - 2**31:
             raise AssertionError(f"{name}: host_bytes {hb} is not the "
-                                 f"streamed {streamed} B modulo 2^32")
+                                 f"reference's {staged.dense} B modulo 2^32")
         rows.append((name, dms, hms, streamed))
         log(f"host {name:40s} supersteps={int(hres.supersteps)} device_ms="
             f"{dms:.1f} host_ms={hms:.1f} ratio={dms / hms:.3f} streamed="
             f"{streamed} B ({streamed / (hms / 1e3) / 1e9:.2f} GB/s) "
-            f"host_bytes={hb}{' (wrapped)' if hb != streamed else ''}")
+            f"host_bytes={hb} (reference's dense layout {staged.dense} B"
+            f"{', wrapped' if hb != staged.dense else ''})")
 
     def bound_check(H, pol, runs_fit: bool):
         rep = H.memory_report(pol.with_(residency="host"))
@@ -643,8 +721,12 @@ def phase_host(torch):
                 call, exact = runs[name]
                 twin(name, Db, Hb, call, pol, exact, dev_cache)
         longest = max_run_tiles(Hb, "min_plus", order)
+        store = Hb.host_view().blocked_store("min_plus", reverse=False,
+                                             tile_order=order)
         log(f"host (b) {order}: longest run {longest} tiles, stream_buffer "
-            f"{sb}")
+            f"{sb}; min_plus store {store.payload_nbytes} B of tile-major "
+            f"payload in host RAM (the reference's dense store: "
+            f"{store.nbytes} B)")
         bound_check(Hb, repro_torch.ExecutionPolicy(
             backend="blocked", tile_order=order, stream_buffer=sb),
             longest <= sb)
@@ -704,14 +786,15 @@ def compact_args(bg, act):
 
 
 def max_err(got, want, exact: bool, torch) -> float:
-    """B1/B2: within atol=rtol=1e-5; B3/B4 (``exact``): bit for bit."""
+    """B1/B2: within atol=rtol=1e-5; B3/B4 (``exact``): bit for bit.  NaN
+    must meet NaN; the error is over the finite values."""
     if exact:
-        if not torch.equal(got, want):
-            raise AssertionError("min_plus kernel differs from its plain "
-                                 "version")
+        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
         return 0.0
-    torch.testing.assert_close(got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
-    return float((got - want).abs().max())
+    torch.testing.assert_close(got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL,
+                               equal_nan=True)
+    fin = torch.isfinite(want)
+    return float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
 
 
 # kernel name -> (tile encoding, full-schedule kernel?)
@@ -767,58 +850,126 @@ def phase_kernels(G, W, torch):
                                                                x_blocks),
                                  exact, torch))
                 args = compact_args(bg, act)
-                e2 = max_err(K.spmv_blocked_compact(bg, *args, x_blocks),
-                             K.blocked_spmv_plain_compact(bg, *args, x_blocks),
-                             exact, torch)
+                y2 = K.spmv_blocked_compact(bg, *args, x_blocks)
+                if not torch.equal(y2, K.spmv_blocked_compact(bg, *args,
+                                                              x_blocks)):
+                    raise AssertionError(f"{compact_name}: two launches "
+                                         "differ")
+                e2 = max(max_err(y2, K.blocked_spmv_plain_compact(
+                             bg, *args, x_blocks), exact, torch),
+                         max_err(y2, K.blocked_spmv_plain_compact_rows(
+                             bg, *args, x_blocks), exact, torch))
                 errs[full_name] = max(errs[full_name], e1)
                 errs[compact_name] = max(errs[compact_name], e2)
                 log(f"kernel check {enc:10s} {order:7s} k={k} {fname:6s} "
                     f"live={int(act.sum())}/{bg.num_tiles} full err={e1:.3g}"
-                    f" (two launches equal) compact err={e2:.3g}")
+                    f" compact err={e2:.3g} (two launches of each equal)")
+    for (enc, order), bg in views.items():
+        if order == "hilbert":
+            check_non_finite(enc, bg, errs, torch)
     torch.cuda.synchronize()
     return errs
 
 
+def check_non_finite(enc, bg, errs, torch) -> None:
+    """ROADMAP §C P12: on an x holding +inf, -inf and NaN (four values of
+    each, in lane 0 of two), B1-B4 against both their plain versions, NaN
+    for NaN: NaN where the dense product has it, the same infinities
+    elsewhere, and lane 1 untouched."""
+    from repro_torch.kernels.spmv import kernel as K
+
+    full_name, compact_name = [n for n, (e, _) in KERNELS.items()
+                               if e == enc]
+    exact = enc == "min_plus"
+    frontier = torch.arange(bg.n, device="cuda") < bg.n // 2
+    x_blocks, act = kernel_inputs(bg, frontier, 2, torch, seed=11)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    lane0 = x_blocks.view(-1, 2)[:, 0]
+    for value in (float("inf"), float("-inf"), float("nan")):
+        lane0[torch.randint(lane0.numel(), (4,), generator=gen,
+                            device="cuda")] = value
+    args = compact_args(bg, act)
+    y1 = K.spmv_blocked(bg, act, x_blocks)
+    y2 = K.spmv_blocked_compact(bg, *args, x_blocks)
+    e1 = max(max_err(y1, K.blocked_spmv_plain(bg, act, x_blocks), exact,
+                     torch),
+             max_err(y1, K.blocked_spmv_plain_rows(bg, act, x_blocks), exact,
+                     torch))
+    e2 = max(max_err(y2, K.blocked_spmv_plain_compact(bg, *args, x_blocks),
+                     exact, torch),
+             max_err(y2, K.blocked_spmv_plain_compact_rows(bg, *args,
+                                                           x_blocks),
+                     exact, torch))
+    if not torch.isnan(y1[..., 0]).any() or torch.isnan(y1[..., 1]).any():
+        raise AssertionError(f"{full_name}: NaN not confined to lane 0")
+    errs[full_name] = max(errs[full_name], e1)
+    errs[compact_name] = max(errs[compact_name], e2)
+    log(f"kernel check {enc:10s} non-finite x: {int(torch.isnan(y1).sum())}"
+        f" / {int(torch.isnan(y2).sum())} NaN outputs (full / compact), "
+        f"{int(torch.isinf(y1).sum())} / {int(torch.isinf(y2).sum())} inf, "
+        f"all equal to the dense and payload plain versions; errors "
+        f"{e1:.3g} / {e2:.3g}")
+
+
 def bound(bg, act, k: int, schedule_entries: int):
     """(bound_ms, bound_by) of one product over the live dense tiles
-    (``act``; B2/B4, and the tile form B1/B3 had before the row payload):
-    their tile bytes, the x blocks they read, all of y, and 16 bytes of
-    int32 schedule per entry the kernel walks (each live tile's id, run
-    flag, destination and source block; the earlier B1/B3 walked every
-    tile) over the memory rate, against 2 operations per tile slot and
-    lane (multiply-add, or add and min) over the f32 peak."""
-    import torch
-
+    (``act``): the dense form of the earlier B1-B4 designs, logged beside
+    the payload bounds.  Their tile bytes, the x blocks they read, all of
+    y, and 16 bytes of int32 schedule per entry the kernel walks (each
+    live tile's id, run flag, destination and source block; the earlier
+    B1/B3 walked every tile) over the memory rate, against 2 operations
+    per tile slot and lane (multiply-add, or add and min) over the f32
+    peak."""
     live = act.bool()
     live_tiles = int(live.sum())
-    live_src_blocks = int(torch.unique(bg.sbid[live]).numel())
-    nbytes = (live_tiles * bg.bd * bg.bs * 4
-              + live_src_blocks * bg.bs * k * 4
+    nbytes = (live_tiles * bg.bd * bg.bs * 4 + live_x_bytes(bg, live, k)
               + bg.n_dst_blocks * bg.bd * k * 4 + schedule_entries * 16)
-    flops = 2.0 * live_tiles * bg.bd * bg.bs * k
+    return roofline(nbytes, 2.0 * live_tiles * bg.bd * bg.bs * k)
+
+
+def roofline(nbytes: int, flops: float):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the operations over the f32 peak."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def live_x_bytes(bg, tiles, k: int) -> int:
+    """The x blocks of the listed tiles: what a product over them must read
+    of x, non-finite values included (ROADMAP §C P12)."""
+    import torch
+
+    return int(torch.unique(bg.sbid[tiles]).numel()) * bg.bs * k * 4
 
 
 def bound_rows(bg, act, k: int):
     """(bound_ms, bound_by) of B1/B3 over the row payload: 12 B of each
     live entry (tile, source row, weight), a 4-byte row pointer and K y
-    values a row, the x rows the live entries read and the 4-byte activity
-    flag of each tile over the memory rate, against 2 operations a live
-    entry and lane over the f32 peak."""
-    import torch
-
+    values a row, the x blocks of the live tiles and the 4-byte activity
+    flag and source block of each tile over the memory rate, against 2
+    operations a live entry and lane over the f32 peak."""
     live = act[bg.ent_tile.long()] != 0
     live_entries = int(live.sum())
-    x_rows = int(torch.unique(bg.ent_src[live]).numel())
     n_rows = bg.row_ptr.numel() - 1
     nbytes = (live_entries * 12 + (n_rows + 1) * 4 + n_rows * k * 4
-              + x_rows * k * 4 + bg.num_tiles * 4)
-    flops = 2.0 * live_entries * k
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+              + live_x_bytes(bg, act.bool(), k) + bg.num_tiles * 8)
+    return roofline(nbytes, 2.0 * live_entries * k)
+
+
+def bound_compact_rows(bg, args, k: int):
+    """(bound_ms, bound_by) of B2/B4 over the tile-major payload: 12 B of
+    each live tile's entries (row, source row, weight), four words a live
+    tile (list entry, destination block, tile pointer, source block), the
+    x blocks of the live tiles and y over the memory rate, against 2
+    operations a live entry and lane over the f32 peak."""
+    nact = args[6]
+    ids = args[0][:nact].long()
+    tp = bg.tile_ptr.long()
+    entries = int((tp[ids + 1] - tp[ids]).sum())
+    nbytes = (entries * 12 + nact * 16 + live_x_bytes(bg, ids, k)
+              + bg.n_dst_blocks * bg.bd * k * 4)
+    return roofline(nbytes, 2.0 * entries * k)
 
 
 def live_edges(g, frontier_np):
@@ -898,7 +1049,7 @@ def phase_time(g, G, wg, W, torch):
                 return K.spmv_blocked_compact(bg, *args, x_blocks)
 
             def plain():
-                return K.blocked_spmv_plain_compact(bg, *args, x_blocks)
+                return K.blocked_spmv_plain_compact_rows(bg, *args, x_blocks)
         lib = library_call(name, graph, frontier_np, x_blocks, torch)
         ms = cuda_ms(run, reps=50 if full_schedule else 20)
         plain_ms = cuda_ms(plain, reps=3, warmup=1)
@@ -909,20 +1060,44 @@ def phase_time(g, G, wg, W, torch):
             dense_ms = cuda_ms(lambda: K.blocked_spmv_plain(bg, act,
                                                             x_blocks),
                                reps=3, warmup=1)
-            extra = (f" (dense-tile bound of the earlier design "
-                     f"{tile_bound_ms:.4f} ms; dense plain_ms {dense_ms:.3f};"
-                     f" device time a call (CUDA graph): kernel "
-                     f"{device_ms(run, torch):.4f} ms, library "
-                     f"{device_ms(lib, torch):.4f} ms)")
         else:
-            bound_ms, bound_by = bound(bg, act, 1, live)
-            extra = ""
+            bound_ms, bound_by = bound_compact_rows(bg, args, 1)
+            tile_bound_ms = bound(bg, act, 1, live)[0]
+            dense_ms = cuda_ms(lambda: K.blocked_spmv_plain_compact(
+                bg, *args, x_blocks), reps=3, warmup=1)
+        kernel_device_ms = device_ms(run, torch)
+        parts = kernel_parts(run, torch)
         rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                          bound_ms=bound_ms, bound_by=bound_by, live=live)
+                          bound_ms=bound_ms, bound_by=bound_by, live=live,
+                          device_ms=kernel_device_ms,
+                          dense_bound_ms=tile_bound_ms)
         log(f"time {name}: live={live}/{bg.num_tiles} ms={ms:.4f} "
+            f"device_ms={kernel_device_ms:.4f} (one call in a CUDA graph) "
             f"bound_ms={bound_ms:.5f} ({bound_by}) plain_ms={plain_ms:.3f} "
-            f"library_ms={library_ms:.4f}{extra}")
+            f"library_ms={library_ms:.4f} (library device_ms "
+            f"{device_ms(lib, torch):.4f}; dense-tile bound of the earlier "
+            f"design {tile_bound_ms:.4f} ms; dense plain_ms {dense_ms:.3f}); "
+            f"device ms a call by kernel {parts}")
     return rows
+
+
+def kernel_parts(fn, torch, calls: int = 20) -> dict:
+    """Device ms a call of each CUDA kernel that ``fn`` launches
+    (torch.profiler over ``calls`` calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.split("::")[-1].split("(")[0]:
+            round(e.self_device_time_total / 1e3 / calls, 5)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0}
 
 
 def device_ms(fn, torch, calls: int = 20) -> float:
@@ -1348,6 +1523,7 @@ def main() -> int:
     errs = phase_kernels(G, W, torch)
     times = phase_time(g, G, wg, W, torch)
     blocked = repro_torch.ExecutionPolicy(backend="blocked")
+    compact = repro_torch.ExecutionPolicy(backend="blocked_compact")
     host_scan = repro_torch.ExecutionPolicy(residency="host")
     host_bc = repro_torch.ExecutionPolicy(backend="blocked_compact",
                                           residency="host")
@@ -1355,6 +1531,9 @@ def main() -> int:
         ("blocked/pr_push", lambda: G.pagerank(policy=blocked)),
         ("blocked/bfs_hub", lambda: G.bfs(hub, policy=blocked)),
         ("blocked/wcc", lambda: W.run(wcc_program(), policy=blocked)),
+        ("blocked_compact/pr_push", lambda: G.pagerank(policy=compact)),
+        ("blocked_compact/wcc", lambda: W.run(wcc_program(),
+                                              policy=compact)),
         ("host/scan/pr_push", lambda: Ha.pagerank(
             max_iters=PROFILE_ITERS, policy=host_scan)),
         ("host/blocked_compact/wcc", lambda: Hb.run(wcc_program(),

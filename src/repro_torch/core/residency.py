@@ -4,8 +4,8 @@
 A :class:`HostGraph` keeps the O(m) edge arrays in host RAM as plain numpy
 (:class:`HostChunkStore` / :class:`HostBlockedStore`, built by the same
 choppers as the device views — :func:`repro_torch.core.sem.build_store_arrays`
-and :func:`repro_torch.kernels.spmv.build_blocked_arrays` — so both
-residencies stream byte-identical data in the same schedule).  Only the
+and :func:`repro_torch.kernels.spmv.build_payload_arrays` — so both
+residencies stream the same data in the same schedule).  Only the
 degree vectors live on the device.  Each superstep ships only its live
 work-list:
 
@@ -24,8 +24,13 @@ work-list:
      plus O(stream_buffer) staging, never O(m).  On the CPU the batches
      are plain arrays.
 
-``IOStats.host_bytes`` is the ``.nbytes`` of every payload shipped, padding
-included — the reference's arrays, so the counter equals the reference's.
+``IOStats.host_bytes`` is the ``.nbytes`` of every payload the reference
+ships, padding included, so the counter equals the reference's.  Chunk
+batches and the p2p arm ship exactly that.  A tile batch ships less: the
+tile-major payload of its tiles (12 B an entry and a local tile pointer)
+and the schedule, where the reference ships G dense tiles; host_bytes and
+``peak_stage_bytes`` keep counting the reference's batch, and
+``HostGraph.streamed_bytes`` the bytes really copied (ROADMAP §C P13).
 Every other IOStats field and the values equal the device residency's:
 chunk batches pad with chunk 0 marked invalid (its records scatter the
 identity to the sentinel row ``n``); tile batches never split a run and
@@ -181,16 +186,21 @@ class HostChunkStore:
 
 @dataclasses.dataclass(frozen=True)
 class HostBlockedStore:
-    """:class:`~repro_torch.kernels.spmv.BlockedGraph` twin in host RAM
-    (same tiles, schedule and run flags)."""
+    """:class:`~repro_torch.kernels.spmv.BlockedGraph` twin in host RAM:
+    the same schedule and run flags, and in place of the dense tiles the
+    view's tile-major payload (``tile_ptr``, ``tent_row``, ``tent_src``,
+    ``tent_w``), which a tile batch stages."""
 
-    tiles: np.ndarray
     dbid: np.ndarray
     sbid: np.ndarray
     first: np.ndarray
     last: np.ndarray
     accum: np.ndarray
     nnz: np.ndarray
+    tile_ptr: np.ndarray
+    tent_row: np.ndarray
+    tent_src: np.ndarray
+    tent_w: np.ndarray
     n: int
     bd: int
     bs: int
@@ -199,7 +209,7 @@ class HostBlockedStore:
 
     @property
     def num_tiles(self) -> int:
-        return int(self.tiles.shape[0])
+        return int(self.dbid.shape[0])
 
     @property
     def n_dst_blocks(self) -> int:
@@ -211,10 +221,19 @@ class HostBlockedStore:
 
     @property
     def nbytes(self) -> int:
-        return int(sum(
-            a.nbytes for a in (self.tiles, self.dbid, self.sbid, self.first,
-                               self.last, self.accum, self.nnz)
+        """The reference store's bytes (its dense f32 tiles and the
+        schedule), as ``memory_report`` reports them; the bytes this store
+        holds in place of the tiles are :attr:`payload_nbytes` (ROADMAP §C
+        P13)."""
+        return self.num_tiles * self.bd * self.bs * 4 + int(sum(
+            a.nbytes for a in (self.dbid, self.sbid, self.first, self.last,
+                               self.accum, self.nnz)
         ))
+
+    @property
+    def payload_nbytes(self) -> int:
+        return int(sum(a.nbytes for a in (self.tile_ptr, self.tent_row,
+                                          self.tent_src, self.tent_w)))
 
 
 class _Staged:
@@ -304,9 +323,10 @@ class HostGraph:
     The device holds only the degree vectors (the graph arrays the vertex
     programs read); edges stay in numpy stores and are shipped per
     superstep.  ``peak_stage_bytes`` records the largest in-flight staging
-    footprint (at most two batches, by construction); ``streamed_bytes``
-    counts every payload shipped, as a Python int that does not wrap
-    (``IOStats.host_bytes`` keeps the reference's int32 wrap).
+    footprint of the reference's batches (at most two, by construction);
+    ``streamed_bytes`` counts the bytes really shipped, as a Python int
+    that does not wrap (``IOStats.host_bytes`` keeps the reference's count
+    and its int32 wrap).
     """
 
     is_host_view = True
@@ -365,9 +385,9 @@ class HostGraph:
         once per key like the session's device tile cache."""
         key = (semiring, bool(reverse), tile_order)
         if key not in self._blocked:
-            from ..kernels.spmv import build_blocked_arrays
+            from ..kernels.spmv import build_payload_arrays
 
-            self._blocked[key] = HostBlockedStore(**build_blocked_arrays(
+            self._blocked[key] = HostBlockedStore(**build_payload_arrays(
                 self.host, bd=self.bd, bs=self.bs, direction="out",
                 semiring=semiring, reverse=reverse, tile_order=tile_order,
             ))
@@ -397,13 +417,16 @@ def _nbytes(layout) -> int:
                for dtype, shape in layout)
 
 
-def _ship(hg: HostGraph, pol: ExecutionPolicy, layout, fill):
+def _ship(hg: HostGraph, pol: ExecutionPolicy, layout, fill,
+          counted: Optional[int] = None):
     """Stage one payload under the retry ladder: ``(staged, nbytes,
-    retries)``."""
+    retries)``.  ``streamed_bytes`` counts the bytes copied; ``nbytes`` is
+    what IOStats counts, the payload's own unless ``counted`` says
+    otherwise."""
     staged, r = _staged(pol, lambda: hg.stager().stage(layout, fill))
     nbytes = _nbytes(layout)
     hg.streamed_bytes += nbytes
-    return staged, nbytes, r
+    return staged, nbytes if counted is None else counted, r
 
 
 def _double_buffered(batches, ship, compute) -> tuple[int, int, int]:
@@ -568,10 +591,15 @@ def _stream_tiles(hg: HostGraph, x, active, sr: Semiring, *, direction: str,
                   reverse: bool, y_init, pol: ExecutionPolicy):
     """The blocked backends on a host tile store.
 
-    Each batch ships the reference's compact-grid payload ``(tiles, perm,
-    dbid, sbid, first, last, accum, nact)`` padded to a power of two ``G``,
-    with batch-local run flags, and runs kernel B2 or B4 on it through a
-    :class:`~repro_torch.kernels.spmv.TileBatch` view.  The host-side carry
+    Each batch ships the tile-major payload of its tiles (a local
+    ``tile_ptr`` and the entries' rows, x rows and weights) and the
+    reference's compact-grid schedule ``(perm, dbid, sbid, first, last,
+    accum, nact)`` padded to a power of two ``G``, with batch-local run
+    flags, and runs kernel B2 or B4 on it through a
+    :class:`~repro_torch.kernels.spmv.TileBatch` view.  Under a curve order
+    a batch's tiles are staged grouped by destination block, each block's
+    runs whole and in schedule order, so the per-run sums and their order
+    within a block are the schedule's.  The host-side carry
     combines the batches: a block's first flush writes it, later ones add
     (or take the min), exactly the kernel's own flush sequence.
     """
@@ -624,16 +652,32 @@ def _stream_tiles(hg: HostGraph, x, active, sr: Semiring, *, direction: str,
 
         def ship(batch):
             pos = batch[0]
+            if store.tile_order != "dest":
+                # group by destination block for the kernel, keeping each
+                # block's runs in schedule order (runs stay whole).
+                pos = pos[np.argsort(store.dbid[pos], kind="stable")]
             kk = len(pos)
             G = _pow2_at_least(kk)
-            layout = [(np.float32, (G, bd, bs))] + [(np.int32, (G,))] * 6 \
-                + [(np.int32, (1,))]
+            beg = store.tile_ptr[pos].astype(np.int64)
+            cnt = store.tile_ptr[pos + 1] - beg
+            E = int(cnt.sum())
+            layout = ([(np.int32, (kk + 1,)), (np.int32, (E,)),
+                       (np.int32, (E,)), (np.float32, (E,))]
+                      + [(np.int32, (G,))] * 6 + [(np.int32, (1,))])
+            # IOStats count the reference's batch: G dense tiles and the
+            # schedule (ROADMAP §C P13).
+            dense = _nbytes([(np.float32, (G, bd, bs))]
+                            + [(np.int32, (G,))] * 6 + [(np.int32, (1,))])
 
             def fill(arrs):
-                tiles, perm, dbid_b, sbid_b, first_b, last_b, accum_b, nact \
-                    = arrs
-                np.take(store.tiles, pos, axis=0, out=tiles[:kk])
-                tiles[kk:] = 0
+                (tile_ptr, tent_row, tent_src, tent_w, perm, dbid_b, sbid_b,
+                 first_b, last_b, accum_b, nact) = arrs
+                tile_ptr[0] = 0
+                np.cumsum(cnt, out=tile_ptr[1:])
+                idx = np.repeat(beg - tile_ptr[:-1], cnt) + np.arange(E)
+                np.take(store.tent_row, idx, out=tent_row)
+                np.take(store.tent_src, idx, out=tent_src)
+                np.take(store.tent_w, idx, out=tent_w)
                 # tail steps replay the last live step with every flag 0.
                 perm[:kk] = np.arange(kk, dtype=np.int32)
                 perm[kk:] = kk - 1
@@ -661,14 +705,15 @@ def _stream_tiles(hg: HostGraph, x, active, sr: Semiring, *, direction: str,
                 accum_b[:kk] = acc_run[np.cumsum(first_b[:kk]) - 1]
                 nact[0] = kk
 
-            return _ship(hg, pol, layout, fill)
+            return _ship(hg, pol, layout, fill, counted=dense)
 
         def compute(i, staged):
             nonlocal carry
-            tiles, perm, dbid_b, sbid_b, first_b, last_b, accum_b, _ = \
-                staged.arrays
-            view = TileBatch(tiles=tiles, sbid=sbid_b, n=n, bd=bd, bs=bs,
-                             semiring=store.semiring)
+            (tile_ptr, tent_row, tent_src, tent_w, perm, dbid_b, sbid_b,
+             first_b, last_b, accum_b, _) = staged.arrays
+            view = TileBatch(tile_ptr=tile_ptr, tent_row=tent_row,
+                             tent_src=tent_src, tent_w=tent_w, sbid=sbid_b,
+                             n=n, bd=bd, bs=bs, semiring=store.semiring)
             y_b = spmv_blocked_compact(view, perm, dbid_b, sbid_b, first_b,
                                        last_b, accum_b, len(batches[i][0]),
                                        x_blocks)

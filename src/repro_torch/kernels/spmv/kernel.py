@@ -14,30 +14,41 @@ each run's end::
 On the GPU the thread blocks run in parallel and in no order, and most
 slots of a 128x128 tile are empty (a few edges a tile on an RMAT graph),
 so the kernels in ``repro_torch/csrc/spmv.cu`` (see the source for the
-design and its bound) differ in what they read:
+design and its bound) read only a view's non-absent slots, 12 bytes an
+entry, and never its dense tiles:
 
   * :func:`spmv_blocked` (B1, B3 on min_plus tiles) — every tile of the
-    schedule, read from the view's *row payload* (``BlockedGraph.row_ptr``,
+    schedule, over the view's *row payload* (``BlockedGraph.row_ptr``,
     ``ent_tile``/``ent_src``/``ent_w`` and the segment table
-    ``seg_ptr``/``row_seg``) and never from the dense tiles: a 16-lane
-    group a segment of a destination row's entries, entries of tiles
-    inactive under the frontier skipped, then the segments of each row
-    combined in order.  Its plain version is
-    :func:`blocked_spmv_plain_rows`.
-  * :func:`spmv_blocked_compact` (B2, B4 on min_plus tiles) — only the live
-    tiles ``perm[:nact]`` of the compacted schedule, dense, grouped by
-    destination block in torch each call; one thread block walks a
-    block's live runs in schedule order, run boundaries from the
-    recomputed ``first`` flags.  It also takes a :class:`TileBatch`, the
-    batch-local view that host residency stages per batch.
+    ``seg_ptr``/``row_seg``): a 16-lane group a segment of a destination
+    row's entries, entries of tiles inactive under the frontier skipped,
+    then the segments of each row combined in order.  Its plain version
+    is :func:`blocked_spmv_plain_rows`.
+  * :func:`spmv_blocked_compact` (B2, B4 on min_plus tiles) — only the
+    live tiles ``perm[:nact]`` of the compacted schedule, over the
+    *tile-major payload* (``tile_ptr``, ``tent_row``/``tent_src``/
+    ``tent_w``): the live list grouped by destination block (a stable sort
+    on the device under a curve order; 'dest' already is), cut into
+    windows of 32 live tiles, each window's entries folded row by row in
+    shared memory, and the blocks spread over several windows combined in
+    window order.  It also takes a :class:`TileBatch`, the batch-local
+    payload that host residency stages per batch.  The wrapper does not
+    synchronise with the device.  Its plain version is
+    :func:`blocked_spmv_plain_compact_rows`.
+
+Both follow the reference on an ``x`` holding +-inf or NaN: the dense
+product's NaN on absent slots (0 * inf, +inf + -inf) is reproduced where
+the reference has it (ROADMAP §C P12).
 
 On a CPU tensor each wrapper runs its plain torch version over the dense
-tiles (:func:`blocked_spmv_plain`, :func:`blocked_spmv_plain_compact`),
-which keeps the reference's per-run summation structure: per-run sums of
-the tile products, combined into the block in run order, so the full and
-the compacted schedule agree bit for bit.  On a CUDA tensor it launches
-the kernel or raises; ``launches`` counts kernel launches, one
-key per kernel.  'bool' occupancy tiles run the plus_times kernels.
+tiles (:func:`blocked_spmv_plain`, :func:`blocked_spmv_plain_compact`; a
+:class:`TileBatch`'s tiles are rebuilt from its payload), which keeps the
+reference's per-run summation structure: per-run sums of the tile
+products, combined into the block in run order, so the full and the
+compacted schedule, and host and device residency, agree bit for bit.  On
+a CUDA tensor it launches the kernel or raises; ``launches`` counts kernel
+launches, one key per kernel.  'bool' occupancy tiles run the plus_times
+kernels.
 
 The shared library is built with ``nvcc`` at first use into
 ``build/kernels/`` at the repository root (git-ignored), keyed by the
@@ -58,6 +69,7 @@ __all__ = [
     "TileBatch",
     "blocked_spmv_plain",
     "blocked_spmv_plain_compact",
+    "blocked_spmv_plain_compact_rows",
     "blocked_spmv_plain_rows",
     "build_library",
     "entry_rows",
@@ -67,8 +79,9 @@ __all__ = [
     "spmv_blocked_compact",
 ]
 
-_MAX_K = 192  # lanes the kernel's 48 KB of shared accumulators hold
+_MAX_K = 192  # lanes the kernels take
 _PLAIN_CHUNK = 512  # tiles per batched product in the plain versions
+_WINDOW = 32  # live tiles a B2/B4 window (kWin in csrc/spmv.cu)
 
 #: Kernel launches since the last :func:`reset_launches`: B1, B2, B3, B4.
 launches = {"spmv_blocked": 0, "spmv_blocked_compact": 0,
@@ -89,22 +102,28 @@ def reset_launches() -> None:
 
 @dataclasses.dataclass(frozen=True)
 class TileBatch:
-    """A batch-local tile view for :func:`spmv_blocked_compact`: ``tiles``
-    [G, Bd, Bs] staged for one batch and ``sbid`` [G] the global source
-    block of each staged tile, so work-list entry ``i`` reads
-    ``x_blocks[sbid[i]]``.  ``n`` sizes the output's destination blocks as
-    in the graph's own view."""
+    """A batch-local tile view for :func:`spmv_blocked_compact`: the
+    tile-major payload of the tiles staged for one batch (fields as in
+    ``BlockedGraph``, with tile ids local to the batch) and ``sbid`` the
+    global source block of each staged tile, so entry ``e`` reads row
+    ``tent_src[e]`` of ``x_blocks.view(-1, K)``.  ``n`` sizes the output's
+    destination blocks as in the graph's own view.  The staged tiles come
+    grouped by destination block, as under the 'dest' order."""
 
-    tiles: torch.Tensor
+    tile_ptr: torch.Tensor
+    tent_row: torch.Tensor
+    tent_src: torch.Tensor
+    tent_w: torch.Tensor
     sbid: torch.Tensor
     n: int
     bd: int
     bs: int
     semiring: str
+    tile_order = "dest"  # the staging order (a class constant)
 
     @property
     def num_tiles(self) -> int:
-        return int(self.tiles.shape[0])
+        return int(self.tile_ptr.numel()) - 1
 
     @property
     def n_dst_blocks(self) -> int:
@@ -127,10 +146,10 @@ def _library():
         lib = ctypes.CDLL(str(build_library()))
         p, i = ctypes.c_void_p, ctypes.c_int
         for fn in ("spmv_rows", "spmv_rows_min_plus"):
-            getattr(lib, fn).argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, p]
+            getattr(lib, fn).argtypes = [p] * 15 + [i] * 7 + [p]
             getattr(lib, fn).restype = i
         for fn in ("spmv_compact", "spmv_compact_min_plus"):
-            getattr(lib, fn).argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
+            getattr(lib, fn).argtypes = [p] * 11 + [i] * 6 + [p]
             getattr(lib, fn).restype = i
         _lib = lib
     return _lib
@@ -146,28 +165,24 @@ def _on_cpu(x_blocks: torch.Tensor) -> bool:
 
 
 def _check_cuda(bg, x_blocks: torch.Tensor) -> None:
-    """Refuse what the CUDA kernel does not take (no fallback)."""
-    if bg.tiles.device != x_blocks.device:
-        raise ValueError("tiles and x_blocks lie on different devices")
-    if bg.tiles.dtype != torch.float32 or x_blocks.dtype != torch.float32:
-        raise TypeError("the blocked kernel takes float32 tiles and x")
-    if not (bg.tiles.is_contiguous() and x_blocks.is_contiguous()):
-        raise ValueError("the blocked kernel takes contiguous tiles and x")
-    if bg.tiles.data_ptr() % 16 or x_blocks.data_ptr() % 16:
-        raise ValueError("the blocked kernel takes 16-byte aligned tiles and x")
-    if bg.bs % 4 or bg.bs > 128:
-        raise ValueError(f"the blocked kernel needs bs % 4 == 0 and bs <= 128 "
-                         f"(got bs={bg.bs})")
+    """Refuse what the CUDA kernels do not take (no fallback)."""
+    if bg.tent_w.device != x_blocks.device:
+        raise ValueError("the tile view and x_blocks lie on different devices")
+    if bg.tent_w.dtype != torch.float32 or x_blocks.dtype != torch.float32:
+        raise TypeError("the blocked kernels take float32 weights and x")
+    if not x_blocks.is_contiguous():
+        raise ValueError("the blocked kernels take a contiguous x")
     k = x_blocks.shape[-1]
     if not 1 <= k <= _MAX_K:
-        raise ValueError(f"the blocked kernel takes 1..{_MAX_K} lanes, got {k}")
+        raise ValueError(f"the blocked kernels take 1..{_MAX_K} lanes, got {k}")
     if tuple(x_blocks.shape[:2]) != (bg.n_src_blocks, bg.bs):
         raise ValueError(f"x_blocks shape {tuple(x_blocks.shape)} does not "
                          f"match the tile view")
 
 
-def _ptr(t: torch.Tensor):
-    return ctypes.c_void_p(t.data_ptr())
+def _i32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as a contiguous int32 tensor (no copy when it already is)."""
+    return t.to(torch.int32).contiguous()
 
 
 def _stream(device) -> int:
@@ -176,20 +191,15 @@ def _stream(device) -> int:
     return torch._C._cuda_getCurrentRawStream(device.index)
 
 
-def _launch(name: str, args, bg, k: int, device) -> torch.Tensor:
-    """B2/B4: launch over the dense tiles; returns y_blocks."""
-    if bg.semiring == "min_plus":
-        name += "_min_plus"
-    fn = getattr(_library(), _ENTRY[name])
-    y = torch.empty((bg.n_dst_blocks, bg.bd, k), dtype=torch.float32,
-                    device=device)
-    err = fn(_ptr(bg.tiles), _ptr(args[0]), _ptr(y),
-             *[_ptr(a) for a in args[1:]],
-             bg.n_dst_blocks, bg.bd, bg.bs, k, _stream(device))
+def _kernel_name(base: str, bg) -> str:
+    return base + ("_min_plus" if bg.semiring == "min_plus" else "")
+
+
+def _call(name: str, *args) -> None:
+    err = getattr(_library(), _ENTRY[name])(*args)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     launches[name] += 1
-    return y
 
 
 def spmv_blocked(bg, act: torch.Tensor, x_blocks: torch.Tensor) -> torch.Tensor:
@@ -199,28 +209,31 @@ def spmv_blocked(bg, act: torch.Tensor, x_blocks: torch.Tensor) -> torch.Tensor:
     A row none of whose entries lies in an active tile gets the identity
     (0, or +inf under min_plus), as a block whose tiles are all inactive
     flushes it; a block with no tile at all is left for the caller to fill
-    (``ops.blocked_spmv``).  On the card the kernel reads the row payload
-    and ``x_blocks`` only.
+    (``ops.blocked_spmv``).  On the card the kernel reads the row payload,
+    the tile-major payload's rows and columns (for a non-finite ``x``
+    only) and ``x_blocks``.
     """
     if _on_cpu(x_blocks):
         return blocked_spmv_plain(bg, act, x_blocks)
     _check_cuda(bg, x_blocks)
-    name = "spmv_blocked" + ("_min_plus" if bg.semiring == "min_plus" else "")
+    name = _kernel_name("spmv_blocked", bg)
     k = x_blocks.shape[-1]
     dev = x_blocks.device
     n_rows = bg.row_ptr.numel() - 1
     n_segs = bg.seg_ptr.numel() - 1
-    # y and the segment partials in one allocation: y first, then part.
-    out = torch.empty((n_rows + n_segs) * k, dtype=torch.float32, device=dev)
-    act = act.to(device=dev, dtype=torch.int32).contiguous()
-    err = getattr(_library(), _ENTRY[name])(
-        x_blocks.data_ptr(), out.data_ptr(), out.data_ptr() + n_rows * k * 4,
-        bg.row_seg.data_ptr(), bg.seg_ptr.data_ptr(), bg.ent_tile.data_ptr(),
-        bg.ent_src.data_ptr(), bg.ent_w.data_ptr(), act.data_ptr(), n_rows,
-        n_segs, k, _stream(dev))
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    launches[name] += 1
+    # y, the segment partials and the int32 poisoning counts in one
+    # allocation (both 4-byte types).
+    out = torch.empty((n_rows + n_segs + bg.n_src_blocks) * k,
+                      dtype=torch.float32, device=dev)
+    base = out.data_ptr()
+    act = _i32(act.to(dev))
+    _call(name, x_blocks.data_ptr(), base, base + n_rows * k * 4,
+          base + (n_rows + n_segs) * k * 4, bg.row_seg.data_ptr(),
+          bg.seg_ptr.data_ptr(), bg.ent_tile.data_ptr(),
+          bg.ent_src.data_ptr(), bg.ent_w.data_ptr(), act.data_ptr(),
+          bg.dbid.data_ptr(), bg.sbid.data_ptr(), bg.tile_ptr.data_ptr(),
+          bg.tent_row.data_ptr(), bg.tent_src.data_ptr(), n_rows, n_segs,
+          bg.num_tiles, bg.bd, bg.n_src_blocks, bg.bs, k, _stream(dev))
     return out[: n_rows * k].view(bg.n_dst_blocks, bg.bd, k)
 
 
@@ -229,43 +242,73 @@ def spmv_blocked_compact(bg, perm, dbid, sbid, first, last, accum, nact: int,
     """B2 (B4 on min_plus tiles): the same over the compacted work-list
     ``perm[:nact]`` (arguments as returned by ``ops.compact_tile_order``,
     sliced to the grid bucket).  ``bg`` is a ``BlockedGraph`` or a
-    :class:`TileBatch`.  Blocks with no live tile are left for the caller
-    to fill."""
+    :class:`TileBatch`.  A block with no live tile gets the identity and
+    is left for the caller to fill.  On the card only ``perm``, ``dbid``
+    and ``nact`` are read, with no synchronisation."""
     if _on_cpu(x_blocks):
         return blocked_spmv_plain_compact(bg, perm, dbid, sbid, first, last,
                                           accum, nact, x_blocks)
     _check_cuda(bg, x_blocks)
-    d = dbid[:nact].long()
-    order = torch.argsort(d, stable=True)
-    seg_ptr = torch.zeros(bg.n_dst_blocks + 1, dtype=torch.int64,
-                          device=x_blocks.device)
-    seg_ptr[1:] = torch.cumsum(torch.bincount(d, minlength=bg.n_dst_blocks), 0)
-    args = (x_blocks, seg_ptr.to(torch.int32),
-            perm[:nact][order].to(torch.int32).contiguous(),
-            first[:nact][order].to(torch.int32).contiguous(), bg.sbid)
-    return _launch("spmv_blocked_compact", args, bg, x_blocks.shape[-1],
-                   x_blocks.device)
+    name = _kernel_name("spmv_blocked_compact", bg)
+    k = x_blocks.shape[-1]
+    dev = x_blocks.device
+    nact = int(nact)
+    lst, ldb = perm[:nact], dbid[:nact]
+    if bg.tile_order != "dest":  # group the live tiles by block, stably
+        ldb, order = torch.sort(ldb, stable=True)
+        lst = lst[order]
+    lst, ldb = _i32(lst), _i32(ldb)
+    n_y = bg.n_dst_blocks * bg.bd * k
+    n_part = 2 * (-(-nact // _WINDOW)) * bg.bd * k
+    n_int = bg.n_src_blocks * k + 2 * bg.n_dst_blocks
+    # y, the window partials and the int32 scratch in one allocation.
+    out = torch.empty(n_y + n_part + n_int, dtype=torch.float32, device=dev)
+    base = out.data_ptr()
+    _call(name, x_blocks.data_ptr(), base, base + n_y * 4,
+          base + (n_y + n_part) * 4, lst.data_ptr(), ldb.data_ptr(),
+          bg.sbid.data_ptr(), bg.tile_ptr.data_ptr(), bg.tent_row.data_ptr(),
+          bg.tent_src.data_ptr(), bg.tent_w.data_ptr(), nact,
+          bg.n_dst_blocks, bg.bd, bg.n_src_blocks, bg.bs, k, _stream(dev))
+    return out[:n_y].view(bg.n_dst_blocks, bg.bd, k)
 
 
-def _runs_into_blocks(bg, ids, runs, run_db, x_blocks) -> torch.Tensor:
+# ------------------------------------------------------------ plain torch
+def _identity(bg) -> float:
+    return float("inf") if bg.semiring == "min_plus" else 0.0
+
+
+def _batch_tiles(tb: TileBatch) -> torch.Tensor:
+    """The dense tiles [tiles, Bd, Bs] of a batch, rebuilt from its
+    payload."""
+    tiles = torch.full((tb.num_tiles, tb.bd, tb.bs), _identity(tb),
+                       dtype=torch.float32, device=tb.tent_w.device)
+    t = torch.repeat_interleave(
+        torch.arange(tb.num_tiles, device=tiles.device),
+        torch.diff(tb.tile_ptr.long()), output_size=tb.tent_w.numel())
+    tiles[t, tb.tent_row.long(),
+          tb.tent_src.long() - tb.sbid[t].long() * tb.bs] = tb.tent_w
+    return tiles
+
+
+def _runs_into_blocks(bg, tiles, ids, runs, run_db, x_blocks) -> torch.Tensor:
     """Plain core: sum each listed tile's product into its run (in list
     order), then combine the runs into their blocks in run order."""
     k = x_blocks.shape[-1]
     minp = bg.semiring == "min_plus"
-    fill = float("inf") if minp else 0.0
+    fill = _identity(bg)
     acc = torch.full((run_db.numel(), bg.bd, k), fill, dtype=torch.float32,
                      device=x_blocks.device)
     for s in range(0, ids.numel(), _PLAIN_CHUNK):
         i = ids[s:s + _PLAIN_CHUNK].long()
         r = runs[s:s + _PLAIN_CHUNK].long()
         xin = x_blocks[bg.sbid[i].long()]  # [c, Bs, K]
-        tiles = bg.tiles[i]  # [c, Bd, Bs]
+        tl = tiles[i]  # [c, Bd, Bs]
         if minp:
-            cand = (tiles[:, :, :, None] + xin[:, None, :, :]).amin(dim=2)
+            cand = (tl[:, :, :, None] + xin[:, None, :, :]).amin(dim=2)
             acc.scatter_reduce_(0, r[:, None, None].expand_as(cand), cand,
                                 "amin", include_self=True)
         else:
-            acc.index_add_(0, r, torch.bmm(tiles, xin))
+            acc.index_add_(0, r, torch.bmm(tl, xin))
     y = torch.full((bg.n_dst_blocks, bg.bd, k), fill, dtype=torch.float32,
                    device=x_blocks.device)
     rdb = run_db.long()
@@ -282,18 +325,21 @@ def blocked_spmv_plain(bg, act: torch.Tensor,
     """Plain torch version of B1 (and of B3 on min_plus tiles)."""
     runs = torch.cumsum(bg.first.long(), 0) - 1
     ids = torch.nonzero(act).flatten()
-    return _runs_into_blocks(bg, ids, runs[ids], bg.dbid[bg.first == 1],
-                             x_blocks)
+    return _runs_into_blocks(bg, bg.tiles, ids, runs[ids],
+                             bg.dbid[bg.first == 1], x_blocks)
 
 
 def blocked_spmv_plain_compact(bg, perm, dbid, sbid, first, last, accum,
                                nact: int, x_blocks: torch.Tensor
                                ) -> torch.Tensor:
-    """Plain torch version of B2 (and of B4 on min_plus tiles)."""
+    """Plain torch version of B2 (and of B4 on min_plus tiles) over the
+    dense tiles, as the reference computes it; a :class:`TileBatch`'s
+    tiles are rebuilt from its payload first."""
     f = first[:nact].long()
     runs = torch.cumsum(f, 0) - 1
-    return _runs_into_blocks(bg, perm[:nact], runs, dbid[:nact][f == 1],
-                             x_blocks)
+    tiles = _batch_tiles(bg) if isinstance(bg, TileBatch) else bg.tiles
+    return _runs_into_blocks(bg, tiles, perm[:nact], runs,
+                             dbid[:nact][f == 1], x_blocks)
 
 
 def entry_rows(bg) -> torch.Tensor:
@@ -304,27 +350,95 @@ def entry_rows(bg) -> torch.Tensor:
         torch.diff(bg.row_ptr.long()), output_size=bg.ent_tile.numel())
 
 
-def blocked_spmv_plain_rows(bg, act: torch.Tensor,
-                            x_blocks: torch.Tensor) -> torch.Tensor:
-    """Plain torch version of the card's B1/B3 arithmetic: over the row
-    payload's entries in live tiles (``act[ent_tile] != 0``), one
-    ``index_add_`` (plus_times) or ``scatter_reduce_('amin')`` (min_plus)
-    by destination row of ``w * x[src]`` or ``w + x[src]``.  A row with no
-    live entry gets the identity."""
+def _tile_entries(bg, tiles: torch.Tensor):
+    """``(j, e)``: for each tile-major entry of the listed ``tiles`` (in
+    list order, then row-major), its list index and its entry index."""
+    tp = bg.tile_ptr.long()
+    beg = tp[tiles]
+    cnt = tp[tiles + 1] - beg
+    j = torch.repeat_interleave(torch.arange(tiles.numel(),
+                                             device=tiles.device), cnt)
+    start = torch.cumsum(cnt, 0) - cnt
+    e = beg[j] + torch.arange(j.numel(), device=tiles.device) - start[j]
+    return j, e
+
+
+def _poison(bg, tiles, db, x_blocks, y) -> torch.Tensor:
+    """Write NaN into ``y`` [nDB * Bd, K] where the reference's dense
+    product has it (ROADMAP §C P12): row r of the block of a live tile
+    (``tiles``, blocks ``db``) whose source block holds a value of x in a
+    column where r's slot is absent and the semiring turns it into NaN
+    (+-inf or NaN under plus_times: 0 * x; -inf or NaN under min_plus:
+    +inf + x).  Row r is such a row when fewer of its entries in the tile
+    read such a value than the source block holds."""
     k = x_blocks.shape[-1]
+    if bg.semiring == "min_plus":
+        bad = torch.isnan(x_blocks) | (x_blocks == float("-inf"))
+    else:
+        bad = ~torch.isfinite(x_blocks)
+    want = bad.sum(1)  # [nSB, K]
+    sb = bg.sbid[tiles].long()
+    hit = (want[sb] > 0).any(1)
+    if not bool(hit.any()):
+        return y
+    tiles, db, sb = tiles[hit], db[hit], sb[hit]
+    j, e = _tile_entries(bg, tiles)
+    have = torch.zeros((tiles.numel() * bg.bd, k), dtype=torch.int64,
+                       device=y.device)
+    have.index_add_(0, j * bg.bd + bg.tent_row[e].long(),
+                    bad.reshape(-1, k)[bg.tent_src[e].long()].long())
+    p, r, kk = (have.view(-1, bg.bd, k) < want[sb][:, None, :]).nonzero(
+        as_tuple=True)
+    y[db[p] * bg.bd + r, kk] = float("nan")
+    return y
+
+
+def _fold_rows(bg, rows, w, xin, n_rows: int) -> torch.Tensor:
+    """y [n_rows, K]: the identity, folded with ``w (x) xin`` by row."""
     minp = bg.semiring == "min_plus"
-    live = act[bg.ent_tile.long()] != 0
-    src = bg.ent_src[live].long()
-    w = bg.ent_w[live][:, None]
-    rows = entry_rows(bg)[live]
-    xin = x_blocks.reshape(-1, k)[src]
-    y = torch.full((bg.n_dst_blocks * bg.bd, k),
-                   float("inf") if minp else 0.0, dtype=torch.float32,
-                   device=x_blocks.device)
+    y = torch.full((n_rows, xin.shape[1]), _identity(bg),
+                   dtype=torch.float32, device=xin.device)
     if minp:
         val = w + xin
         y.scatter_reduce_(0, rows[:, None].expand_as(val), val, "amin",
                           include_self=True)
     else:
         y.index_add_(0, rows, w * xin)
+    return y
+
+
+def blocked_spmv_plain_rows(bg, act: torch.Tensor,
+                            x_blocks: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of the card's B1/B3 arithmetic: over the row
+    payload's entries in live tiles (``act[ent_tile] != 0``), one
+    ``index_add_`` (plus_times) or ``scatter_reduce_('amin')`` (min_plus)
+    by destination row of ``w * x[src]`` or ``w + x[src]``.  A row with no
+    live entry gets the identity; NaN where the dense form has it."""
+    k = x_blocks.shape[-1]
+    live = act[bg.ent_tile.long()] != 0
+    xin = x_blocks.reshape(-1, k)[bg.ent_src[live].long()]
+    y = _fold_rows(bg, entry_rows(bg)[live], bg.ent_w[live][:, None], xin,
+                   bg.n_dst_blocks * bg.bd)
+    tiles = torch.nonzero(act).flatten()
+    y = _poison(bg, tiles, bg.dbid[tiles].long(), x_blocks, y)
+    return y.view(bg.n_dst_blocks, bg.bd, k)
+
+
+def blocked_spmv_plain_compact_rows(bg, perm, dbid, sbid, first, last, accum,
+                                    nact: int, x_blocks: torch.Tensor
+                                    ) -> torch.Tensor:
+    """Plain torch version of the card's B2/B4 arithmetic: over the
+    tile-major entries of the live tiles ``perm[:nact]`` (in list order,
+    each tile row-major), one ``index_add_`` (plus_times) or
+    ``scatter_reduce_('amin')`` (min_plus) by destination row.  ``bg`` is a
+    ``BlockedGraph`` or a :class:`TileBatch`.  A row with no live entry
+    gets the identity; NaN where the dense form has it."""
+    k = x_blocks.shape[-1]
+    tiles = perm[:nact].long()
+    db = dbid[:nact].long()
+    j, e = _tile_entries(bg, tiles)
+    xin = x_blocks.reshape(-1, k)[bg.tent_src[e].long()]
+    y = _fold_rows(bg, db[j] * bg.bd + bg.tent_row[e].long(),
+                   bg.tent_w[e][:, None], xin, bg.n_dst_blocks * bg.bd)
+    y = _poison(bg, tiles, db, x_blocks, y)
     return y.view(bg.n_dst_blocks, bg.bd, k)

@@ -9,10 +9,12 @@ dense ``(Bd, Bs)`` weight tile.  ``tile_order`` picks the streaming
 schedule ('dest', or a Morton/Hilbert curve, see :mod:`.order`); under a
 curve order a destination block occupies several *runs*, and a run whose
 block was already flushed carries ``accum=1``.  The tiles and the schedule
-are byte-identical to the reference tiler's.  Each view also carries a
-row payload (:func:`row_payload`): its non-absent slots as a CSR by
-destination row, which the full-schedule kernels B1/B3 read on the card
-in place of the dense tiles.
+are byte-identical to the reference tiler's.  Each view also carries its
+non-absent slots twice (:func:`row_payload`): as a CSR by destination row
+(the *row payload*, which the full-schedule kernels B1/B3 read on the
+card) and tile by tile in schedule order (the *tile-major payload*, which
+the compacted-work-list kernels B2/B4 read).  No card kernel reads the
+dense tiles.
 
 :func:`blocked_spmv` counts fetched/skipped tiles so the kernel path
 reports the same I/O metrics as the scan engine.  On a CUDA tensor it runs
@@ -39,6 +41,7 @@ __all__ = [
     "blocked_graph",
     "build_blocked",
     "build_blocked_arrays",
+    "build_payload_arrays",
     "blocked_spmv",
     "compact_grid_size",
     "compact_tile_order",
@@ -53,20 +56,24 @@ __all__ = [
 class BlockedGraph:
     """Dense-tile blocked view of a graph (edges as (Bd, Bs) tiles).
 
-    The first seven tensors are the reference's.  The rest are the *row
-    payload* the full-schedule kernels B1/B3 read in place of the dense
-    tiles: every slot that does not hold the semiring's absent value (0,
-    or +inf under min_plus), as a CSR by destination row of the view
-    (``row = dbid * Bd + slot row``).  Entry ``e`` of row ``r``
+    The first seven tensors are the reference's.  The rest hold every slot
+    that does not hold the semiring's absent value (0, or +inf under
+    min_plus) in two orders, which the card kernels read in place of the
+    dense tiles.  The *row payload* (B1/B3) is a CSR by destination row
+    of the view (``row = dbid * Bd + slot row``).  Entry ``e`` of row ``r``
     (``row_ptr[r] <= e < row_ptr[r+1]``) is the slot of schedule position
     ``ent_tile[e]`` that reads row ``ent_src[e]`` of ``x_blocks.view(-1,
     K)`` with weight ``ent_w[e]``; a row's entries go in ascending
     schedule position, then column.  Rows are cut into segments of at
     most :data:`SEG_ENTRIES` entries (``seg_ptr``: each segment's first
     entry; ``row_seg``: each row's first segment), so a hub row spreads
-    over many lane groups.  Built from the tiles themselves
-    (:func:`row_payload`), so a view carried across from the reference
-    gets the same payload.
+    over many lane groups.  The *tile-major payload* (B2/B4) holds the
+    same slots tile by tile in schedule order, each tile's row-major:
+    tile ``t``'s entries are ``tile_ptr[t] <= e < tile_ptr[t+1]``, at row
+    ``tent_row[e]`` of its destination block, reading row ``tent_src[e]``
+    of ``x_blocks.view(-1, K)`` with weight ``tent_w[e]``.  Both are built
+    from the tiles themselves (:func:`row_payload`), so a view carried
+    across from the reference gets the same payloads.
     """
 
     tiles: torch.Tensor  # [T, Bd, Bs] f32 edge weights (0 or +inf = absent)
@@ -82,6 +89,10 @@ class BlockedGraph:
     ent_w: torch.Tensor  # [E] f32 the tile's value at that slot
     seg_ptr: torch.Tensor  # [S + 1] int32 first entry of each segment
     row_seg: torch.Tensor  # [nDB * Bd + 1] int32 first segment of each row
+    tile_ptr: torch.Tensor  # [T + 1] int32 first tile-major entry of a tile
+    tent_row: torch.Tensor  # [E] int32 row within the destination block
+    tent_src: torch.Tensor  # [E] int32 row of x_blocks.view(-1, K) it reads
+    tent_w: torch.Tensor  # [E] f32 the tile's value at that slot
     n: int
     bd: int
     bs: int
@@ -205,6 +216,11 @@ def _tile_layout(g: Graph, *, bd: int, bs: int, direction: str,
     )
 
 
+# The host arrays of a tile view besides its tiles or payload.
+_SCHEDULE = ("dbid", "sbid", "first", "last", "accum", "nnz", "n", "bd", "bs",
+             "semiring", "tile_order")
+
+
 def build_blocked_arrays(
     g: Graph,
     *,
@@ -222,10 +238,41 @@ def build_blocked_arrays(
                        tile_order=tile_order)
     tiles = np.full((lay["T"], bd, bs), lay["absent"], np.float32)
     tiles.reshape(-1)[lay["slot"]] = lay["val"]
-    out = {k: lay[k] for k in ("dbid", "sbid", "first", "last", "accum",
-                               "nnz", "n", "bd", "bs", "semiring",
-                               "tile_order")}
+    out = {k: lay[k] for k in _SCHEDULE}
     out["tiles"] = tiles
+    return out
+
+
+def build_payload_arrays(
+    g: Graph,
+    *,
+    bd: int = 128,
+    bs: int = 128,
+    direction: str = "out",
+    semiring: str = "plus_times",
+    reverse: bool = False,
+    tile_order: str = "dest",
+) -> dict:
+    """The schedule of :func:`build_blocked_arrays` and, in place of the
+    dense tiles, the tile-major payload (``tile_ptr``, ``tent_row``,
+    ``tent_src``, ``tent_w``, as in :class:`BlockedGraph`), as plain host
+    arrays read from the same layout."""
+    lay = _tile_layout(g, bd=bd, bs=bs, direction=direction,
+                       semiring=semiring, reverse=reverse,
+                       tile_order=tile_order)
+    keep = lay["val"] != lay["absent"]
+    order = np.argsort(lay["slot"][keep], kind="stable")
+    slot, val = lay["slot"][keep][order], lay["val"][keep][order]
+    t, rc = np.divmod(slot, bd * bs)
+    row, col = np.divmod(rc, bs)
+    tile_ptr = np.zeros(lay["T"] + 1, np.int64)
+    tile_ptr[1:] = np.cumsum(np.bincount(t, minlength=lay["T"]))
+    out = {k: lay[k] for k in _SCHEDULE}
+    out.update(tile_ptr=tile_ptr.astype(np.int32),
+               tent_row=row.astype(np.int32),
+               tent_src=(lay["sbid"][t].astype(np.int64) * bs
+                         + col).astype(np.int32),
+               tent_w=val)
     return out
 
 
@@ -237,30 +284,38 @@ _PAYLOAD_CHUNK_SLOTS = 1 << 27  # tile slots compared per step of the build
 
 def row_payload(tiles: torch.Tensor, dbid: torch.Tensor, sbid: torch.Tensor,
                 *, n: int, bd: int, bs: int, semiring: str) -> dict:
-    """The row payload of a tile view (fields as in :class:`BlockedGraph`),
-    read from the dense tiles.
+    """The row and tile-major payloads of a tile view (fields as in
+    :class:`BlockedGraph`), read from the dense tiles.
 
     The tiles are compared with the absent value a chunk of tiles at a
     time, so no index over the whole tensor (up to 2**32 slots and more)
     is formed and coordinates stay (tile, row, column).  The chunks come
-    in schedule order and each in row-major order, so one stable sort by
-    destination row leaves every row's entries in schedule order, then
-    column.
+    in schedule order and each in row-major order: that is the tile-major
+    payload as it stands, and one stable sort by destination row leaves
+    every row's entries in schedule order, then column.
     """
     absent = float("inf") if semiring == "min_plus" else 0.0
     n_rows = -(-n // bd) * bd
     db, sb = dbid.long(), sbid.long()
     step = max(1, _PAYLOAD_CHUNK_SLOTS // (bd * bs))
-    rows, ts, srcs, ws = [], [], [], []
+    rows, ts, trows, srcs, ws = [], [], [], [], []
     for t0 in range(0, tiles.shape[0], step):
         chunk = tiles[t0:t0 + step]
         t, r, c = (chunk != absent).nonzero(as_tuple=True)
         ws.append(chunk[t, r, c])
         t = t + t0
         ts.append(t)
+        trows.append(r)
         rows.append(db[t] * bd + r)
         srcs.append(sb[t] * bs + c)
     row = torch.cat(rows)
+    tile = torch.cat(ts)
+    src = torch.cat(srcs)
+    w = torch.cat(ws)
+    tile_ptr = torch.zeros(tiles.shape[0] + 1, dtype=torch.int64,
+                           device=tiles.device)
+    tile_ptr[1:] = torch.cumsum(torch.bincount(tile,
+                                               minlength=tiles.shape[0]), 0)
     order = torch.sort(row, stable=True).indices
     counts = torch.bincount(row, minlength=n_rows)
     row_ptr = torch.zeros(n_rows + 1, dtype=torch.int64, device=tiles.device)
@@ -276,10 +331,11 @@ def row_payload(tiles: torch.Tensor, dbid: torch.Tensor, sbid: torch.Tensor,
     seg_ptr = torch.cat([row_ptr[seg_row] + piece * SEG_ENTRIES,
                          row_ptr[-1:]])
     i32 = torch.int32
-    return dict(row_ptr=row_ptr.to(i32), ent_tile=torch.cat(ts)[order].to(i32),
-                ent_src=torch.cat(srcs)[order].to(i32),
-                ent_w=torch.cat(ws)[order], seg_ptr=seg_ptr.to(i32),
-                row_seg=row_seg.to(i32))
+    return dict(row_ptr=row_ptr.to(i32), ent_tile=tile[order].to(i32),
+                ent_src=src[order].to(i32), ent_w=w[order],
+                seg_ptr=seg_ptr.to(i32), row_seg=row_seg.to(i32),
+                tile_ptr=tile_ptr.to(i32), tent_row=torch.cat(trows).to(i32),
+                tent_src=src.to(i32), tent_w=w)
 
 
 def blocked_graph(tiles, dbid, sbid, first, last, accum, nnz, *, n, bd, bs,
@@ -367,13 +423,13 @@ def compact_tile_order(bg: BlockedGraph, act_tile: torch.Tensor):
     # the last live step flushes even though the tail repeats its run.
     last = torch.cat([change, one])
     dbid = bg.dbid[ids].long()
-    # accum over live runs: a run combines iff an earlier live position
-    # already flushed its dst block.
+    # accum over live runs: a run combines iff it is not the live run that
+    # holds its dst block's first live position.
     first_pos = torch.full((bg.n_dst_blocks,), T, dtype=torch.int64, device=dev)
     first_pos.scatter_reduce_(0, dbid, torch.arange(nact, device=dev), "amin",
                               include_self=True)
-    run_start = torch.nonzero(first).flatten()[torch.cumsum(first, 0) - 1]
-    accum = first_pos[dbid] < run_start
+    live_run = torch.cumsum(first, 0) - 1
+    accum = live_run[first_pos[dbid]] != live_run
     # tail slots repeat the last live tile with every flag 0.
     tail = T - nact
     last_live = ids[-1:] if nact else torch.zeros(1, dtype=torch.int64,
@@ -446,9 +502,9 @@ def blocked_spmv(
 
     Every tile order is taken.  On the card B1 reads the view's row
     payload (each row's entries, tiles inactive under the frontier
-    skipped), and B2 walks each destination block's live runs in schedule
-    order inside one thread block, so a block split over several curve
-    runs combines them as the reference does.
+    skipped), and B2 the tile-major payload of the live tiles only,
+    grouped by destination block, so a block split over several curve
+    runs sums all its live entries as the reference's runs do.
 
     Returns ``(y, stats)`` with ``tiles_fetched``, ``tiles_skipped``,
     ``tile_bytes``, ``messages`` (edge records in fetched tiles) and

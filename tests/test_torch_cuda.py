@@ -6,9 +6,12 @@ where only torch is installed):
 Each test needs a CUDA device and skips without one (the kernels have no
 CPU mode).  Kernels B1/B2 are held against their plain torch versions on
 the same inputs (``atol=rtol=1e-5``: a tile row's dot product sums in
-another order), B3/B4 with ``torch.equal`` (min is order-free); B1/B3 also
-against the plain version of their row-payload arithmetic, and two B1
-launches must give the same bits; and the
+another order), B3/B4 with ``torch.equal`` (min is order-free); each also
+against the plain version of its payload arithmetic (B1/B3 the row
+payload, B2/B4 the tile-major payload), two launches must give the same
+bits, B2/B4's wrapper must not synchronise (and so can be captured in a
+CUDA graph), and on an ``x`` holding +-inf or NaN all four must put NaN
+where the reference's dense product has it; and the
 card's façade results against the CPU's and host residency against device
 residency (BFS, WCC and their IOStats exact, PageRank ``atol=1e-6,
 rtol=1e-5``).  Kernel B5 (decode attention) is held against its plain
@@ -23,6 +26,7 @@ import torch
 
 import repro_torch
 from repro_torch.core.semiring import MIN_PLUS
+from repro_torch.graph import csr as tcsr
 from repro_torch.graph.generators import rmat, star_graph
 from repro_torch.configs import get_smoke
 from repro_torch.kernels import decode_attn as tda
@@ -98,9 +102,12 @@ def test_kernels_match_plain(card, order, k, bd, bs):
         torch.testing.assert_close(
             y, tk.blocked_spmv_plain_rows(bg, act, x_blocks), **F32_TOL)
         sl = _compact_args(bg, act)
+        y2 = tk.spmv_blocked_compact(bg, *sl, x_blocks)
         torch.testing.assert_close(
-            tk.spmv_blocked_compact(bg, *sl, x_blocks),
-            tk.blocked_spmv_plain_compact(bg, *sl, x_blocks), **F32_TOL)
+            y2, tk.blocked_spmv_plain_compact(bg, *sl, x_blocks), **F32_TOL)
+        torch.testing.assert_close(
+            y2, tk.blocked_spmv_plain_compact_rows(bg, *sl, x_blocks),
+            **F32_TOL)
         assert tk.launches == dict(NO_LAUNCH, spmv_blocked=1,
                                    spmv_blocked_compact=1)
 
@@ -126,8 +133,11 @@ def test_min_plus_kernels_match_plain(card, order, k, bd, bs):
         assert torch.equal(y, tk.blocked_spmv_plain(bg, act, x_blocks))
         assert torch.equal(y, tk.blocked_spmv_plain_rows(bg, act, x_blocks))
         sl = _compact_args(bg, act)
-        assert torch.equal(tk.spmv_blocked_compact(bg, *sl, x_blocks),
-                           tk.blocked_spmv_plain_compact(bg, *sl, x_blocks))
+        y2 = tk.spmv_blocked_compact(bg, *sl, x_blocks)
+        assert torch.equal(y2, tk.blocked_spmv_plain_compact(bg, *sl,
+                                                             x_blocks))
+        assert torch.equal(y2, tk.blocked_spmv_plain_compact_rows(bg, *sl,
+                                                                  x_blocks))
         assert tk.launches == dict(NO_LAUNCH, spmv_blocked_min_plus=1,
                                    spmv_blocked_compact_min_plus=1)
 
@@ -166,10 +176,211 @@ def test_star_hub_row_splits_on_card(card, semiring):
 
 
 def test_unsupported_shape_raises(card):
+    """The kernels read payloads, so any tile shape runs (bs=256 here); K
+    past ``_MAX_K`` lanes is refused."""
     bg = tk.build_blocked(rmat(8, edge_factor=8, seed=1), bd=32, bs=256,
                           device=card)
-    with pytest.raises(ValueError, match="bs"):
-        tk.blocked_spmv(bg, torch.ones(bg.n, device=card))
+    x = torch.rand(bg.n, device=card)
+    for compact in (False, True):
+        torch.testing.assert_close(
+            tk.blocked_spmv(bg, x, compact=compact)[0],
+            tk.blocked_spmv(tk.build_blocked(
+                rmat(8, edge_factor=8, seed=1), bd=32, bs=256, device="cpu"),
+                x.cpu(), compact=compact)[0].to(card), **F32_TOL)
+    with pytest.raises(ValueError, match="lanes"):
+        tk.blocked_spmv(bg, torch.ones(bg.n, 193, device=card))
+
+
+ORDERS = ("dest", "morton", "hilbert")
+
+
+def _x_for(bg, k, seed, card):
+    """Random x blocks: floats (plus_times) or integer labels with a fifth
+    of them +inf (min_plus)."""
+    rng = np.random.default_rng(seed)
+    shape = (bg.n_src_blocks, bg.bs, k)
+    if bg.semiring == "min_plus":
+        x = rng.integers(0, bg.n, shape).astype(np.float32)
+        x[rng.random(shape) < 0.2] = np.inf
+    else:
+        x = rng.random(shape).astype(np.float32)
+    return torch.as_tensor(x, device=card)
+
+
+@pytest.mark.parametrize("semiring", ["plus_times", "min_plus", "bool"])
+@pytest.mark.parametrize("order", ORDERS)
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("bd,bs", [(128, 128), (48, 32)])
+def test_compact_kernels_match_plain(card, semiring, order, k, bd, bs):
+    """B2/B4 over the tile-major payload against the plain version of
+    their arithmetic and the dense plain version: B2 within
+    ``atol=rtol=1e-5`` (sums of 0/1 on 'bool' tiles exactly), B4 bit for
+    bit, on full, sparse and empty frontiers."""
+    g = rmat(10, edge_factor=16, seed=1, symmetrize=semiring == "min_plus")
+    bg = tk.build_blocked(g, bd=bd, bs=bs, tile_order=order,
+                          semiring=semiring, device=card)
+    x_blocks = _x_for(bg, k, seed=k, card=card)
+    if semiring == "bool":
+        x_blocks = (x_blocks > 0.5).float()
+    exact = semiring != "plus_times"
+    for density in (1.0, 0.1, 0.0):
+        mask = np.random.default_rng(k).random(g.n) < density
+        act = tk.tile_activity(bg, torch.as_tensor(mask, device=card))
+        sl = _compact_args(bg, act)
+        y = tk.spmv_blocked_compact(bg, *sl, x_blocks)
+        for plain in (tk.blocked_spmv_plain_compact_rows,
+                      tk.blocked_spmv_plain_compact):
+            want = plain(bg, *sl, x_blocks)
+            if exact:
+                assert torch.equal(y, want), plain.__name__
+            else:
+                torch.testing.assert_close(y, want, **F32_TOL)
+
+
+@pytest.mark.parametrize("semiring", ["plus_times", "min_plus"])
+def test_compact_is_deterministic(card, semiring):
+    """No atomics and a fixed order: two launches of B2/B4 give the same
+    bits, at K=1 and K=4, on a curve order."""
+    g = rmat(12, edge_factor=16, seed=2, symmetrize=True)
+    bg = tk.build_blocked(g, tile_order="hilbert", semiring=semiring,
+                          device=card)
+    act = tk.tile_activity(bg, torch.arange(g.n, device=card) < g.n // 3)
+    sl = _compact_args(bg, act)
+    for k in (1, 4):
+        x_blocks = _x_for(bg, k, seed=k, card=card)
+        assert torch.equal(tk.spmv_blocked_compact(bg, *sl, x_blocks),
+                           tk.spmv_blocked_compact(bg, *sl, x_blocks))
+
+
+@pytest.mark.parametrize("semiring", ["plus_times", "min_plus"])
+def test_star_hub_block_splits_on_card(card, semiring):
+    """The hub block of a star with 20,000 in-edges holds 157 live tiles:
+    five windows, combined in window order by the second pass."""
+    n = 20_001
+    bg = tk.build_blocked(star_graph(n), semiring=semiring, device=card)
+    x_blocks = torch.rand((bg.n_src_blocks, bg.bs, 1), device=card)
+    act = torch.ones(bg.num_tiles, dtype=torch.int32, device=card)
+    sl = _compact_args(bg, act)
+    assert int((sl[1][:sl[6]] == 0).sum()) > 4 * 32
+    y = tk.spmv_blocked_compact(bg, *sl, x_blocks)
+    for plain in (tk.blocked_spmv_plain_compact_rows,
+                  tk.blocked_spmv_plain_compact):
+        if semiring == "min_plus":
+            assert torch.equal(y, plain(bg, *sl, x_blocks))
+        else:
+            torch.testing.assert_close(y, plain(bg, *sl, x_blocks),
+                                       **F32_TOL)
+
+
+def test_compact_edge_cases_on_card(card):
+    """An empty live set gives the identity everywhere; an edgeless view
+    too."""
+    g = rmat(9, edge_factor=8, seed=3)
+    for semiring, ident in (("plus_times", 0.0), ("min_plus", float("inf"))):
+        bg = tk.build_blocked(g, semiring=semiring, tile_order="hilbert",
+                              bd=32, bs=16, device=card)
+        x_blocks = _x_for(bg, 2, seed=0, card=card)
+        act = torch.zeros(bg.num_tiles, dtype=torch.int32, device=card)
+        sl = _compact_args(bg, act)
+        assert sl[6] == 0
+        y = tk.spmv_blocked_compact(bg, *sl, x_blocks)
+        assert torch.equal(y, torch.full_like(y, ident))
+    empty = tk.build_blocked(
+        tcsr.from_edges(np.zeros(0, np.int64), np.zeros(0, np.int64), n=40),
+        bd=32, bs=16, device=card)
+    act = torch.ones(empty.num_tiles, dtype=torch.int32, device=card)
+    sl = _compact_args(empty, act)
+    y = tk.spmv_blocked_compact(empty, *sl, torch.ones(
+        (empty.n_src_blocks, 16, 2), device=card))
+    assert torch.equal(y, torch.zeros_like(y))
+
+
+@pytest.mark.parametrize("order", ["dest", "hilbert"])
+def test_compact_wrapper_never_syncs(card, order):
+    """``spmv_blocked_compact`` adds no device-to-host sync: it runs under
+    ``set_sync_debug_mode('error')`` and inside a CUDA-graph capture, and
+    the replay gives the eager call's bits."""
+    g = rmat(11, edge_factor=16, seed=4)
+    bg = tk.build_blocked(g, tile_order=order, device=card)
+    act = tk.tile_activity(bg, torch.arange(g.n, device=card) < g.n // 8)
+    sl = _compact_args(bg, act)
+    x_blocks = _x_for(bg, 1, seed=5, card=card)
+    want = tk.spmv_blocked_compact(bg, *sl, x_blocks)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tk.spmv_blocked_compact(bg, *sl, x_blocks)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, want)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        with torch.cuda.graph(graph, stream=stream):
+            out = tk.spmv_blocked_compact(bg, *sl, x_blocks)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("semiring", ["plus_times", "min_plus"])
+@pytest.mark.parametrize("poison", ["inf", "-inf", "nan"])
+def test_non_finite_x_matches_dense_form_on_card(card, semiring, poison):
+    """ROADMAP §C P12: on an x holding +inf, -inf or NaN, B1-B4 put NaN
+    exactly where the dense product (and the reference) has it and the
+    same infinities elsewhere: equal to the dense plain versions, NaN for
+    NaN (min_plus bit for bit)."""
+    g = rmat(10, edge_factor=8, seed=6, symmetrize=True)
+    bg = tk.build_blocked(g, semiring=semiring, tile_order="hilbert", bd=48,
+                          bs=32, device=card)
+    x_blocks = _x_for(bg, 2, seed=7, card=card)
+    rng = np.random.default_rng(8)
+    hit = torch.as_tensor(rng.random(tuple(x_blocks.shape)) < 0.002,
+                          device=card)
+    x_blocks = torch.where(hit, float(poison), x_blocks)
+    mask = torch.as_tensor(rng.random(g.n) < 0.5, device=card)
+    act = tk.tile_activity(bg, mask)
+    sl = _compact_args(bg, act)
+    tol = (dict(atol=0, rtol=0) if semiring == "min_plus" else F32_TOL)
+    y1 = tk.spmv_blocked(bg, act, x_blocks)
+    y2 = tk.spmv_blocked_compact(bg, *sl, x_blocks)
+    want1 = tk.blocked_spmv_plain(bg, act, x_blocks)
+    want2 = tk.blocked_spmv_plain_compact(bg, *sl, x_blocks)
+    if poison != "inf" or semiring == "plus_times":
+        assert torch.isnan(want1).any()
+    for got, want, rows in (
+            (y1, want1, tk.blocked_spmv_plain_rows(bg, act, x_blocks)),
+            (y2, want2, tk.blocked_spmv_plain_compact_rows(bg, *sl,
+                                                           x_blocks))):
+        torch.testing.assert_close(got, want, equal_nan=True, **tol)
+        torch.testing.assert_close(got, rows, equal_nan=True, **tol)
+
+
+@pytest.mark.parametrize("order", ["dest", "hilbert"])
+@pytest.mark.parametrize("stream_buffer", [1, 16])
+def test_host_tiles_match_device_on_card(card, order, stream_buffer):
+    """Host tile batches (the staged tile-major payload through B2/B4)
+    against device residency on the card: BFS levels and WCC labels and
+    their IOStats exact, PageRank values within ``atol=1e-6, rtol=1e-5``;
+    the bytes really copied are the staged payload's."""
+    g = rmat(11, edge_factor=8, seed=3, symmetrize=True)
+    dev = repro_torch.Graph(g, device=card)
+    host = repro_torch.Graph(g, device=card)
+    pol = repro_torch.ExecutionPolicy(backend="blocked_compact",
+                                      tile_order=order)
+    hpol = pol.with_(residency="host", stream_buffer=stream_buffer)
+    torch.testing.assert_close(host.pagerank(tol=1e-4, policy=hpol).values,
+                               dev.pagerank(tol=1e-4, policy=pol).values,
+                               atol=1e-6, rtol=1e-5)
+    for call in (lambda G, p: G.bfs(0, policy=p),
+                 lambda G, p: G.run(WCCProgram(), policy=p)):
+        want, got = call(dev, pol), call(host, hpol)
+        assert torch.equal(got.values, want.values)
+        for name, a, b in zip(want.iostats._fields, got.iostats,
+                              want.iostats):
+            if name not in ("host_bytes", "retries"):
+                assert int(a) == int(b), name
 
 
 @pytest.mark.parametrize("backend", BACKENDS)

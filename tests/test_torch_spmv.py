@@ -177,25 +177,42 @@ def test_min_plus_wrappers_match_pallas(compact, k, order, density):
                                   np.asarray(want)[flushed])
 
 
+def _tile_batch(bg, ids):
+    """The batch-local tile-major payload of the view's tiles ``ids``, as
+    host residency stages it."""
+    tp = bg.tile_ptr.long()
+    cnt = tp[ids + 1] - tp[ids]
+    local = torch.zeros(ids.numel() + 1, dtype=torch.int64)
+    local[1:] = torch.cumsum(cnt, 0)
+    e = (torch.repeat_interleave(tp[ids] - local[:-1], cnt)
+         + torch.arange(int(local[-1])))
+    return tk.TileBatch(tile_ptr=local.to(torch.int32),
+                        tent_row=bg.tent_row[e], tent_src=bg.tent_src[e],
+                        tent_w=bg.tent_w[e], sbid=bg.sbid[ids], n=bg.n,
+                        bd=bg.bd, bs=bg.bs, semiring=bg.semiring)
+
+
 @pytest.mark.parametrize("semiring", ["plus_times", "min_plus"])
 def test_tile_batch_view_matches_full_view(semiring):
-    """A batch-local ``TileBatch`` (staged tiles + their global source
-    blocks), as host residency builds it, gives the full view's result."""
+    """A batch-local ``TileBatch`` (the staged tiles' tile-major payload +
+    their global source blocks), as host residency builds it, gives the
+    full view's result: bit for bit through the dense plain route (its
+    tiles rebuilt from the payload) and through the payload plain
+    version."""
     g, _, tbg = _views("hilbert", semiring=semiring, seed=6)
     x = torch.as_tensor(np.random.default_rng(1).random(
         (tbg.n_src_blocks, tbg.bs, 2)), dtype=torch.float32)
     act = tk.tile_activity(tbg, torch.as_tensor(_frontier(g.n, 0.4, seed=2)))
     perm, dbid, sbid, first, last, accum, nact = tk.compact_tile_order(tbg,
                                                                        act)
-    want = tk.spmv_blocked_compact(tbg, perm, dbid, sbid, first, last, accum,
-                                   nact, x)
-    ids = perm[:nact].long()
-    view = tk.TileBatch(tiles=tbg.tiles[ids], sbid=tbg.sbid[ids], n=tbg.n,
-                        bd=tbg.bd, bs=tbg.bs, semiring=semiring)
+    args = (dbid, sbid, first, last, accum, nact, x)
+    want = tk.spmv_blocked_compact(tbg, perm, *args)
+    view = _tile_batch(tbg, perm[:nact].long())
     local = torch.arange(nact, dtype=torch.int32)
-    got = tk.spmv_blocked_compact(view, local, dbid, sbid[:nact], first, last,
-                                  accum, nact, x)
+    got = tk.spmv_blocked_compact(view, local, *args)
     assert torch.equal(got, want)
+    assert torch.equal(tk.blocked_spmv_plain_compact_rows(view, local, *args),
+                       tk.blocked_spmv_plain_compact_rows(tbg, perm, *args))
 
 
 def test_plain_matches_coo_ground_truth():

@@ -10,8 +10,9 @@ view carried across gets the same payload as the port's own build; the
 rows arithmetic against the reference's interpret-mode Pallas kernel and
 the dense plain version (plus_times within ``atol=1e-6, rtol=1e-5``, as
 the sums run in another order; min_plus bit for bit); and the one place
-where the two forms differ by design, an ``x`` holding inf (ROADMAP §C
-P12).  The CUDA kernels themselves are held against this plain version in
+where the two forms used to differ, an ``x`` holding inf (ROADMAP §C
+P12, repaired: both now equal the reference).  The CUDA kernels
+themselves are held against this plain version in
 ``tests/test_torch_cuda.py``, which needs a card.
 """
 import jax.numpy as jnp
@@ -30,7 +31,8 @@ from repro_torch.kernels import spmv as tk
 
 F32_TOL = dict(atol=1e-6, rtol=1e-5)
 SIZES = [(32, 16), (128, 128), (48, 32)]
-PAYLOAD = ("row_ptr", "ent_tile", "ent_src", "ent_w", "seg_ptr", "row_seg")
+PAYLOAD = ("row_ptr", "ent_tile", "ent_src", "ent_w", "seg_ptr", "row_seg",
+           "tile_ptr", "tent_row", "tent_src", "tent_w")
 
 
 def _absent(semiring):
@@ -178,23 +180,31 @@ def test_rows_plain_min_plus_matches_pallas(k, order):
 
 
 def test_inf_in_x_gives_nan_only_in_the_dense_form():
-    """ROADMAP §C P12: on an x holding inf the dense product gives NaN
-    (0 * inf on absent slots) in every row of a tile that reads it; the
-    payload skips absent slots, so only rows with an edge from that source
-    see inf.  Elsewhere both forms agree."""
+    """ROADMAP §C P12, now closed.  On an x holding inf the reference's
+    dense product gives NaN (0 * inf on absent slots) in every row of a
+    live tile that reads it.  The payload skips absent slots, and used to
+    give inf only in the rows with an edge from that source; it now puts
+    NaN where the dense form has it, so both plain versions equal the
+    reference's interpret-mode Pallas kernel, NaN for NaN and inf for
+    inf."""
+    kw = dict(bd=32, bs=16)
     g = rmat(8, edge_factor=8, seed=2)
-    bg = tk.build_blocked(g, bd=32, bs=16, device="cpu")
+    rbg = rk.build_blocked(r_rmat(8, edge_factor=8, seed=2), **kw)
+    bg = tk.build_blocked(g, device="cpu", **kw)
     x = np.random.default_rng(0).random((g.n, 1)).astype(np.float32)
     hub = int(np.argmax(np.diff(g.indptr)))
     x[hub] = np.inf
+    want, _ = rk.blocked_spmv(rbg, jnp.asarray(x), interpret=True)
+    want = np.asarray(want).reshape(g.n, 1)
+    assert np.isnan(want).any() and np.isinf(want).any()
     rows, dense = _rows_and_dense(bg, x, np.ones(g.n, bool), "src")
-    assert torch.isnan(dense).any()
-    assert not torch.isnan(rows).any()
+    for got in (rows, dense):
+        np.testing.assert_allclose(got.numpy(), want, **F32_TOL)
+    # the hub's targets outside the poisoned rows see +inf
     targets = np.zeros(g.n, bool)
     targets[g.indices[g.indptr[hub]:g.indptr[hub + 1]]] = True
-    assert torch.equal(torch.isinf(rows[:, 0]), torch.as_tensor(targets))
-    fine = torch.isfinite(dense)
-    torch.testing.assert_close(rows[fine], dense[fine], **F32_TOL)
+    assert np.array_equal(np.isinf(want[:, 0]),
+                          targets & ~np.isnan(want[:, 0]))
 
 
 @pytest.mark.parametrize("semiring", ["plus_times", "min_plus"])
