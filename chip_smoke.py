@@ -87,9 +87,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
                host residency, and ``peak_stage_bytes <= 2 *
                stream_buffer_bytes`` where no run exceeds the buffer.  Tile
                batches stage the tile-major payload of their tiles:
-               ``streamed_bytes`` must equal the bytes of the tensors staged,
-               and ``IOStats.host_bytes`` the reference's dense batch layout
-               (G tiles and the schedule) modulo 2^32.  Logs each wall
+               ``streamed_bytes`` must equal that payload and schedule,
+               counted from the store's ``tile_ptr`` over each batch
+               (``StageLog``), plus what other arms ship, and
+               ``IOStats.host_bytes`` the reference's dense batch layout
+               (G tiles and the schedule) plus the same, modulo 2^32.  Logs each wall
                beside its device twin and their ratio, and the streamed
                bytes per second beside the pinned host-to-device rate of a
                plain 1 GB copy.  Host launches of B2/B4 are counted apart
@@ -112,10 +114,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
                (torch.profiler).  The bound counts the
                bytes the payload design must read (B1/B3 ``bound_rows``: 12 B
                a live entry, a row pointer and a y value a row, the x blocks
-               of live tiles, the activity flag and source block of each
-               tile; B2/B4 ``bound_compact_rows``: 12 B a live entry, four
-               words of list and pointers a live tile, the x blocks of live
-               tiles, y); the dense tile bound of the earlier design is
+               of live tiles, the activity flag of each tile; B2/B4
+               ``bound_compact_rows``: 12 B a live entry, three words of
+               list and pointers a live tile, the x blocks of live tiles,
+               y); the dense tile bound of the earlier design is
                logged beside it, as is the dense plain version's time.
   13. profile — device time and idle share of blocked PageRank, blocked BFS,
                blocked WCC, blocked_compact PageRank and WCC, host scan
@@ -557,40 +559,45 @@ def max_run_tiles(session, semiring: str, tile_order: str) -> int:
 
 
 class StageLog:
-    """Within the ``with`` block, counts what host residency hands to the
-    host-to-device copy: ``staged``, the bytes of every staged tensor, and
-    ``dense``, the bytes of the reference's batch layout.  A tile batch
-    stages 11 tensors (the tile-major payload, then G schedule steps of
-    perm, dbid, sbid, first, last, accum, then the live count), where the
-    reference ships G dense Bd x Bs f32 tiles, the six G-step int32 arrays
-    and the count; any other payload ships as it is."""
+    """Within the ``with`` block, records the batches host residency cuts
+    from its tile stores (``residency._tile_batches``) and counts, from
+    each store's ``tile_ptr`` and each batch's schedule positions, what a
+    batch of ``kk`` tiles holding ``E`` payload entries must ship:
+    ``payload``, the tile-major payload and schedule (12 B an entry, a
+    local tile pointer of kk + 1 words, six G-step int32 arrays with G the
+    power of two at least kk, and the live count), and ``dense``, the
+    reference's batch (G dense Bd x Bs f32 tiles, the six arrays and the
+    count, ``src/repro/core/residency.py``).  Any other payload (chunk
+    batches, the point-to-point arm) ships alike in both counts."""
 
-    def __init__(self, bd: int, bs: int):
-        self.tile_bytes = bd * bs * 4
-        self.staged = self.dense = 0
+    def __init__(self):
+        self.payload = self.dense = 0
 
     def __enter__(self):
+        import numpy as np
+
         from repro_torch.core import residency
 
-        self._stager = residency._Stager
-        self._stage = stage = self._stager.stage
+        self._batches = cut = residency._tile_batches
 
-        def counted(stager, layout, fill):
-            out = stage(stager, layout, fill)
-            nbytes = sum(t.nbytes for t in out.arrays)
-            self.staged += nbytes
-            if len(out.arrays) == 11:
-                steps = out.arrays[4].numel()
-                self.dense += steps * (self.tile_bytes + 6 * 4) + 4
-            else:
-                self.dense += nbytes
-            return out
+        def counted(store, live, B):
+            batches, run_id = cut(store, live, B)
+            tp = store.tile_ptr.astype(np.int64)
+            for pos, _ in batches:
+                kk = len(pos)
+                G = 1 << (kk - 1).bit_length()
+                E = int((tp[pos + 1] - tp[pos]).sum())
+                self.payload += 12 * E + 4 * (kk + 1) + 24 * G + 4
+                self.dense += G * (store.bd * store.bs * 4 + 24) + 4
+            return batches, run_id
 
-        self._stager.stage = counted
+        residency._tile_batches = counted
         return self
 
     def __exit__(self, *exc):
-        self._stager.stage = self._stage
+        from repro_torch.core import residency
+
+        residency._tile_batches = self._batches
 
 
 def check_host(label, dev, host, exact, torch) -> None:
@@ -636,28 +643,34 @@ def phase_host(torch):
         hpol = pol.with_(residency="host")
         hv = H.host_view()
         before = hv.streamed_bytes
-        with StageLog(hv.bd, hv.bs) as staged:
+        with StageLog() as tiles:
             hres, hms, launched = timed(lambda: call(H, hpol), torch)
         streamed = hv.streamed_bytes - before
         for k, v in launched.items():
             host_counts[k] = host_counts.get(k, 0) + v
         name = f"{label}/{pol.backend}/{pol.tile_order}/sb{pol.stream_buffer}"
         check_host(name, dres, hres, exact, torch)
-        if streamed != staged.staged:
+        # Bytes of other arms (chunk batches, point-to-point) ship as
+        # counted in both counters.
+        other = streamed - tiles.payload
+        if other < 0 or (pol.backend in ("blocked", "blocked_compact")
+                         and tiles.payload == 0):
             raise AssertionError(f"{name}: streamed_bytes {streamed} is not "
-                                 f"the {staged.staged} B staged")
+                                 f"the tile batches' {tiles.payload} B plus "
+                                 "the other arms'")
+        # IOStats.host_bytes counts the reference's dense tile batches, and
+        # is int32 and wraps like the reference's.
         hb = int(hres.iostats.host_bytes)
-        # IOStats.host_bytes counts the reference's dense batches, and is
-        # int32 and wraps like the reference's.
-        if hb != (staged.dense + 2**31) % 2**32 - 2**31:
+        dense = tiles.dense + other
+        if hb != (dense + 2**31) % 2**32 - 2**31:
             raise AssertionError(f"{name}: host_bytes {hb} is not the "
-                                 f"reference's {staged.dense} B modulo 2^32")
+                                 f"reference's {dense} B modulo 2^32")
         rows.append((name, dms, hms, streamed))
         log(f"host {name:40s} supersteps={int(hres.supersteps)} device_ms="
             f"{dms:.1f} host_ms={hms:.1f} ratio={dms / hms:.3f} streamed="
-            f"{streamed} B ({streamed / (hms / 1e3) / 1e9:.2f} GB/s) "
-            f"host_bytes={hb} (reference's dense layout {staged.dense} B"
-            f"{', wrapped' if hb != staged.dense else ''})")
+            f"{streamed} B ({streamed / (hms / 1e3) / 1e9:.2f} GB/s; tile "
+            f"payload {tiles.payload} B) host_bytes={hb} (reference's "
+            f"layout {dense} B{', wrapped' if hb != dense else ''})")
 
     def bound_check(H, pol, runs_fit: bool):
         rep = H.memory_report(pol.with_(residency="host"))
@@ -789,7 +802,10 @@ def max_err(got, want, exact: bool, torch) -> float:
     """B1/B2: within atol=rtol=1e-5; B3/B4 (``exact``): bit for bit.  NaN
     must meet NaN; the error is over the finite values."""
     if exact:
-        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+        gn, wn = torch.isnan(got), torch.isnan(want)
+        if not (torch.equal(gn, wn)
+                and torch.equal(got.masked_fill(gn, 0), want.masked_fill(wn, 0))):
+            raise AssertionError("B3/B4 differ from their plain version")
         return 0.0
     torch.testing.assert_close(got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL,
                                equal_nan=True)
@@ -947,27 +963,31 @@ def bound_rows(bg, act, k: int):
     """(bound_ms, bound_by) of B1/B3 over the row payload: 12 B of each
     live entry (tile, source row, weight), a 4-byte row pointer and K y
     values a row, the x blocks of the live tiles and the 4-byte activity
-    flag and source block of each tile over the memory rate, against 2
-    operations a live entry and lane over the f32 peak."""
+    flag of each tile over the memory rate, against 2 operations a live
+    entry and lane over the f32 peak.  A tile's source block is not
+    counted: the kernel reads it only where x holds a non-finite value
+    (ROADMAP §C P12), and the count over x, already in the bound, shows
+    whether it does."""
     live = act[bg.ent_tile.long()] != 0
     live_entries = int(live.sum())
     n_rows = bg.row_ptr.numel() - 1
     nbytes = (live_entries * 12 + (n_rows + 1) * 4 + n_rows * k * 4
-              + live_x_bytes(bg, act.bool(), k) + bg.num_tiles * 8)
+              + live_x_bytes(bg, act.bool(), k) + bg.num_tiles * 4)
     return roofline(nbytes, 2.0 * live_entries * k)
 
 
 def bound_compact_rows(bg, args, k: int):
     """(bound_ms, bound_by) of B2/B4 over the tile-major payload: 12 B of
-    each live tile's entries (row, source row, weight), four words a live
-    tile (list entry, destination block, tile pointer, source block), the
-    x blocks of the live tiles and y over the memory rate, against 2
-    operations a live entry and lane over the f32 peak."""
+    each live tile's entries (row, source row, weight), three words a live
+    tile (list entry, destination block, tile pointer), the x blocks of
+    the live tiles and y over the memory rate, against 2 operations a live
+    entry and lane over the f32 peak.  As in :func:`bound_rows`, a tile's
+    source block is not counted."""
     nact = args[6]
     ids = args[0][:nact].long()
     tp = bg.tile_ptr.long()
     entries = int((tp[ids + 1] - tp[ids]).sum())
-    nbytes = (entries * 12 + nact * 16 + live_x_bytes(bg, ids, k)
+    nbytes = (entries * 12 + nact * 12 + live_x_bytes(bg, ids, k)
               + bg.n_dst_blocks * bg.bd * k * 4)
     return roofline(nbytes, 2.0 * entries * k)
 
