@@ -14,10 +14,14 @@ Phases, each of which raises (and so exits non-zero) on failure:
 
   2. lm_kernel — B5 against its plain version on the card within
                  atol=rtol=1e-4 (the same inputs, f32 math in another
-                 summation order): the serve shape (B=4, KV=1, G=8, hd=256,
-                 T=1024) in bf16 and f32 at several fill levels, a rotated
-                 slot order, gemma3-4b's window 1024 over T=8192 (whole
-                 blocks skipped), an empty row (must be 0), KV=4 with G=2.
+                 summation order), two launches bit-equal: the serve shape
+                 (B=4, KV=1, G=8, hd=256, T=1024) in bf16 and f32 at several
+                 fill levels, a rotated slot order, gemma3-4b's window 1024
+                 over T=8192 (whole blocks skipped), an empty row (must be
+                 0), KV=4 with G=2; G=1, 4 and 16; hd=64 and 128 in bf16;
+                 T=1000 (ragged blocks of 125) and T=96; KV=4, G=8 with a
+                 window.  The build fails if ptxas spills in B5's bf16
+                 kernel.
   3. lm_serve  — ``serve_batch('gemma-2b', smoke=False, n_requests=8,
                  max_batch=4, max_new=16, max_len=1024, seed=0)`` at the
                  published width and depth, weights from the port's own
@@ -32,7 +36,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
   4. lm_time   — B5 beside its bound, its plain version and one
                  ``scaled_dot_product_attention`` call at (a) the serve shape
                  and (b) the decode_32k shape (B=128, T=32,768, 4.3 GB of K/V)
-                 full and with half its blocks unneeded.
+                 full and with half its blocks unneeded: event loops, B5's
+                 and SDPA's device time in a CUDA graph (which proves B5's
+                 call captures), B5's device time by kernel, and the share
+                 bound / ms.
   5. lm_profile — device time and idle share over 32 decode steps of the
                  full-width serve loop.
 
@@ -247,6 +254,9 @@ def payload_build(label: str, bg, torch) -> None:
                                  "two builds")
     nbytes = sum(getattr(bg, name).nbytes for name in ROW_PAYLOAD)
     tbytes = sum(getattr(bg, name).nbytes for name in TILE_PAYLOAD)
+    if bg.payload_nbytes != nbytes + tbytes:
+        raise AssertionError(f"{label}: payload_nbytes {bg.payload_nbytes} "
+                             f"!= {nbytes + tbytes}")
     counts = torch.diff(bg.row_ptr.long()).float()
     p50, p99 = torch.quantile(counts, torch.tensor([0.5, 0.99],
                                                    device=counts.device))
@@ -1222,6 +1232,22 @@ def phase_lm_kernel(torch, dev="cuda"):
          (2, 1, 8, 256, 1024, bf16, (0, 1024)), 0, False),
         ("KV=4 G=2 (gemma3's grouping), fills 300/1024",
          (2, 4, 2, 256, 1024, bf16, (300, 1024)), 0, False),
+        ("G=1 (KV=4), fills 1000/37",
+         (2, 4, 1, 256, 1024, bf16, (1000, 37)), 0, False),
+        ("G=4 (KV=2), fills 513/1024",
+         (2, 2, 4, 256, 1024, bf16, (513, 1024)), 0, False),
+        ("G=16, fills 900/1024",
+         (2, 1, 16, 256, 1024, bf16, (900, 1024)), 0, False),
+        ("hd=64 bf16, fills 1024/333",
+         (2, 1, 8, 64, 1024, bf16, (1024, 333)), 0, False),
+        ("hd=128 bf16 KV=8 (command-r's heads), fills 1024/700",
+         (2, 8, 8, 128, 1024, bf16, (1024, 700)), 0, False),
+        ("T=1000 (bt=125, ragged chunks), rotated after 1000/1500/2333",
+         (3, 1, 8, 256, 1000, bf16, (1000, 1500, 2333)), 0, True),
+        ("T=96 (bt=96), fills 96/50",
+         (2, 1, 8, 256, 96, bf16, (96, 50)), 0, False),
+        ("KV=4 G=8 strided rows, window 256 over T=2048",
+         (2, 4, 8, 128, 2048, bf16, (2048, 1111)), 256, False),
     ]
     worst = 0.0
     for i, (name, (b, kv, g, hd, t, dtype, fill), window, rot) in enumerate(
@@ -1233,13 +1259,16 @@ def phase_lm_kernel(torch, dev="cuda"):
         got = tda.decode_attention(q, k, v, pos, cur, window=window)
         want = tda.decode_attention_plain(q, k, v, pos, cur, window=window)
         torch.testing.assert_close(got, want, atol=LM_ATOL, rtol=LM_RTOL)
+        if not torch.equal(got, tda.decode_attention(q, k, v, pos, cur,
+                                                     window=window)):
+            raise AssertionError(f"{name}: two launches differ")
         err = float((got - want).abs().max())
         worst = max(worst, err)
         for row, f in enumerate(fill):
             if f == 0 and torch.count_nonzero(got[row]):
                 raise AssertionError(f"{name}: an empty row is not 0")
         log(f"lm_kernel {name}: live blocks {int(live.sum())}/{live.numel()}"
-            f" max_abs_err={err:.3g}")
+            f" max_abs_err={err:.3g}, two launches bit-equal")
         if window and int(live.sum()) * 4 > live.numel():
             raise AssertionError(f"{name}: the window skips no block")
     return worst
@@ -1391,9 +1420,10 @@ def sdpa_call(q, k, v, pos, cur, window, torch):
 
 def _time_attn(name, sets, torch):
     """Time B5, its plain version and one SDPA call over ``sets`` of
-    (q, k, v, pos, cur), taken in turn; check B5 on the first set (on 8
-    rows where the plain version's f32 upcast of a large cache would not
-    fit beside it)."""
+    (q, k, v, pos, cur), taken in turn: event loops, and B5's and SDPA's
+    device time in a CUDA graph, B5's by kernel; check B5 on the first set
+    (on 8 rows where the plain version's f32 upcast of a large cache would
+    not fit beside it)."""
     from repro_torch.kernels import decode_attn as tda
 
     turn = [0]
@@ -1408,8 +1438,12 @@ def _time_attn(name, sets, torch):
     q, k, v, pos, cur = sets[0]
     b, t = pos.shape
     bound_ms, bound_by = attn_bound(q, k, pos, cur, 0, torch)
-    ms = cuda_ms(cycle(lambda i: tda.decode_attention(*sets[i])), reps=50)
+    kernel = cycle(lambda i: tda.decode_attention(*sets[i]))
+    ms = cuda_ms(kernel, reps=50)
     lib_ms = cuda_ms(cycle(lambda i: libs[i]()), reps=20)
+    dev_ms = device_ms(kernel, torch)  # also proves the call captures
+    lib_dev_ms = device_ms(cycle(lambda i: libs[i]()), torch)
+    parts = kernel_parts(kernel, torch)
     big = b > 8
     plain_ms = cuda_ms(cycle(lambda i: tda.decode_attention_plain(*sets[i])),
                        reps=2 if big else 20, warmup=1)
@@ -1421,11 +1455,16 @@ def _time_attn(name, sets, torch):
     log(f"time {B5} ({name}): B={b} T={t} live blocks "
         f"{int(live.sum())}/{live.numel()}, K/V "
         f"{2 * k.numel() * k.element_size() / 1e9:.3f} GB x {len(sets)} "
-        f"copies: ms={ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
-        f"plain_ms={plain_ms:.3f} library_ms={lib_ms:.4f} "
-        f"max_abs_err={err:.3g}" + (" (checked on 8 rows)" if big else ""))
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound_ms, bound_by=bound_by, err=err)
+        f"copies: ms={ms:.4f} device_ms={dev_ms:.5f} bound_ms={bound_ms:.5f}"
+        f" ({bound_by}) share bound/ms={bound_ms / ms:.3f} bound/device_ms="
+        f"{bound_ms / dev_ms:.3f} plain_ms={plain_ms:.3f} library_ms="
+        f"{lib_ms:.4f} library_device_ms={lib_dev_ms:.5f} kernel_parts="
+        f"{parts} max_abs_err={err:.3g}"
+        + (" (checked on 8 rows)" if big else ""))
+    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                library_ms=lib_ms, library_device_ms=lib_dev_ms,
+                bound_ms=bound_ms, bound_by=bound_by, err=err,
+                kernel_parts=parts)
 
 
 def phase_lm_time(torch, dev="cuda", copies=18, big=(128, 32768)):
@@ -1483,6 +1522,21 @@ def phase_lm_profile(model, params, torch, steps=PROFILE_STEPS,
     return next(iter(out.values()))
 
 
+def check_no_spill(lib: Path, kernel: str) -> None:
+    """Fail if ptxas reports spill stores or loads for any instantiation of
+    ``kernel`` in the build log of ``lib``."""
+    import re
+
+    entry = ""
+    for line in Path(str(lib) + ".log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            entry = line
+        elif "spill stores" in line and kernel in entry:
+            if any(int(n) for n in re.findall(r"(\d+) bytes spill", line)):
+                raise AssertionError(f"ptxas: {kernel} spills: {entry.strip()}"
+                                     f" {line.strip()}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1513,6 +1567,7 @@ def main() -> int:
         for line in Path(str(lib) + ".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"ptxas {lib.name.split('_')[0][3:]}: {line.strip()}")
+    check_no_spill(libs[1], "decode_attn_ring")
 
     # The LM slice first, while the card holds nothing else.
     lm_err = phase_lm_kernel(torch)
@@ -1533,6 +1588,11 @@ def main() -> int:
         f"({bg.tiles.nbytes / 1e9:.2f} GB on the card) built in "
         f"{time.perf_counter() - t0:.1f} s")
     payload_build("graph", bg, torch)
+    report = G.memory_report()
+    log(f"graph memory_report (the reference's tiles and schedule): "
+        f"device_views={report['device_views']} device_edge_total="
+        f"{report['device_edge_total']}; payload_nbytes={bg.payload_nbytes} "
+        f"beside it (ROADMAP §C P14)")
 
     hub = int(np.argmax(np.diff(g.indptr)))
     phase_warmup()

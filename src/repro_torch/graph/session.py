@@ -33,6 +33,7 @@ from ..core import ExecutionPolicy, ProgramResult, SemGraph, run_program
 from ..core.program import VertexProgram
 from ..core.sem import _store_record_bytes, device_graph
 from ..core.semiring import PLUS_TIMES
+from ..kernels.spmv.ops import REFERENCE_FIELDS
 from . import csr
 
 __all__ = ["Graph", "resolve_device"]
@@ -55,6 +56,12 @@ def _nbytes(obj, seen: set) -> int:
         return sum(_nbytes(getattr(obj, f.name), seen)
                    for f in dataclasses.fields(obj))
     return 0
+
+
+def _tile_nbytes(tv, seen: set) -> int:
+    """A tile view's bytes as the reference counts them: its dense tiles
+    and schedule, not the payloads."""
+    return sum(_nbytes(getattr(tv, name), seen) for name in REFERENCE_FIELDS)
 
 
 class Graph:
@@ -183,7 +190,10 @@ class Graph:
           * ``residency`` — ``policy.residency`` (default ``'device'``);
           * ``device_views`` — bytes per cached device view (``'base'``
             plus one ``'tiles:<encoding>:<fwd|rev>:<order>'`` entry per
-            tile view), each storage counted once;
+            tile view), each storage counted once.  A tile view counts
+            the reference's tensors, its dense tiles and schedule; the
+            payloads the card kernels read in their place are the view's
+            ``payload_nbytes`` (ROADMAP §C P14);
           * ``device_total`` — their sum;
           * ``device_edge_total`` — the O(m) part: chunk stores, CSR
             index/weight columns, tile views.  Host residency keeps it 0;
@@ -208,7 +218,7 @@ class Graph:
         for (sr, rev, order), tv in sorted(self._tiles.items(),
                                            key=lambda kv: repr(kv[0])):
             name = f"tiles:{sr}:{'rev' if rev else 'fwd'}:{order}"
-            device_views[name] = _nbytes(tv, seen)
+            device_views[name] = _tile_nbytes(tv, seen)
         edge_seen: set = set()
         device_edge_total = 0
         if self._base is not None:
@@ -217,7 +227,7 @@ class Graph:
                          self._base.in_indices, self._base.in_w):
                 device_edge_total += _nbytes(part, edge_seen)
         for tv in self._tiles.values():
-            device_edge_total += _nbytes(tv, edge_seen)
+            device_edge_total += _tile_nbytes(tv, edge_seen)
 
         B = pol.stream_buffer
         if pol.backend in _BLOCKED:

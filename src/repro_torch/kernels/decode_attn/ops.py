@@ -7,8 +7,9 @@ the [B, T, KV, hd] cache, the per-slot stored positions and the current
 position, picks the cache block the reference's way and streams only the
 blocks that hold a live slot through the kernel.  The reference computes
 that chunk-activity test (:func:`live_blocks`) in its wrapper and
-scalar-prefetches it; the CUDA kernel makes the same test on each block's
-positions itself, so the sum runs over the same slots.
+scalar-prefetches it; the CUDA kernel tests the positions of each 16-slot
+piece of a block itself and reads only live pieces, so the sum runs over
+the same slots.
 """
 from __future__ import annotations
 

@@ -36,6 +36,8 @@ from .order import TILE_ORDERS, tile_curve_key
 
 __all__ = [
     "BlockedGraph",
+    "PAYLOAD",
+    "REFERENCE_FIELDS",
     "SEG_ENTRIES",
     "TILE_ORDERS",
     "blocked_graph",
@@ -50,6 +52,13 @@ __all__ = [
     "tile_byte_size",
     "x_fetch_count",
 ]
+
+
+#: The reference view's tensors (its dense tiles and six schedule arrays),
+#: and the payloads the port holds beside them.
+REFERENCE_FIELDS = ("tiles", "dbid", "sbid", "first", "last", "accum", "nnz")
+PAYLOAD = ("row_ptr", "ent_tile", "ent_src", "ent_w", "seg_ptr", "row_seg",
+           "tile_ptr", "tent_row", "tent_src", "tent_w")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,6 +111,13 @@ class BlockedGraph:
     @property
     def num_tiles(self) -> int:
         return int(self.tiles.shape[0])
+
+    @property
+    def payload_nbytes(self) -> int:
+        """Bytes of the row and tile-major payloads: what this view holds
+        beyond the reference's tiles and schedule, which ``memory_report``
+        counts alone (ROADMAP §C P14)."""
+        return int(sum(getattr(self, name).nbytes for name in PAYLOAD))
 
     @property
     def n_dst_blocks(self) -> int:

@@ -15,7 +15,8 @@ where the reference's dense product has it; and the
 card's façade results against the CPU's and host residency against device
 residency (BFS, WCC and their IOStats exact, PageRank ``atol=1e-6,
 rtol=1e-5``).  Kernel B5 (decode attention) is held against its plain
-version within ``atol=rtol=1e-4``, and the LM serve path on the card must
+version within ``atol=rtol=1e-4``, two launches must give the same bits
+and a CUDA graph must capture it, and the LM serve path on the card must
 launch it on every layer of every step.
 """
 from typing import NamedTuple
@@ -451,6 +452,9 @@ def _decode_inputs(card, b, kv, g, hd, t, dtype, seed):
     (2, 1, 8, 256, 256, torch.bfloat16, 0),  # gemma-2b's heads
     (3, 2, 4, 80, 96, torch.float32, 0),  # danube's head_dim, T % 128 != 0
     (2, 4, 2, 64, 512, torch.bfloat16, 100),  # a window, gemma3's grouping
+    (2, 1, 16, 256, 256, torch.bfloat16, 0),  # G=16: every mma row a head
+    (2, 2, 4, 128, 512, torch.bfloat16, 0),  # command-r's head_dim
+    (3, 1, 8, 256, 1000, torch.bfloat16, 0),  # bt=125: ragged chunks
 ])
 def test_decode_attn_kernel_matches_plain(card, b, kv, g, hd, t, dtype,
                                           window):
@@ -468,6 +472,39 @@ def test_decode_attn_kernel_matches_plain(card, b, kv, g, hd, t, dtype,
     want = tda.decode_attention_plain(q, k, v, pos, cur, window=window)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
     assert torch.count_nonzero(got[-1]) == 0
+
+
+def test_decode_attn_kernel_is_deterministic(card):
+    """Two launches give the same bits: the warps and the splits merge in
+    a fixed order (the serve shape splits each row over 16 blocks)."""
+    q, k, v, pos = _decode_inputs(card, 4, 1, 8, 256, 1024, torch.bfloat16, 5)
+    cur = torch.tensor([1023, 700, 200, 5], dtype=torch.int32, device=card)
+    a = tda.decode_attention(q, k, v, pos, cur)
+    b = tda.decode_attention(q, k, v, pos, cur)
+    assert torch.equal(a, b)
+
+
+def test_decode_attn_kernel_captures_in_a_cuda_graph(card):
+    """The call neither synchronises nor allocates beyond its output, so a
+    CUDA graph captures it; a replay after new inputs are copied in gives
+    the eager call's bits."""
+    q, k, v, pos = _decode_inputs(card, 4, 1, 8, 256, 1024, torch.bfloat16, 6)
+    cur = torch.full((4,), 1023, dtype=torch.int32, device=card)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        tda.decode_attention(q, k, v, pos, cur)  # workspace made outside
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            got = tda.decode_attention(q, k, v, pos, cur)
+    torch.cuda.current_stream().wait_stream(stream)
+    q2, k2, v2, pos2 = _decode_inputs(card, 4, 1, 8, 256, 1024,
+                                      torch.bfloat16, 7)
+    for dst, src in ((q, q2), (k, k2), (v, v2), (pos, pos2)):
+        dst.copy_(src)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, tda.decode_attention(q, k, v, pos, cur))
 
 
 def test_decode_attn_kernel_refuses_what_it_does_not_take(card):

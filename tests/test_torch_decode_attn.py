@@ -152,6 +152,111 @@ def test_decode_attention_row_with_no_live_slot_is_zero(how):
                                .repeat(g, 0), **F32)
 
 
+STAGE, CONSUMERS = 16, 4  # decode_attn.cu: kStage, kConsumers
+NEG_INF = -2.0e38  # the reference's NEG_INF
+
+
+def _merge(states):
+    """(m, l, acc) partials combined in list order, as the kernel merges
+    its warps and then its splits."""
+    M = torch.stack([m for m, _, _ in states]).amax(0)
+    L, A = torch.zeros_like(M), torch.zeros_like(states[0][2])
+    for m, l, acc in states:
+        f = torch.exp(m - M)
+        L = L + l * f
+        A = A + acc * f[..., None]
+    return M, L, A
+
+
+def _ring_emulation(q, k, v, pos, cur, *, window, bt, nsplit, split_p=True):
+    """The bf16 kernel's arithmetic (``decode_attn.cu``, decode_attn_ring)
+    in plain torch: products of bf16 q and k summed in f32; each live
+    16-slot chunk of a split an online-softmax step of the consumer warp
+    that takes it (the split's live chunks dealt out in turn); P split into
+    bf16 ``p_hi`` and ``p_lo`` before it meets bf16 V (or rounded to bf16
+    once, ``split_p=False``); the warps merged in warp order, the splits in
+    split order; ``acc / max(l, 1e-30)``."""
+    b, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, kv, h // kv, hd).float()
+    kf, vf = k.float(), v.float()
+    live = (pos >= 0) & (pos <= cur[:, None])
+    if window > 0:
+        live &= pos > cur[:, None] - window
+    cpb = -(-bt // STAGE)
+    total = t // bt * cpb
+    out = torch.zeros(b, kv, h // kv, hd)
+    for r in range(b):
+        splits = []
+        for split in range(nsplit):
+            warps = [(torch.full(qg.shape[1:3], NEG_INF),
+                      torch.zeros(qg.shape[1:3]), torch.zeros(qg.shape[1:]))
+                     for _ in range(CONSUMERS)]
+            seq = 0
+            for ci in range(split, total, nsplit):
+                blk, j = divmod(ci, cpb)
+                t0 = blk * bt + j * STAGE
+                sl = slice(t0, t0 + min(STAGE, bt - j * STAGE))
+                ok = live[r, sl]
+                if not ok.any():
+                    continue
+                m, l, acc = warps[seq % CONSUMERS]
+                s = torch.einsum("kgd,tkd->kgt", qg[r], kf[r, sl]) * hd**-0.5
+                m_new = torch.maximum(m, s.masked_fill(~ok, NEG_INF).amax(-1))
+                alpha = torch.exp(m - m_new)
+                p = torch.where(ok, torch.exp(s - m_new[..., None]),
+                                torch.zeros(()))
+                hi = p.bfloat16().float()
+                lo = (p - hi).bfloat16().float() if split_p else 0 * p
+                acc = acc * alpha[..., None]
+                for part in (lo, hi):
+                    acc = acc + torch.einsum("kgt,tkd->kgd", part, vf[r, sl])
+                warps[seq % CONSUMERS] = (m_new, l * alpha + p.sum(-1), acc)
+                seq += 1
+            splits.append(_merge(warps))
+        _, L, A = _merge(splits)
+        out[r] = A / L.clamp_min(1e-30)[..., None]
+    return out.reshape(b, h, hd)
+
+
+@pytest.mark.parametrize("case", ["serve", "window", "rotated"])
+def test_kernel_precision_plan_meets_the_gate(case):
+    """The bf16 kernel's rounding, emulated in plain torch, stays within the
+    card's gate (``atol=rtol=1e-4``) of the f32 plain version, and within
+    the file's bf16 tolerance of the reference's interpret-mode kernel.
+    Rounding P to bf16 alone would not meet the gate.  The splits are the
+    kernel's at the shape on one H100 (132 SMs, one block an SM at
+    hd=256)."""
+    from repro_torch.kernels.decode_attn.kernel import split_count
+
+    b, kv, g, hd, t, window, fills, rotate = {
+        "serve": (4, 1, 8, 256, 1024, 0, (1, 200, 700, 1024), False),
+        "window": (2, 4, 2, 64, 512, 100, (512, 300), False),
+        "rotated": (2, 1, 8, 128, 1000, 0, (1500, 1030), True),  # bt=125
+    }[case]
+    rng = np.random.default_rng(len(case))
+    (qj, qt), (kj, kt), (vj, vt) = _inputs(rng, b, kv, g, hd, t,
+                                           jnp.bfloat16)
+    slots = np.arange(t)
+    if rotate:  # slot s holds the newest position p with p % t == s
+        pos = np.stack([(f - 1) - ((f - 1) - slots) % t for f in fills])
+    else:
+        pos = np.stack([np.where(slots < f, slots, -1) for f in fills])
+    pj, pt = _ints(pos)
+    cj, ct = _ints([f - 1 for f in fills])
+    bt = tda.block_size(t)
+    nsplit = split_count(b * kv, t // bt * -(-bt // STAGE), 132)
+    emu = _ring_emulation(qt, kt, vt, pt, ct, window=window, bt=bt,
+                          nsplit=nsplit)
+    plain = tda.decode_attention_plain(qt, kt, vt, pt, ct, window=window)
+    torch.testing.assert_close(emu, plain, **F32)
+    ref = decode_attention(qj, kj, vj, pj, cj, window=window, interpret=True)
+    np.testing.assert_allclose(emu.numpy(), _np(ref), **BF16)
+    rounded = _ring_emulation(qt, kt, vt, pt, ct, window=window, bt=bt,
+                              nsplit=nsplit, split_p=False)
+    assert float((rounded - plain).abs().max()) > 1e-4
+
+
 @pytest.mark.parametrize("t,block_t,want", [(256, 128, 128), (100, 128, 100),
                                             (96, 64, 48), (1024, 128, 128),
                                             (7, 4, 1)])
@@ -194,14 +299,22 @@ def test_decode_attention_refuses_other_devices():
         tda.decode_attention(q, k, k, pos, cur)
 
 
-@pytest.mark.parametrize("b,kv,n_blocks,want", [(4, 1, 8, 8), (128, 1, 256, 9),
-                                                (1, 4, 64, 64), (300, 8, 2, 1)])
-def test_split_count_fills_the_card(b, kv, n_blocks, want):
-    """About 1,056 thread blocks in all, never more splits than cache
-    blocks, never none."""
+@pytest.mark.parametrize("rows,units,slots,want", [
+    (4, 64, 132, 16),  # the serve shape: 8 blocks of 8 chunks, hd=256
+    (128, 2048, 132, 1),  # decode_32k: the rows fill the card
+    (4, 512, 132, 32),  # B=1, KV=4, 64 blocks: 16 chunks a split
+    (2400, 2, 1056, 1),  # the f32 body: 300 rows x 8 heads, 2 blocks
+])
+def test_split_count_fills_the_card(rows, units, slots, want):
+    """At most one wave of thread blocks, at least four units a split, the
+    same whole number of units in every split; never more splits than
+    units, never none."""
     from repro_torch.kernels.decode_attn.kernel import split_count
 
-    assert split_count(b, kv, n_blocks) == want
+    n = split_count(rows, units, slots)
+    assert n == want
+    assert rows * n <= max(slots, rows) and 1 <= n <= units
+    assert -(-units // n) * (n - 1) < units  # no split left without a unit
 
 
 def test_binding_matches_the_c_signature():

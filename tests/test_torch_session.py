@@ -109,6 +109,29 @@ def test_views_are_cached(sessions):
     assert report["device_edge_total"] <= report["device_total"]
 
 
+def test_device_memory_report_equals_the_reference():
+    """Device tile views (``blocked`` and ``blocked_compact``, a reverse
+    view for pull, a curve order) reported field for field as the
+    reference's own ``memory_report`` reports them: the payloads the port
+    holds beside the tiles are not in it (ROADMAP §C P14)."""
+    g = rmat(8, edge_factor=8, seed=2)
+    kw = dict(chunk_size=128, bd=32, bs=32)
+    ref, port = repro.Graph(g, **kw), repro_torch.Graph(g, device="cpu", **kw)
+    for backend, mode, order in (("blocked", "push", "dest"),
+                                 ("blocked_compact", "pull", "dest"),
+                                 ("blocked_compact", "push", "hilbert")):
+        rpol, tpol = _pols(backend, tile_order=order)
+        ref.pagerank(mode=mode, tol=1e-3, policy=rpol)
+        port.pagerank(mode=mode, tol=1e-3, policy=tpol)
+    for backend in ("blocked", "blocked_compact", "scan"):
+        rpol, tpol = _pols(backend)
+        want, got = ref.memory_report(rpol), port.memory_report(tpol)
+        assert len(got["device_views"]) >= 3
+        assert got == want
+    bg = port.device(blocked=True).out_blocked
+    assert bg.payload_nbytes > 0
+
+
 def test_later_slices_raise(sessions):
     _, port = sessions
     with pytest.raises(NotImplementedError, match="A12"):

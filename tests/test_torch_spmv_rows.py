@@ -242,11 +242,15 @@ def test_edgeless_view_has_an_empty_payload():
 
 
 def test_memory_report_counts_the_payload():
-    """The payload is part of the tile view's device bytes."""
+    """The report counts a tile view as the reference does, its tiles and
+    schedule; the payloads the card kernels read are the view's
+    ``payload_nbytes`` (ROADMAP §C P14)."""
     G = Graph(rmat(8, edge_factor=8, seed=2), device="cpu", bd=32, bs=16)
     bg = G.device(blocked=True).out_blocked
     tiles = G.memory_report()["device_views"]["tiles:plus_times:fwd:dest"]
     payload = sum(getattr(bg, name).nbytes for name in PAYLOAD)
     schedule = sum(getattr(bg, name).nbytes for name in
                    ("dbid", "sbid", "first", "last", "accum", "nnz"))
-    assert tiles == bg.tiles.nbytes + schedule + payload
+    assert payload > 0
+    assert bg.payload_nbytes == payload
+    assert tiles == bg.tiles.nbytes + schedule
