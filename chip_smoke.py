@@ -75,7 +75,32 @@ Phases, each of which raises (and so exits non-zero) on failure:
                the counts zeroed just before and read just after: B3 and B4
                must have run.  Labels equal across backends and equal a
                numpy union-find labelling; IOStats as in phase 8.
-  10. host    — host residency (edges in host RAM, streamed per superstep)
+  10. batched — the batched (n, Q) driver on the main view, device
+               residency, all four backends, with the counts zeroed just
+               before and read just after (B1 and B2 must have run; the lane
+               widths the kernels saw are logged): ``bfs(S)`` for the 32
+               vertices of largest out-degree (ties to the lower id), each
+               lane equal to numpy BFS, ``query_supersteps`` equal to the
+               solo ``bfs(s)`` runs on blocked, ``iostats.queries == 32``,
+               IOStats as in phase 8; ``run(BFSProgram(), seeds=S,
+               batch=32)`` equal to it; ``pagerank(reset=S[:16])`` and a
+               float (n, 4) reset matrix from ``--seed``, each column within
+               atol=1e-6, rtol=1e-5 of its width-one run and within
+               tol / (1 - damping) in L1 of a numpy personalized power
+               iteration.  Logs the wall per query against the solo walls
+               and how many columns are bit-equal to their solo runs.
+  11. algs    — on ``rmat(16, symmetrize=True)`` (its plus_times forward and
+               reverse tile views), counts zeroed before and read after:
+               ``coreness()`` dense/p2p/hybrid on scan and blocked, equal to
+               numpy peeling; ``betweenness(S32)`` 'multi' on scan, blocked
+               and blocked_compact, 'uni' with ``batch=8`` on blocked and
+               'fused', within rtol=1e-4 of a numpy level-synchronous
+               Brandes (B1 and B2 must have run over the reverse view);
+               ``diameter(num_sources=32)`` on blocked, equal to a numpy
+               replay of its sweeps; ``triangles(policy=blocked)`` on
+               ``rmat(14, symmetrize=True)`` (a 1.07 GB dense product) equal
+               to the numpy ladder.
+  12. host    — host residency (edges in host RAM, streamed per superstep)
                against device residency in this process:
                (a) ``rmat(20, edge_factor=16, seed=1)`` (n=1,048,576) on scan
                    and compact: ``pagerank()`` push and pull (pull capped
@@ -103,7 +128,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
                bytes per second beside the pinned host-to-device rate of a
                plain 1 GB copy.  Host launches of B2/B4 are counted apart
                from the main paths'.
-  11. kernels — both payloads scattered back equal the dense tiles of the
+  13. batched_host — ``bfs`` of 8 sources (``default_rng(7)`` over the
+               vertices with an out-edge, as ``benchmarks/
+               bench_multisource.py`` draws them) under host residency on
+               rmat(20) (scan) and the rmat(14, symmetrize) tile store
+               (blocked_compact): values, query supersteps and IOStats but
+               host_bytes and retries equal device residency's, and
+               ``host_bytes`` a query at least 4x below the 8 solo host
+               runs' mean (the benchmark's gate; the factor is logged).
+  14. kernels — both payloads scattered back equal the dense tiles of the
                full-size main and wcc views (a chunk of tiles at a time, on
                the card); B1-B4 held against their plain torch versions on
                the card (K=1 and K=4; full and n/8 frontiers; the 'dest'
@@ -113,8 +146,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
                and the plain version of its payload arithmetic, and two
                launches of each must give the same bits.  Then, on an x
                holding +inf, -inf and NaN, all four against their plain
-               versions, NaN for NaN (ROADMAP §C P12).
-  12. time    — each kernel at K=1 beside its bound, its plain version and a
+               versions, NaN for NaN (ROADMAP §C P12).  B1/B2 also at
+               K=32, 192 and 256 (two lane groups) on both views and
+               frontiers.
+  15. time    — each kernel at K=1 beside its bound, its plain version and a
                library call over the same live edges (``torch.sparse.mm``
                for B1/B2, ``scatter_reduce_(..., 'amin')`` for B3/B4), and
                one call's device time in a CUDA graph and by kernel
@@ -126,12 +161,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
                list and pointers a live tile, the x blocks of live tiles,
                y); the dense tile bound of the earlier design is
                logged beside it, as is the dense plain version's time.
-  13. profile — device time and idle share of blocked PageRank, blocked BFS,
+               B1 and B2 again at K=32 (``k32_*`` keys of the kernels line).
+  16. profile — device time and idle share of blocked PageRank, blocked BFS,
                blocked WCC, blocked_compact PageRank and WCC, host scan
-               PageRank (10 supersteps) and host blocked_compact WCC.
+               PageRank (10 supersteps), host blocked_compact WCC, and
+               blocked batched BFS (Q=32) and personalized PageRank (Q=16).
 
 Prints the card's ``name, power.limit``, a ``{"kernels": [...]}`` line
-(B1-B5) and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA
+(B1-B5; B1/B2's launches are the main, batched, algorithm and host batched
+paths') and, last, ``{"ok": true, "device": {...}}``.  ``--seed`` seeds
+the batched phase's reset matrix (default 0).  Exits non-zero without a CUDA
 device, and when the repository's ``src/`` is not beside it.
 """
 from __future__ import annotations
@@ -610,6 +649,32 @@ class StageLog:
         residency._tile_batches = self._batches
 
 
+def staged_run(label, H, call, torch):
+    """One host-residency call with its byte counts: ``(result, wall ms,
+    launches, host_bytes, streamed, tile payload)``.  ``streamed`` is what
+    the call really copied: the tile batches' payload as :class:`StageLog`
+    counts it, plus what other arms (chunk batches, point-to-point) ship.
+    ``host_bytes`` is the reference's count, unwrapped: its dense tile
+    batches plus the same other arms; IOStats' int32 field, which wraps
+    like the reference's, must equal it modulo 2^32."""
+    hv = H.host_view()
+    before = hv.streamed_bytes
+    with StageLog() as tiles:
+        res, ms, launched = timed(call, torch)
+    streamed = hv.streamed_bytes - before
+    other = streamed - tiles.payload
+    if other < 0:
+        raise AssertionError(f"{label}: streamed_bytes {streamed} is not the "
+                             f"tile batches' {tiles.payload} B plus the "
+                             "other arms'")
+    host_bytes = tiles.dense + other
+    hb = int(res.iostats.host_bytes)
+    if hb != (host_bytes + 2**31) % 2**32 - 2**31:
+        raise AssertionError(f"{label}: host_bytes {hb} is not the "
+                             f"reference's {host_bytes} B modulo 2^32")
+    return res, ms, launched, host_bytes, streamed, tiles.payload
+
+
 def check_host(label, dev, host, exact, torch) -> None:
     """Host against device residency: values, and for BFS/WCC every IOStats
     field but host_bytes and retries."""
@@ -651,35 +716,20 @@ def phase_host(torch):
             dev_cache[key] = timed(lambda: call(D, pol), torch)[:2]
         dres, dms = dev_cache[key]
         hpol = pol.with_(residency="host")
-        hv = H.host_view()
-        before = hv.streamed_bytes
-        with StageLog() as tiles:
-            hres, hms, launched = timed(lambda: call(H, hpol), torch)
-        streamed = hv.streamed_bytes - before
+        name = f"{label}/{pol.backend}/{pol.tile_order}/sb{pol.stream_buffer}"
+        hres, hms, launched, dense, streamed, payload = staged_run(
+            name, H, lambda: call(H, hpol), torch)
         for k, v in launched.items():
             host_counts[k] = host_counts.get(k, 0) + v
-        name = f"{label}/{pol.backend}/{pol.tile_order}/sb{pol.stream_buffer}"
         check_host(name, dres, hres, exact, torch)
-        # Bytes of other arms (chunk batches, point-to-point) ship as
-        # counted in both counters.
-        other = streamed - tiles.payload
-        if other < 0 or (pol.backend in ("blocked", "blocked_compact")
-                         and tiles.payload == 0):
-            raise AssertionError(f"{name}: streamed_bytes {streamed} is not "
-                                 f"the tile batches' {tiles.payload} B plus "
-                                 "the other arms'")
-        # IOStats.host_bytes counts the reference's dense tile batches, and
-        # is int32 and wraps like the reference's.
+        if pol.backend in ("blocked", "blocked_compact") and payload == 0:
+            raise AssertionError(f"{name}: no tile batch staged")
         hb = int(hres.iostats.host_bytes)
-        dense = tiles.dense + other
-        if hb != (dense + 2**31) % 2**32 - 2**31:
-            raise AssertionError(f"{name}: host_bytes {hb} is not the "
-                                 f"reference's {dense} B modulo 2^32")
         rows.append((name, dms, hms, streamed))
         log(f"host {name:40s} supersteps={int(hres.supersteps)} device_ms="
             f"{dms:.1f} host_ms={hms:.1f} ratio={dms / hms:.3f} streamed="
             f"{streamed} B ({streamed / (hms / 1e3) / 1e9:.2f} GB/s; tile "
-            f"payload {tiles.payload} B) host_bytes={hb} (reference's "
+            f"payload {payload} B) host_bytes={hb} (reference's "
             f"layout {dense} B{', wrapped' if hb != dense else ''})")
 
     def bound_check(H, pol, runs_fit: bool):
@@ -760,6 +810,444 @@ def phase_host(torch):
     del Db
     torch.cuda.empty_cache()
     return Ha, Hb, host_counts, rows, rate
+
+
+# ------------------------------------------------- batched driver, algorithms
+Q_MAIN = 32  # batched BFS queries on the main view
+Q_PPR = 16  # one-hot personalized PageRank queries
+Q_RESET = 4  # columns of the seeded reset matrix
+Q_HOST = 8  # host queries: benchmarks/bench_multisource.py's Q and gate
+HOST_GATE = 4.0  # host_bytes a query must drop at least this much at Q=8
+BC_RTOL = 1e-4
+K_WIDE = (32, 192, 256)  # B1/B2 lanes checked beside K=1 and 4; 256 splits
+K_TIME = 32  # B1/B2 lanes timed beside K=1
+
+
+def top_degree(g, k: int):
+    """The k vertices of largest out-degree, ties to the lower id."""
+    import numpy as np
+
+    return np.argsort(-np.diff(g.indptr), kind="stable")[:k]
+
+
+class LaneLog:
+    """Within the ``with`` block, records each launch of B1-B4 (one a lane
+    group): its counter's name, the id of its tile view and its lanes."""
+
+    def __enter__(self):
+        from repro_torch.kernels.spmv import kernel as K
+
+        self.calls = []
+        self._saved = rows, compact = K._launch_rows, K._launch_compact
+
+        def log_rows(bg, act, x):
+            self.calls.append((K._kernel_name("spmv_blocked", bg), id(bg),
+                               x.shape[-1]))
+            return rows(bg, act, x)
+
+        def log_compact(bg, lst, ldb, nact, x):
+            self.calls.append((K._kernel_name("spmv_blocked_compact", bg),
+                               id(bg), x.shape[-1]))
+            return compact(bg, lst, ldb, nact, x)
+
+        K._launch_rows, K._launch_compact = log_rows, log_compact
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels.spmv import kernel as K
+
+        K._launch_rows, K._launch_compact = self._saved
+
+    def widths(self) -> dict:
+        """{kernel: {lanes: launches}}."""
+        out: dict = {}
+        for name, _, k in self.calls:
+            out.setdefault(name, {})
+            out[name][k] = out[name].get(k, 0) + 1
+        return out
+
+    def on(self, bg) -> dict:
+        """{kernel: launches} over the tile view ``bg``."""
+        out: dict = {}
+        for name, view, _ in self.calls:
+            if view == id(bg):
+                out[name] = out.get(name, 0) + 1
+        return out
+
+
+def numpy_ppr(g, resets, damping: float, iters: int = 1000):
+    """Personalized PageRank of each column of ``resets`` (normalized to
+    sum 1) by power iteration in float64: R = (1 - c) r + c A^T (R / deg),
+    a vertex without out-edges sending nothing, as the push program's
+    fixed point."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    deg = np.diff(g.indptr)
+    src = np.repeat(np.arange(g.n), deg)
+    at = sp.csr_matrix((np.ones(g.m), (g.indices, src)), shape=(g.n, g.n))
+    share = np.where(deg > 0, 1.0 / np.maximum(deg, 1), 0.0)[:, None]
+    base = (1 - damping) * resets / resets.sum(0, keepdims=True)
+    rank = base
+    for _ in range(iters):
+        new = base + damping * (at @ (rank * share))
+        if np.abs(new - rank).max() < 1e-15:
+            return new
+        rank = new
+    return rank
+
+
+def numpy_coreness(g):
+    """Core numbers by level-synchronous peeling in numpy: remove every
+    live vertex of degree <= k, decrement its neighbours, and raise k to
+    the least live degree when nothing goes."""
+    import numpy as np
+
+    deg = np.diff(g.indptr).astype(np.int64)
+    src = np.repeat(np.arange(g.n), np.diff(g.indptr))
+    alive = np.ones(g.n, bool)
+    core = np.zeros(g.n, np.int32)
+    k = 0
+    while alive.any():
+        gone = alive & (deg <= k)
+        if gone.any():
+            core[gone] = k
+            alive &= ~gone
+            deg -= np.bincount(g.indices[gone[src]], minlength=g.n)
+        else:
+            k = max(int(deg[alive].min()), k + 1)
+    return core
+
+
+def numpy_brandes(g, sources):
+    """Betweenness from ``sources`` by level-synchronous Brandes in float64
+    (scipy sparse): path counts level by level, then dependencies back
+    down the levels; each source's own entry left out."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    n, k = g.n, len(sources)
+    src = np.repeat(np.arange(n), np.diff(g.indptr))
+    a = sp.csr_matrix((np.ones(g.m), (src, g.indices)), shape=(n, n))
+    at = a.T.tocsr()
+    lanes = np.arange(k)
+    sigma = np.zeros((n, k))
+    sigma[sources, lanes] = 1.0
+    dist = np.full((n, k), -1)
+    dist[sources, lanes] = 0
+    front, level = dist == 0, 0
+    while front.any():
+        recv = at @ np.where(front, sigma, 0.0)
+        new = (recv > 0) & (dist < 0)
+        sigma = np.where(new, recv, sigma)
+        dist = np.where(new, level + 1, dist)
+        front, level = new, level + 1
+    delta = np.zeros((n, k))
+    for lv in range(int(dist.max()) - 1, -1, -1):
+        x = np.where(dist == lv + 1, (1 + delta) / np.maximum(sigma, 1e-300),
+                     0.0)
+        delta = np.where(dist == lv, delta + sigma * (a @ x), delta)
+    delta[sources, lanes] = 0.0
+    return delta.sum(1)
+
+
+def numpy_diameter(g, num_sources: int, sweeps: int = 2) -> int:
+    """The diameter estimator's sweeps replayed with numpy BFS: from the
+    first vertex of largest degree, then from the ``num_sources`` farthest
+    reachable vertices of the last sweep (ties to the lower id)."""
+    import numpy as np
+
+    from repro_torch.algs import UNREACHED
+
+    def finite(d):
+        return np.where(d == UNREACHED, -1, d)
+
+    dist = numpy_bfs(g, int(np.argmax(np.diff(g.indptr))))
+    estimate = int(finite(dist).max())
+    for _ in range(sweeps):
+        sources = np.argsort(-finite(dist), kind="stable")[:num_sources]
+        best = np.full(g.n, -1)
+        for s in sources:
+            d = finite(numpy_bfs(g, int(s)))
+            estimate = max(estimate, int(d.max()))
+            best = np.maximum(best, d)
+        dist = np.where(best < 0, UNREACHED, best)
+    return estimate
+
+
+def phase_batched(g, G, torch, seed: int, damping=0.85, tol=1e-3):
+    """Batched BFS and personalized PageRank on the main view (see the
+    module docstring).  Returns the path's launch counts, its walls and
+    each backend's count of PPR columns bit-equal to their solo runs."""
+    import numpy as np
+
+    import repro_torch
+    from repro_torch.algs import BFSProgram
+    from repro_torch.kernels.spmv import kernel as K
+
+    S = top_degree(g, Q_MAIN).tolist()
+    resets = np.random.default_rng(seed).random((g.n, Q_RESET)).astype(
+        np.float32)
+    runs, wall = {}, {}
+    K.reset_launches()
+    with LaneLog() as lanes:
+        for backend in BACKENDS:
+            pol = repro_torch.ExecutionPolicy(backend=backend)
+            for name, call in (
+                ("bfs", lambda: G.bfs(S, policy=pol)),
+                ("run", lambda: G.run(BFSProgram(), seeds=S, batch=Q_MAIN,
+                                      policy=pol)),
+                ("ppr", lambda: G.pagerank(reset=S[:Q_PPR], policy=pol)),
+                ("ppr_matrix", lambda: G.pagerank(reset=resets, policy=pol)),
+            ):
+                runs[(backend, name)], wall[(backend, name)] = timed(
+                    call, torch)[:2]
+    counts = dict(K.launches)
+    log(f"batched path kernel launches: {counts}; lane widths "
+        f"{lanes.widths()}")
+    require_launched("batched path", counts, ("spmv_blocked",
+                                              "spmv_blocked_compact"))
+
+    # BFS: numpy, the solo runs on blocked, and the façade's run(batch=).
+    blocked = repro_torch.ExecutionPolicy(backend="blocked")
+    solo = {s: timed(lambda: G.bfs(s, policy=blocked), torch)[:2] for s in S}
+    steps = [int(solo[s][0].supersteps) for s in S]
+    ios = {}
+    for backend in BACKENDS:
+        res = runs[(backend, "bfs")]
+        vals = res.values.cpu().numpy()
+        for q, s in enumerate(S):
+            if not np.array_equal(vals[:, q], numpy_bfs(g, s)):
+                raise AssertionError(f"batched bfs on {backend}: query {q} "
+                                     "differs from numpy BFS")
+        if (res.query_supersteps.tolist() != steps
+                or int(res.supersteps) != max(steps)
+                or int(res.iostats.queries) != Q_MAIN):
+            raise AssertionError(f"batched bfs on {backend}: query supersteps"
+                                 f" {res.query_supersteps.tolist()} against "
+                                 f"solo {steps}, queries "
+                                 f"{int(res.iostats.queries)}")
+        via = runs[(backend, "run")]
+        ios[backend] = io_dict(res.iostats)
+        if not (torch.equal(via.values, res.values)
+                and torch.equal(via.query_supersteps, res.query_supersteps)
+                and io_dict(via.iostats) == ios[backend]):
+            raise AssertionError(f"run(batch={Q_MAIN}) on {backend} differs "
+                                 "from bfs(sources)")
+    check_io("batched bfs scan/compact", ios["scan"], ios["compact"],
+             ios["scan"].keys())
+    check_io("batched bfs blocked/blocked_compact", ios["blocked"],
+             ios["blocked_compact"], ios["blocked"].keys())
+    for backend in BACKENDS[1:]:
+        check_io(f"batched bfs scan/{backend}", ios["scan"], ios[backend],
+                 LAYOUT_FREE)
+    solo_bfs_ms = [solo[s][1] for s in S]
+    log(f"batched bfs: {Q_MAIN} top-degree sources, every lane equals numpy "
+        f"BFS on all four backends, query supersteps equal the solo runs' "
+        f"{steps}; run(batch=) equals bfs(); wall per query "
+        + ", ".join(f"{b} {wall[(b, 'bfs')] / Q_MAIN:.3f}" for b in BACKENDS)
+        + f" ms against a blocked solo run's mean {np.mean(solo_bfs_ms):.3f} "
+        f"ms (sum {np.sum(solo_bfs_ms):.1f})")
+
+    # PPR: width-one runs and a numpy power iteration.
+    one_hot = np.zeros((g.n, Q_PPR))
+    one_hot[S[:Q_PPR], np.arange(Q_PPR)] = 1.0
+    want = {"ppr": numpy_ppr(g, one_hot, damping),
+            "ppr_matrix": numpy_ppr(g, resets.astype(np.float64), damping)}
+    solo_reset = {"ppr": lambda q: S[q:q + 1],
+                  "ppr_matrix": lambda q: resets[:, q:q + 1]}
+    bit_equal, solo_ppr_ms = {}, []
+    for backend in BACKENDS:
+        pol = repro_torch.ExecutionPolicy(backend=backend)
+        for name, ref in want.items():
+            res = runs[(backend, name)]
+            cols = ref.shape[1]
+            if (res.values.shape != (g.n, cols)
+                    or not torch.isfinite(res.values).all()
+                    or int(res.iostats.queries) != cols):
+                raise AssertionError(f"{name} on {backend}: bad result")
+            same = 0
+            for q in range(cols):
+                one, ms = timed(lambda: G.pagerank(reset=solo_reset[name](q),
+                                                   policy=pol), torch)[:2]
+                if backend == "blocked" and name == "ppr":
+                    solo_ppr_ms.append(ms)
+                torch.testing.assert_close(res.values[:, q], one.values[:, 0],
+                                           atol=PR_ATOL, rtol=PR_RTOL)
+                same += bool(torch.equal(res.values[:, q], one.values[:, 0]))
+                if int(res.query_supersteps[q]) != int(one.supersteps):
+                    log(f"{name} on {backend}: query {q} converged at "
+                        f"{int(res.query_supersteps[q])}, alone at "
+                        f"{int(one.supersteps)}")
+                l1 = float(np.abs(res.values[:, q].double().cpu().numpy()
+                                  - ref[:, q]).sum())
+                if l1 > tol / (1 - damping):
+                    raise AssertionError(f"{name} on {backend}: query {q} L1 "
+                                         f"error {l1} vs numpy")
+            bit_equal[(backend, name)] = same
+    # Without the point-to-point arm (whose index_add_ adds in no fixed
+    # order on the card, and which a batch and a solo run enter in
+    # different supersteps) blocked runs every superstep through B1.
+    nop2p = repro_torch.ExecutionPolicy(backend="blocked",
+                                        switch_fraction=None)
+    res = G.pagerank(reset=S[:Q_PPR], policy=nop2p)
+    bit_equal[("blocked_no_p2p", "ppr")] = sum(
+        bool(torch.equal(res.values[:, q], G.pagerank(
+            reset=S[q:q + 1], policy=nop2p).values[:, 0]))
+        for q in range(Q_PPR))
+    log("batched ppr: columns within atol=1e-6, rtol=1e-5 of width-one runs "
+        "and within tol/(1-damping) in L1 of numpy; columns bit-equal to "
+        "their solo runs: " + json.dumps(
+            {f"{b}/{n}": v for (b, n), v in bit_equal.items()})
+        + "; wall per query " + ", ".join(
+            f"{b} {wall[(b, 'ppr')] / Q_PPR:.3f}" for b in BACKENDS)
+        + f" ms against a blocked solo run's mean {np.mean(solo_ppr_ms):.3f}"
+        " ms")
+    walls = {f"{b}/{n}": round(v, 3) for (b, n), v in wall.items()}
+    walls.update({"blocked/solo_bfs_mean": round(float(np.mean(
+        solo_bfs_ms)), 3), "blocked/solo_ppr_mean": round(float(np.mean(
+            solo_ppr_ms)), 3)})
+    return counts, walls, bit_equal
+
+
+
+
+def phase_batched_host(Ha, Hb, torch):
+    """Host batched BFS against device residency and against solo host
+    runs (see the module docstring); returns the host path's launches."""
+    import numpy as np
+
+    import repro_torch
+    from repro_torch.kernels.spmv import kernel as K
+
+    counts, rows = {}, {}
+    for label, H, backend in (("rmat20", Ha, "scan"),
+                              ("rmat14_sym", Hb, "blocked_compact")):
+        g = H.host
+        # benchmarks/bench_multisource.py's draw (seed 7), over vertices
+        # with an out-edge: a search from one without is empty.
+        S = np.random.default_rng(7).choice(
+            np.flatnonzero(np.diff(g.indptr) > 0), Q_HOST,
+            replace=False).tolist()
+        pol = repro_torch.ExecutionPolicy(backend=backend)
+        hpol = pol.with_(residency="host")
+        D = repro_torch.Graph(g, device="cuda", chunk_size=H._chunk_size,
+                              bd=H._bd, bs=H._bs)
+        dres, dms = timed(lambda: D.bfs(S, policy=pol), torch)[:2]
+        del D
+        torch.cuda.empty_cache()
+        K.reset_launches()
+        hres, hms, _, hb, streamed, _ = staged_run(
+            label, H, lambda: H.bfs(S, policy=hpol), torch)
+        for k, v in K.launches.items():
+            counts[k] = counts.get(k, 0) + v
+        check_host(f"batched host {label}/{backend}", dres, hres, True, torch)
+        if not (torch.equal(hres.query_supersteps, dres.query_supersteps)
+                and int(hres.iostats.queries) == Q_HOST):
+            raise AssertionError(f"batched host {label}: query supersteps "
+                                 "or queries differ from device")
+        solo = [staged_run(label, H, lambda: H.bfs(s, policy=hpol), torch)
+                for s in S]
+        solo_hb = float(np.mean([r[3] for r in solo]))
+        solo_streamed = float(np.mean([r[4] for r in solo]))
+        factor = solo_hb / (hb / Q_HOST)
+        rows[label] = dict(host_bytes=hb, solo_host_bytes_mean=solo_hb,
+                           factor=factor, streamed=streamed,
+                           solo_streamed_mean=solo_streamed,
+                           device_ms=dms, host_ms=hms,
+                           solo_host_ms_mean=float(np.mean(
+                               [r[1] for r in solo])))
+        log(f"batched host {label}/{backend}: sources {S} (out-degrees "
+            f"{np.diff(g.indptr)[S].tolist()}), query supersteps "
+            f"{hres.query_supersteps.tolist()}; values and IOStats equal "
+            f"device residency's; host_bytes {hb} = {hb / Q_HOST:.0f} a query"
+            f" against a solo mean of {solo_hb:.0f}: {factor:.3f}x fewer "
+            f"(streamed {streamed} B, {solo_streamed / (streamed / Q_HOST):.3f}"
+            f"x fewer); walls device {dms:.1f} ms, host {hms:.1f} ms, host "
+            f"solo mean {rows[label]['solo_host_ms_mean']:.1f} ms")
+        if factor < HOST_GATE:
+            raise AssertionError(f"batched host {label}: host_bytes a query "
+                                 f"drop only {factor:.3f}x (< {HOST_GATE}x)")
+    log(f"batched host launches: {counts}")
+    require_launched("batched host path", counts, ("spmv_blocked_compact",))
+    return counts, rows
+
+
+def phase_algs(wg, torch):
+    """Coreness, betweenness, diameter and triangles on the card (see the
+    module docstring).  Returns the path's launch counts and walls."""
+    import numpy as np
+
+    import repro_torch
+    from repro_torch.algs import count_triangles
+    from repro_torch.graph.generators import rmat
+    from repro_torch.kernels.spmv import kernel as K
+
+    A = repro_torch.Graph(wg, device="cuda")
+    S = top_degree(wg, Q_MAIN).tolist()
+    tg = rmat(14, edge_factor=16, seed=1, symmetrize=True)
+    T = repro_torch.Graph(tg, device="cuda")
+    blocked = repro_torch.ExecutionPolicy(backend="blocked")
+    runs, wall = {}, {}
+
+    def run(key, call):
+        runs[key], wall[key] = timed(call, torch)[:2]
+
+    K.reset_launches()
+    with LaneLog() as lanes:
+        for backend in ("scan", "blocked"):
+            pol = repro_torch.ExecutionPolicy(backend=backend)
+            for messaging in ("dense", "p2p", "hybrid"):
+                run(f"coreness/{backend}/{messaging}", lambda: A.coreness(
+                    messaging=messaging, policy=pol))
+        for backend in ("scan", "blocked", "blocked_compact"):
+            run(f"bc/multi/{backend}", lambda: A.betweenness(
+                S, policy=repro_torch.ExecutionPolicy(backend=backend)))
+        run("bc/uni8/blocked", lambda: A.betweenness(S, mode="uni", batch=8,
+                                                      policy=blocked))
+        run("bc/fused/scan", lambda: A.betweenness(S, mode="fused"))
+        run("diameter/blocked", lambda: A.diameter(num_sources=Q_MAIN,
+                                                   policy=blocked))
+        run("triangles/blocked", lambda: T.triangles(policy=blocked))
+    counts = dict(K.launches)
+    rev = A.device(blocked=True, blocked_reverse=True).out_blocked_rev
+    on_rev = lanes.on(rev)
+    log(f"algs path kernel launches: {counts}; over the reverse view "
+        f"{on_rev}; lane widths {lanes.widths()}")
+    require_launched("algs path", counts, ("spmv_blocked",
+                                           "spmv_blocked_compact"))
+    require_launched("betweenness backward (reverse view)", on_rev,
+                     ("spmv_blocked", "spmv_blocked_compact"))
+
+    core = numpy_coreness(wg)
+    for key in [k for k in runs if k.startswith("coreness")]:
+        if not np.array_equal(runs[key].values.cpu().numpy(), core):
+            raise AssertionError(f"{key} differs from numpy peeling")
+    bc = numpy_brandes(wg, S)
+    for key in [k for k in runs if k.startswith("bc/")]:
+        np.testing.assert_allclose(runs[key].values.double().cpu().numpy(),
+                                   bc, rtol=BC_RTOL, err_msg=key)
+    est = numpy_diameter(wg, Q_MAIN)
+    if int(runs["diameter/blocked"].values) != est:
+        raise AssertionError(f"diameter {int(runs['diameter/blocked'].values)}"
+                             f" != numpy replay {est}")
+    ladder = count_triangles(tg, variant="hash", ordered=True).triangles
+    got = runs["triangles/blocked"].values
+    if got != ladder:
+        raise AssertionError(f"triangles_blocked_mxu {got} != ladder {ladder}"
+                             " (f32 total, ROADMAP §C)")
+    log(f"algs: coreness (max core {int(core.max())}, supersteps "
+        f"{int(runs['coreness/blocked/dense'].supersteps)}) equals numpy "
+        f"peeling on scan and blocked, dense/p2p/hybrid; betweenness from "
+        f"{Q_MAIN} top-degree sources within rtol={BC_RTOL} of numpy Brandes "
+        f"(multi on scan/blocked/blocked_compact, uni batch=8, fused: shared "
+        f"chunks {int(runs['bc/fused/scan'].state.shared)}); diameter {est} "
+        f"equals the numpy replay; triangles on rmat(14, symmetrize) {got} "
+        f"equal the numpy ladder; walls ms " + json.dumps(
+            {k: round(v, 3) for k, v in wall.items()}))
+    del A, T
+    torch.cuda.empty_cache()
+    return counts, wall
 
 
 def phase_warmup() -> None:
@@ -890,11 +1378,56 @@ def phase_kernels(G, W, torch):
                 log(f"kernel check {enc:10s} {order:7s} k={k} {fname:6s} "
                     f"live={int(act.sum())}/{bg.num_tiles} full err={e1:.3g}"
                     f" compact err={e2:.3g} (two launches of each equal)")
+    for order in ("dest", "hilbert"):
+        check_wide(order, views[("plus_times", order)], errs, torch)
     for (enc, order), bg in views.items():
         if order == "hilbert":
             check_non_finite(enc, bg, errs, torch)
     torch.cuda.synchronize()
     return errs
+
+
+def check_wide(order, bg, errs, torch) -> None:
+    """B1/B2 at the batched paths' lane counts (``K_WIDE``; past 192 lanes
+    the wrappers launch lane groups) on full and n/8 frontiers: within
+    atol=rtol=1e-5 of both plain versions, two launches bit-equal, and
+    one launch a group of at most 192 lanes."""
+    from repro_torch.kernels.spmv import kernel as K
+
+    n = bg.n
+    for k in K_WIDE:
+        for fname, frontier in (
+                ("full", torch.ones(n, dtype=torch.bool, device="cuda")),
+                ("sparse", torch.arange(n, device="cuda") < n // 8)):
+            x_blocks, act = kernel_inputs(bg, frontier, k, torch, seed=k)
+            args = compact_args(bg, act)
+            K.reset_launches()
+            y1 = K.spmv_blocked(bg, act, x_blocks)
+            y2 = K.spmv_blocked_compact(bg, *args, x_blocks)
+            groups = -(-k // K._MAX_K)
+            if (K.launches["spmv_blocked"], K.launches["spmv_blocked_compact"]
+                    ) != (groups, groups):
+                raise AssertionError(f"k={k}: launches {K.launches}, "
+                                     f"{groups} lane groups expected")
+            if not (torch.equal(y1, K.spmv_blocked(bg, act, x_blocks))
+                    and torch.equal(y2, K.spmv_blocked_compact(bg, *args,
+                                                               x_blocks))):
+                raise AssertionError(f"k={k}: two launches differ")
+            e1 = max(max_err(y1, K.blocked_spmv_plain(bg, act, x_blocks),
+                             False, torch),
+                     max_err(y1, K.blocked_spmv_plain_rows(bg, act, x_blocks),
+                             False, torch))
+            e2 = max(max_err(y2, K.blocked_spmv_plain_compact(
+                         bg, *args, x_blocks), False, torch),
+                     max_err(y2, K.blocked_spmv_plain_compact_rows(
+                         bg, *args, x_blocks), False, torch))
+            errs["spmv_blocked"] = max(errs["spmv_blocked"], e1)
+            errs["spmv_blocked_compact"] = max(errs["spmv_blocked_compact"],
+                                               e2)
+            log(f"kernel check plus_times {order:7s} k={k} {fname:6s} "
+                f"live={int(act.sum())}/{bg.num_tiles} full err={e1:.3g} "
+                f"compact err={e2:.3g} ({groups} lane group(s); two launches "
+                "of each equal)")
 
 
 def check_non_finite(enc, bg, errs, torch) -> None:
@@ -1027,10 +1560,11 @@ def live_csr(g, frontier_np, torch):
 
 def library_call(name, g, frontier_np, x_blocks, torch):
     """One PyTorch call computing the kernel's function over the same live
-    edges: ``torch.sparse.mm`` (plus_times), or ``scatter_reduce_`` with
-    'amin' over ``x[src] + w``, the gather included (min_plus)."""
+    edges: ``torch.sparse.mm`` (plus_times, an (n, K) x), or
+    ``scatter_reduce_`` with 'amin' over ``x[src] + w``, the gather
+    included (min_plus, K=1)."""
     n = g.n
-    xv = x_blocks.reshape(-1, 1)[:n].contiguous()
+    xv = x_blocks.reshape(-1, x_blocks.shape[-1])[:n].contiguous()
     if KERNELS[name][0] == "plus_times":
         A = live_csr(g, frontier_np, torch)
         return lambda: torch.sparse.mm(A, xv)
@@ -1066,32 +1600,18 @@ def phase_time(g, G, wg, W, torch):
         frontier = torch.as_tensor(frontier_np, device="cuda")
         x_blocks, act = kernel_inputs(bg, frontier, 1, torch, seed=7)
         live = int(act.sum())
-        if full_schedule:
-            def run():
-                return K.spmv_blocked(bg, act, x_blocks)
-
-            def plain():
-                return K.blocked_spmv_plain_rows(bg, act, x_blocks)
-        else:
-            args = compact_args(bg, act)
-
-            def run():
-                return K.spmv_blocked_compact(bg, *args, x_blocks)
-
-            def plain():
-                return K.blocked_spmv_plain_compact_rows(bg, *args, x_blocks)
+        run, plain, (bound_ms, bound_by), args = kernel_calls(
+            full_schedule, bg, act, x_blocks, 1)
         lib = library_call(name, graph, frontier_np, x_blocks, torch)
         ms = cuda_ms(run, reps=50 if full_schedule else 20)
         plain_ms = cuda_ms(plain, reps=3, warmup=1)
         library_ms = cuda_ms(lib, reps=20)
         if full_schedule:
-            bound_ms, bound_by = bound_rows(bg, act, 1)
             tile_bound_ms = bound(bg, act, 1, bg.num_tiles)[0]
             dense_ms = cuda_ms(lambda: K.blocked_spmv_plain(bg, act,
                                                             x_blocks),
                                reps=3, warmup=1)
         else:
-            bound_ms, bound_by = bound_compact_rows(bg, args, 1)
             tile_bound_ms = bound(bg, act, 1, live)[0]
             dense_ms = cuda_ms(lambda: K.blocked_spmv_plain_compact(
                 bg, *args, x_blocks), reps=3, warmup=1)
@@ -1101,6 +1621,9 @@ def phase_time(g, G, wg, W, torch):
                           bound_ms=bound_ms, bound_by=bound_by, live=live,
                           device_ms=kernel_device_ms,
                           dense_bound_ms=tile_bound_ms)
+        if enc == "plus_times":
+            rows[name].update(time_wide(name, graph, bg, frontier,
+                                        frontier_np, torch))
         log(f"time {name}: live={live}/{bg.num_tiles} ms={ms:.4f} "
             f"device_ms={kernel_device_ms:.4f} (one call in a CUDA graph) "
             f"bound_ms={bound_ms:.5f} ({bound_by}) plain_ms={plain_ms:.3f} "
@@ -1109,6 +1632,42 @@ def phase_time(g, G, wg, W, torch):
             f"design {tile_bound_ms:.4f} ms; dense plain_ms {dense_ms:.3f}); "
             f"device ms a call by kernel {parts}")
     return rows
+
+
+def kernel_calls(full_schedule: bool, bg, act, x_blocks, k: int):
+    """``(run, plain, (bound_ms, bound_by), compact args)`` of B1/B3
+    (``full_schedule``) or B2/B4 over the tiles live under ``act``."""
+    from repro_torch.kernels.spmv import kernel as K
+
+    if full_schedule:
+        return (lambda: K.spmv_blocked(bg, act, x_blocks),
+                lambda: K.blocked_spmv_plain_rows(bg, act, x_blocks),
+                bound_rows(bg, act, k), None)
+    args = compact_args(bg, act)
+    return (lambda: K.spmv_blocked_compact(bg, *args, x_blocks),
+            lambda: K.blocked_spmv_plain_compact_rows(bg, *args, x_blocks),
+            bound_compact_rows(bg, args, k), args)
+
+
+def time_wide(name, graph, bg, frontier, frontier_np, torch) -> dict:
+    """B1 or B2 at ``K_TIME`` lanes on the same view and frontier: the
+    event-loop and CUDA-graph device times, the bound at K lanes, the
+    plain version's time and ``torch.sparse.mm`` with an (n, K) x."""
+    k = K_TIME
+    x_blocks, act = kernel_inputs(bg, frontier, k, torch, seed=k)
+    run, plain, (bound_ms, bound_by), _ = kernel_calls(
+        KERNELS[name][1], bg, act, x_blocks, k)
+    lib = library_call(name, graph, frontier_np, x_blocks, torch)
+    out = dict(k32_ms=cuda_ms(run, reps=20), k32_device_ms=device_ms(run, torch),
+               k32_bound_ms=bound_ms, k32_bound_by=bound_by,
+               k32_plain_ms=cuda_ms(plain, reps=3, warmup=1),
+               k32_library_ms=cuda_ms(lib, reps=20),
+               k32_library_device_ms=device_ms(lib, torch))
+    log(f"time {name} k={k}: " + json.dumps(
+        {key: (round(v, 5) if isinstance(v, float) else v)
+         for key, v in out.items()})
+        + f"; device ms a call by kernel {kernel_parts(run, torch)}")
+    return out
 
 
 def kernel_parts(fn, torch, calls: int = 20) -> dict:
@@ -1537,9 +2096,16 @@ def check_no_spill(lib: Path, kernel: str) -> None:
                                      f" {line.strip()}")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import numpy as np
     import torch
+
+    ap = argparse.ArgumentParser(description="chip smoke test of repro_torch")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the batched phase's reset matrix")
+    args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1599,7 +2165,11 @@ def main() -> int:
     results, wall, counts = phase_main(G, hub, torch)
     phase_check(g, hub, results, torch)
     W, wg, wcc_wall, wcc_counts = phase_wcc(torch)
+    batched_counts, batched_wall, ppr_bits = phase_batched(g, G, torch,
+                                                           args.seed)
+    algs_counts, algs_wall = phase_algs(wg, torch)
     Ha, Hb, host_counts, host_rows, rate = phase_host(torch)
+    bhost_counts, bhost_rows = phase_batched_host(Ha, Hb, torch)
     errs = phase_kernels(G, W, torch)
     times = phase_time(g, G, wg, W, torch)
     blocked = repro_torch.ExecutionPolicy(backend="blocked")
@@ -1618,9 +2188,17 @@ def main() -> int:
             max_iters=PROFILE_ITERS, policy=host_scan)),
         ("host/blocked_compact/wcc", lambda: Hb.run(wcc_program(),
                                                     policy=host_bc)),
+        ("blocked/bfs_q32", lambda: G.bfs(top_degree(g, Q_MAIN).tolist(),
+                                          policy=blocked)),
+        ("blocked/ppr_q16", lambda: G.pagerank(
+            reset=top_degree(g, Q_PPR).tolist(), policy=blocked)),
     ), torch)
 
-    launched = dict(counts)
+    # B1/B2: the main path and this slice's paths (batched, algorithms,
+    # host batched); B3/B4: the WCC path.
+    launched = {k: counts[k] + batched_counts[k] + algs_counts[k]
+                + bhost_counts[k] for k in ("spmv_blocked",
+                                            "spmv_blocked_compact")}
     launched.update({k: wcc_counts[k] for k in ("spmv_blocked_min_plus",
                                                 "spmv_blocked_compact_min_plus")})
     kernels = [
@@ -1630,7 +2208,10 @@ def main() -> int:
          "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
          "bound_ms": times[name]["bound_ms"],
          "bound_by": times[name]["bound_by"],
-         "library_ms": times[name]["library_ms"]}
+         "library_ms": times[name]["library_ms"],
+         **{k: v for k, v in times[name].items()
+            if k in ("k32_ms", "k32_device_ms", "k32_bound_ms",
+                     "k32_library_ms")}}
         for name in KERNELS
     ]
     serve_t = lm_times["a"]
@@ -1654,6 +2235,12 @@ def main() -> int:
     log(f"wcc wall ms: {json.dumps({b: round(v, 3) for b, v in wcc_wall.items()})}")
     log("host runs [device ms, host ms, streamed bytes]: " + json.dumps(
         {n: [round(d, 3), round(h, 3), b] for n, d, h, b in host_rows}))
+    log(f"batched wall ms: {json.dumps(batched_wall)}; ppr columns bit-equal "
+        f"to solo runs: "
+        + json.dumps({f"{b}/{n}": v for (b, n), v in ppr_bits.items()}))
+    log(f"algs wall ms: {json.dumps({k: round(v, 3) for k, v in algs_wall.items()})}")
+    log(f"batched host: {json.dumps(bhost_rows)}")
+    log(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -4,9 +4,11 @@ the JAX package ``repro`` (which stays the reference).
 The public API mirrors ``repro``:
 
   * :class:`repro_torch.Graph` — the session façade (``from_edges`` /
-    ``from_csr``, then ``.pagerank()``, ``.bfs()``, ``.run(program)``);
-    its views live on the CUDA device unless the caller passes
-    ``device="cpu"``.
+    ``from_csr``, then ``.pagerank()``, ``.bfs()``, ``.coreness()``,
+    ``.betweenness()``, ``.diameter()``, ``.triangles()``, ``.louvain()``
+    or ``.run(program)``; many-source BFS, personalized PageRank and
+    ``run(batch=Q)`` on the batched driver); its views live on the CUDA
+    device unless the caller passes ``device="cpu"``.
   * :class:`repro_torch.VertexProgram` + :func:`repro_torch.run_program` —
     the extension point, driven by one :class:`ExecutionPolicy`.
 

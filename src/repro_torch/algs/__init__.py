@@ -1,6 +1,31 @@
-"""The algorithms of the port (slice 1: PageRank push/pull and BFS)."""
+"""The algorithms of the port: every BSP algorithm is a
+:class:`~repro_torch.core.VertexProgram` on the shared driver; triangle
+counting and Louvain run on the host, as in the reference."""
+from .betweenness import BCBackwardProgram, BCForwardProgram, FusedBCProgram
 from .bfs import UNREACHED, BFSProgram
-from .pagerank import PageRankPullProgram, PageRankPushProgram
+from .coreness import CorenessProgram
+from .louvain import LouvainResult, louvain, modularity
+from .pagerank import (
+    PageRankPullProgram,
+    PageRankPushProgram,
+    PersonalizedPageRankProgram,
+)
+from .triangles import TriangleResult, count_triangles, triangles_blocked_mxu
 
-__all__ = ["BFSProgram", "PageRankPullProgram", "PageRankPushProgram",
-           "UNREACHED"]
+__all__ = [
+    "UNREACHED",
+    "BCBackwardProgram",
+    "BCForwardProgram",
+    "BFSProgram",
+    "CorenessProgram",
+    "FusedBCProgram",
+    "LouvainResult",
+    "PageRankPullProgram",
+    "PageRankPushProgram",
+    "PersonalizedPageRankProgram",
+    "TriangleResult",
+    "count_triangles",
+    "louvain",
+    "modularity",
+    "triangles_blocked_mxu",
+]

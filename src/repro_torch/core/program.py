@@ -6,19 +6,23 @@ loop over supersteps, each asking the program for its frontier, executing
 the multicast through :func:`repro_torch.core.engine.traverse`, applying
 the update, accumulating :class:`~repro_torch.core.sem.IOStats` and
 testing convergence.  The convergence test reads one device scalar per
-superstep.
+superstep.  :func:`run_program_batched` runs the same superstep over Q
+query columns, retiring converged columns as it goes.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple, Optional
 
+import numpy as np
 import torch
 
-from .engine import ExecutionPolicy, traverse
+from .engine import ExecutionPolicy, check_residency, traverse
 from .sem import IOStats, SemGraph, i32
 from .semiring import PLUS_TIMES, Semiring
 
-__all__ = ["Frontier", "ProgramResult", "VertexProgram", "run_program"]
+__all__ = ["Frontier", "ProgramResult", "VertexProgram", "run_program",
+           "run_program_batched"]
 
 State = Any
 
@@ -36,12 +40,17 @@ class Frontier(NamedTuple):
 class ProgramResult(NamedTuple):
     """Uniform result of every program (and every ``repro_torch.Graph``
     method): ``values`` (``finalize`` of the final state), ``supersteps``
-    (int32 scalar), ``iostats``, and the final ``state``."""
+    (int32 scalar), ``iostats``, the final ``state``, and
+    ``query_supersteps``: int32[Q], set only by :func:`run_program_batched`
+    (entry q is the superstep at which query column q converged, equal to
+    the supersteps of q's solo run, or the total when the budget ran out
+    first); ``None`` on unbatched runs."""
 
     values: Any
     supersteps: torch.Tensor
     iostats: IOStats
     state: Any = None
+    query_supersteps: Any = None
 
 
 class VertexProgram:
@@ -80,6 +89,20 @@ class VertexProgram:
     def activate(self, sg: SemGraph, state: State, policy: ExecutionPolicy):
         """Optional post-apply activation multicast: ``(state', IOStats|None)``."""
         return state, None
+
+    def converged_cols(self, sg: SemGraph, state: State,
+                       activated) -> torch.Tensor:
+        """bool[Q]: which query columns converged this superstep (used by
+        :func:`run_program_batched`).  Default: the column activated
+        nothing, the column-wise form of ``converged``."""
+        return ~torch.any(activated, dim=0)
+
+    def take_cols(self, state: State, cols, width: int) -> State:
+        """Query columns ``cols`` of an (n, ``width``)-batched state: every
+        tensor leaf whose last dimension is ``width`` is sliced, anything
+        else (scalars, O(n) vectors) passes through.  A program whose state
+        has a non-query axis of size ``width`` must override this."""
+        return _map_leaves(lambda a: _slice_cols(a, cols, width), state)
 
     def prepare_policy(self, sg: SemGraph,
                        policy: ExecutionPolicy) -> ExecutionPolicy:
@@ -133,6 +156,21 @@ def run_program(
                     max_supersteps=max_supersteps)
 
 
+def superstep(sg, prog: VertexProgram, pol: ExecutionPolicy, state, io):
+    """One superstep of every driver: frontier, gather, apply, activate,
+    with the IOStats of both multicasts and one more superstep counted.
+    Returns ``(state', io', activated)``."""
+    fr = prog.frontier(sg, state)
+    gathered, st = prog.gather(sg, state, fr, pol)
+    state, activated = prog.apply(sg, state, gathered)
+    state, st_act = prog.activate(sg, state, pol)
+    io = io + st
+    if st_act is not None:
+        io = io + st_act
+    io = io._replace(supersteps=i32(io.supersteps.to(torch.int64) + 1))
+    return state, io, activated
+
+
 def bsp_loop(sg, prog: VertexProgram, pol: ExecutionPolicy, *, seeds,
              max_supersteps: Optional[int]) -> ProgramResult:
     """The superstep loop of :func:`run_program` under a prepared policy,
@@ -146,15 +184,157 @@ def bsp_loop(sg, prog: VertexProgram, pol: ExecutionPolicy, *, seeds,
             if prog.check_initial_convergence else False)
     it = 0
     while not done and it < budget:
-        fr = prog.frontier(sg, state)
-        gathered, st = prog.gather(sg, state, fr, pol)
-        state, activated = prog.apply(sg, state, gathered)
-        state, st_act = prog.activate(sg, state, pol)
-        io = io + st
-        if st_act is not None:
-            io = io + st_act
-        io = io._replace(supersteps=i32(io.supersteps.to(torch.int64) + 1))
+        state, io, activated = superstep(sg, prog, pol, state, io)
         done = bool(prog.converged(sg, state, activated))
         it += 1
     return ProgramResult(prog.finalize(sg, state),
                          torch.tensor(it, dtype=torch.int32), io, state)
+
+
+# --------------------------------------------------------------------------
+# the batched multi-source driver
+# --------------------------------------------------------------------------
+def _map_leaves(fn, *trees):
+    """``fn`` over the leaves of equally shaped trees (NamedTuples, tuples,
+    lists and dicts are nodes, anything else a leaf), as
+    ``jax.tree_util.tree_map`` walks a state."""
+    t = trees[0]
+    if isinstance(t, tuple) and hasattr(t, "_fields"):
+        return type(t)(*(_map_leaves(fn, *c) for c in zip(*trees)))
+    if isinstance(t, (tuple, list)):
+        return type(t)(_map_leaves(fn, *c) for c in zip(*trees))
+    if isinstance(t, dict):
+        return {k: _map_leaves(fn, *(tr[k] for tr in trees)) for k in t}
+    return fn(*trees)
+
+
+def _is_cols(a, width: int) -> bool:
+    """True for a tensor leaf whose last dimension is the query axis."""
+    return isinstance(a, torch.Tensor) and a.ndim >= 1 \
+        and a.shape[-1] == width
+
+
+def _slice_cols(a, cols, width: int):
+    if _is_cols(a, width):
+        return a[..., torch.as_tensor(cols, dtype=torch.long,
+                                      device=a.device)]
+    return a
+
+
+def _pow2_at_least(k: int) -> int:
+    g = 1
+    while g < max(1, k):
+        g *= 2
+    return g
+
+
+def _reassemble_values(parts, Q: int):
+    """Stitch per-part finalized values (each with a trailing column axis)
+    back into original column order.  ``parts`` is a list of
+    ``(orig_cols, values)``; leaves whose trailing dim is not the part's
+    column count (per-run scalars) take the last part's value."""
+    order = np.concatenate([np.asarray(c, np.int64) for c, _ in parts])
+    perm = torch.as_tensor(np.argsort(order), dtype=torch.long)
+    widths = [len(c) for c, _ in parts]
+
+    def cat(*leaves):
+        if all(_is_cols(a, w) for a, w in zip(leaves, widths)):
+            return torch.cat(leaves, dim=-1)[..., perm.to(leaves[0].device)]
+        return leaves[-1]
+
+    return _map_leaves(cat, *(v for _, v in parts))
+
+
+def run_program_batched(
+    sg: SemGraph,
+    prog: VertexProgram,
+    policy: Optional[ExecutionPolicy] = None,
+    *,
+    seeds=None,
+    max_supersteps: Optional[int] = None,
+    checkpoint=None,
+    resume: bool = False,
+) -> ProgramResult:
+    """The Q-query driver: one superstep loop serving Q query columns, each
+    streamed chunk or tile serving all of them.
+
+    The program's state and frontier carry a trailing query axis
+    (``frontier().active`` is (n, Q)); each superstep is
+    :func:`run_program`'s, plus:
+
+      * per-query convergence: ``prog.converged_cols`` gives a bool[Q]
+        mask per superstep, and ``ProgramResult.query_supersteps[q]`` is
+        the superstep at which column q converged (its solo run's count:
+        a column's frontier evolves as its solo frontier, the union fetch
+        only adds identity contributions from other lanes);
+      * retirement: once the live columns fit a smaller power of two they
+        are compacted into it (``prog.take_cols``), padded with a
+        converged column (inactive, so it adds no fetch); retired columns'
+        values are captured then and stitched back into source order at
+        the end.  So the kernels see at most ``log2(Q) + 1`` lane widths;
+      * ``IOStats.queries`` is stamped Q at exit, so any counter over
+        ``queries`` is the per-query cost the batching amortizes.
+
+    On a host view under a host policy the same superstep streams the
+    union of the live frontiers from host RAM (the traverse routes to
+    :func:`repro_torch.core.residency.host_traverse`); a mismatched view
+    and policy raise :class:`~repro_torch.core.engine.ResidencyError`.
+    ``ProgramResult.state`` is the final full-width state when no column
+    retired, ``None`` otherwise.
+    """
+    if checkpoint is not None or resume:
+        raise NotImplementedError("checkpointed runs: ROADMAP A12")
+    pol = policy if policy is not None else prog.default_policy
+    pol = pol if pol is not None else ExecutionPolicy()
+    check_residency(sg, pol)  # a host view runs under a host policy only
+    step = functools.partial(superstep, sg, prog, prog.prepare_policy(sg, pol))
+    state = prog.init(sg, seeds)
+    active0 = prog.frontier(sg, state).active
+    if active0.ndim != 2:
+        raise ValueError(
+            "run_program_batched needs an (n, Q)-batched program: "
+            f"frontier().active has shape {tuple(active0.shape)}"
+        )
+    Q = int(active0.shape[-1])
+    budget = int(max_supersteps if max_supersteps is not None
+                 else prog.max_supersteps(sg))
+
+    done_at = np.full(Q, -1, np.int64)
+    io = IOStats.zero(sg.device)
+    it = 0
+    done = (bool(prog.converged(sg, state, None))
+            if prog.check_initial_convergence else False)
+    if done:
+        done_at[:] = 0
+    cur = list(range(Q))  # original column at each live position
+    width = Q  # current (pow2-padded) column count of `state`
+    parts = []  # (orig cols, finalized values) captured at retirement
+    while not done and it < budget:
+        state, io, activated = step(state, io)
+        conv = prog.converged_cols(sg, state, activated).cpu().numpy()
+        it += 1
+        for i, q in enumerate(cur):
+            if conv[i] and done_at[q] < 0:
+                done_at[q] = it
+        live = [i for i, q in enumerate(cur) if done_at[q] < 0]
+        done = not live
+        g = _pow2_at_least(len(live))
+        if not done and g < width:
+            dropped = [i for i, q in enumerate(cur) if done_at[q] >= 0]
+            parts.append(([cur[i] for i in dropped], prog.finalize(
+                sg, prog.take_cols(state, dropped, width))))
+            state = prog.take_cols(
+                state, live + [dropped[0]] * (g - len(live)), width)
+            cur = [cur[i] for i in live]
+            width = g
+    done_at[done_at < 0] = it  # budget-exhausted and zero-superstep exits
+
+    io = io._replace(queries=i32(Q).to(sg.device))
+    if parts:
+        parts.append((cur, prog.finalize(
+            sg, prog.take_cols(state, list(range(len(cur))), width))))
+        values, final_state = _reassemble_values(parts, Q), None
+    else:
+        values, final_state = prog.finalize(sg, state), state
+    return ProgramResult(values, torch.tensor(it, dtype=torch.int32), io,
+                         final_state, torch.as_tensor(done_at.astype(np.int32)))

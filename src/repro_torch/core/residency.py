@@ -42,7 +42,10 @@ gather.  Tile batches run kernel B2 (plus_times and 'bool' tiles) or B4
 
 The executors are eager Python: the live work-list is planned from the
 concrete frontier every superstep.  :func:`run_program_host` is the port's
-superstep loop over a host view.
+superstep loop over a host view; the batched driver
+(:func:`~repro_torch.core.program.run_program_batched`) runs its same
+superstep there, whose traverse streams the column-union of the live
+frontiers once through :func:`host_traverse`.
 """
 from __future__ import annotations
 
@@ -67,7 +70,7 @@ from .engine import (
     check_residency,
     beamer_use_pull,
 )
-from .program import ProgramResult, bsp_loop
+from .program import ProgramResult, _pow2_at_least, bsp_loop
 from .sem import (
     EDGE_RECORD_BYTES,
     IOStats,
@@ -146,13 +149,6 @@ def _staged(pol: ExecutionPolicy, fn):
         f"host->device stream failed after {attempts} attempts "
         f"(stream_retries={pol.stream_retries}): {last!r}"
     ) from last
-
-
-def _pow2_at_least(k: int) -> int:
-    g = 1
-    while g < max(1, k):
-        g *= 2
-    return g
 
 
 # --------------------------------------------------------------------------
@@ -970,3 +966,4 @@ def run_program_host(
     check_residency(sg, pol)  # ... under a host policy
     return bsp_loop(sg, prog, prog.prepare_policy(sg, pol), seeds=seeds,
                     max_supersteps=max_supersteps)
+

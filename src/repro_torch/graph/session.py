@@ -13,6 +13,8 @@ through :func:`~repro_torch.core.run_program`::
     pr = g.pagerank()                               # ProgramResult
     bf = g.bfs([0, 3, 5], policy=repro_torch.ExecutionPolicy(backend="blocked"))
     sem = g.pagerank(policy=repro_torch.ExecutionPolicy(residency="host"))
+    ppr = g.pagerank(reset=[0, 3])                  # 2 queries, one pass
+    bc = g.betweenness([0, 3, 5])                   # also .coreness(), ...
 
 Views live on ``device``, which defaults to the CUDA device; without one
 the constructor raises instead of carrying on on the CPU, so a CPU run is
@@ -27,9 +29,25 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..algs.betweenness import FusedBCProgram, _bc_sync, _finish
 from ..algs.bfs import BFSProgram
-from ..algs.pagerank import PageRankPullProgram, PageRankPushProgram
-from ..core import ExecutionPolicy, ProgramResult, SemGraph, run_program
+from ..algs.coreness import CorenessProgram
+from ..algs.diameter import _diameter
+from ..algs.louvain import louvain as _louvain
+from ..algs.pagerank import (
+    PageRankPullProgram,
+    PageRankPushProgram,
+    PersonalizedPageRankProgram,
+)
+from ..algs.triangles import TriangleResult, count_triangles
+from ..core import (
+    ExecutionPolicy,
+    IOStats,
+    ProgramResult,
+    SemGraph,
+    run_program,
+    run_program_batched,
+)
 from ..core.program import VertexProgram
 from ..core.sem import _store_record_bytes, device_graph
 from ..core.semiring import PLUS_TIMES
@@ -56,6 +74,22 @@ def _nbytes(obj, seen: set) -> int:
         return sum(_nbytes(getattr(obj, f.name), seen)
                    for f in dataclasses.fields(obj))
     return 0
+
+
+def _i32(value) -> torch.Tensor:
+    """A host counter as an int32 field, saturating at 2^31 - 1: host
+    ledgers (triangles, Louvain) hold unbounded Python ints, where the
+    device counters wrap by contract."""
+    return torch.tensor(min(int(value), 2**31 - 1), dtype=torch.int32)
+
+
+def _host_result(values, *, supersteps=0, state=None, requests=0, records=0,
+                 bytes_moved=0) -> ProgramResult:
+    """A host-side algorithm's output as the uniform ProgramResult."""
+    io = IOStats.zero()._replace(
+        requests=_i32(requests), records=_i32(records),
+        supersteps=_i32(supersteps), bytes_moved=_i32(bytes_moved))
+    return ProgramResult(values, _i32(supersteps), io, state)
 
 
 def _tile_nbytes(tv, seen: set) -> int:
@@ -260,10 +294,12 @@ class Graph:
             "query_state_bytes": int(self.n) * max(int(batch), 1) * 6,
         }
 
-    def _sem(self, policy: Optional[ExecutionPolicy], prog=None):
+    def _sem(self, policy: Optional[ExecutionPolicy], prog=None, *,
+             need_reverse: bool = False):
         """The view a (program, policy) pair needs, built/cached on demand.
         Views are keyed on residency first: a host policy gets the host
-        view and never builds a device copy."""
+        view and never builds a device copy.  ``need_reverse`` also builds
+        the reverse tile view (betweenness' backward phase)."""
         if policy is not None and policy.residency == "host":
             return self.host_view()
         if policy is None or policy.backend not in _BLOCKED:
@@ -277,43 +313,62 @@ class Graph:
             tile_sr = "min_plus"
         else:
             tile_sr = "plus_times"
-        return self.device(blocked=True,
-                           blocked_reverse=getattr(prog, "reverse", False),
+        need_reverse = need_reverse or getattr(prog, "reverse", False)
+        return self.device(blocked=True, blocked_reverse=need_reverse,
                            blocked_semiring=tile_sr,
                            tile_order=policy.tile_order)
 
+    # ------------------------------------------------------------- runner
     def run(self, program: VertexProgram, *, seeds=None, batch=None,
             policy: Optional[ExecutionPolicy] = None,
             max_supersteps: Optional[int] = None, checkpoint=None,
             resume: bool = False, analyze: bool = False) -> ProgramResult:
         """Run any :class:`~repro_torch.core.VertexProgram` on this graph.
-        ``batch``, ``checkpoint``/``resume`` and ``analyze`` belong to later
-        slices of the port and raise."""
-        if batch is not None:
-            raise NotImplementedError("batched driver (batch=...): ROADMAP A10")
+
+        ``batch=Q`` runs the batched driver
+        (:func:`~repro_torch.core.run_program_batched`): the program carries
+        an (n, Q) frontier, the result gains ``query_supersteps`` and
+        ``iostats.queries == Q``, and converged columns retire mid-run;
+        ``Q`` must match the frontier's query axis (``ValueError``
+        otherwise).  ``checkpoint``/``resume`` and ``analyze`` belong to
+        later slices of the port and raise."""
         if checkpoint is not None or resume:
             raise NotImplementedError("checkpoint/resume: ROADMAP A12")
         if analyze:
             raise NotImplementedError("analyze=True: ROADMAP A13")
         pol = policy if policy is not None else program.default_policy
-        return run_program(self._sem(pol, program), program, policy,
-                           seeds=seeds, max_supersteps=max_supersteps)
+        sem = self._sem(pol, program)
+        if batch is None:
+            return run_program(sem, program, policy, seeds=seeds,
+                               max_supersteps=max_supersteps)
+        res = run_program_batched(sem, program, policy, seeds=seeds,
+                                  max_supersteps=max_supersteps)
+        q = int(res.iostats.queries)
+        if int(batch) != q:
+            raise ValueError(
+                f"batch={batch} does not match the program's query axis "
+                f"(frontier carries Q={q} columns)"
+            )
+        return res
 
+    # ------------------------------------------------------- the library
     def bfs(self, sources=0, *, policy: Optional[ExecutionPolicy] = None,
             max_supersteps: Optional[int] = None, checkpoint=None,
             resume: bool = False) -> ProgramResult:
         """(Multi-source) BFS.  ``values``: int32 distances — ``[n]`` for a
         scalar source, ``[n, K]`` for K sources (``UNREACHED`` where a lane
-        never arrives).  K sources run as K lanes of one
-        :func:`run_program` (the reference's inline driver), one streamed
-        tile serving every lane."""
+        never arrives).  K sources run on the batched driver: one streamed
+        chunk or tile serves every lane, and the result carries
+        ``query_supersteps`` (int32[K], each source's solo superstep
+        count) and ``iostats.queries == K``."""
         if checkpoint is not None or resume:
             raise NotImplementedError("checkpoint/resume: ROADMAP A12")
         scalar = np.ndim(sources) == 0
         seeds = np.atleast_1d(np.asarray(sources, np.int64))
         prog = BFSProgram()
-        res = run_program(self._sem(policy, prog), prog, policy, seeds=seeds,
-                          max_supersteps=max_supersteps)
+        driver = run_program if scalar else run_program_batched
+        res = driver(self._sem(policy, prog), prog, policy, seeds=seeds,
+                     max_supersteps=max_supersteps)
         return res._replace(values=res.values[:, 0] if scalar else res.values)
 
     def pagerank(self, *, mode: str = "push", damping: float = 0.85,
@@ -321,16 +376,151 @@ class Graph:
                  policy: Optional[ExecutionPolicy] = None, checkpoint=None,
                  resume: bool = False) -> ProgramResult:
         """PageRank.  ``values``: f32[n] ranks (sum ≈ 1).  ``mode='push'``
-        is Graphyti's delta-push, ``'pull'`` the Pregel-style baseline."""
+        is Graphyti's delta-push, ``'pull'`` the Pregel-style baseline.
+
+        ``reset`` runs Q personalized queries through one batched pass:
+        integer restart vertices ``[Q]`` (one-hot resets) or a float
+        ``(n, Q)`` matrix of reset distributions.  ``values`` is then
+        f32[n, Q], the result carries ``query_supersteps`` and
+        ``iostats.queries == Q``.  Push only: ``mode='pull'`` raises."""
         if mode not in ("push", "pull"):
             raise ValueError(f"unknown pagerank mode {mode!r}")
-        if reset is not None:
-            raise NotImplementedError(
-                "personalized pagerank (reset=...): ROADMAP A10")
         if checkpoint is not None or resume:
             raise NotImplementedError("checkpoint/resume: ROADMAP A12")
+        if reset is not None:
+            if mode != "push":
+                raise ValueError(
+                    "personalized pagerank (reset=...) is delta-push only; "
+                    "drop mode='pull'"
+                )
+            prog = PersonalizedPageRankProgram(damping=damping, tol=tol)
+            seeds = (reset if isinstance(reset, torch.Tensor)
+                     else torch.as_tensor(np.asarray(reset)))
+            if seeds.ndim == 0:
+                seeds = seeds[None]
+            return run_program_batched(self._sem(policy, prog), prog, policy,
+                                       seeds=seeds, max_supersteps=max_iters)
         prog = (PageRankPushProgram if mode == "push" else PageRankPullProgram)(
             damping=damping, tol=tol
         )
         return run_program(self._sem(policy, prog), prog, policy,
                            max_supersteps=max_iters)
+
+    def coreness(self, *, prune: bool = True, messaging: str = "hybrid",
+                 policy: Optional[ExecutionPolicy] = None,
+                 max_supersteps: Optional[int] = None) -> ProgramResult:
+        """k-core decomposition (undirected graphs).  ``values``: int32[n]
+        core numbers.  ``prune``/``messaging`` keep the reference's
+        optimization ladder."""
+        prog = CorenessProgram(prune=prune, messaging=messaging)
+        return run_program(self._sem(policy, prog), prog, policy,
+                           max_supersteps=max_supersteps)
+
+    def betweenness(self, sources=None, *, mode: str = "multi",
+                    batch: Optional[int] = None,
+                    policy: Optional[ExecutionPolicy] = None,
+                    max_supersteps: Optional[int] = None, checkpoint=None,
+                    resume: bool = False) -> ProgramResult:
+        """Brandes betweenness from K sources.  ``values``: f32[n]
+        (un-normalized; exact when ``sources`` is every vertex).
+
+        ``sources`` is required (BC state is O(n K)).  ``mode``: 'multi'
+        (all sources in one forward and one backward pass), 'uni' (one
+        source at a time; ``batch=Q`` runs groups of Q sources and stamps
+        ``iostats.queries`` K), or 'fused' (per-source phases over the
+        chunk store, ``state.shared`` the chunks both phases shared; it
+        takes no ``policy``)."""
+        if checkpoint is not None or resume:
+            raise NotImplementedError("checkpoint/resume: ROADMAP A12")
+        if mode not in ("multi", "uni", "fused"):
+            raise ValueError(f"unknown betweenness mode {mode!r}")
+        if batch is not None and mode != "uni":
+            raise ValueError(
+                "betweenness(batch=...) amortizes the per-source uni-mode "
+                "sweep; mode='multi' already runs all sources in one pass"
+            )
+        if sources is None:
+            raise ValueError(
+                "betweenness() needs explicit sources; pass "
+                "range(g.n) for exact BC (O(n^2) state) or a sample of "
+                "pivots for an estimate"
+            )
+        sources = torch.as_tensor(np.atleast_1d(np.asarray(sources)),
+                                  dtype=torch.int32)
+        if mode == "fused":
+            # The fused program drives the chunk stores itself (its shared-
+            # fetch accounting has no blocked form): no policy, no tiles.
+            if policy is not None:
+                raise ValueError(
+                    "betweenness(mode='fused') runs the fixed scan-store "
+                    "execution; policy is not supported (use mode='multi')"
+                )
+            res = run_program(self.device(), FusedBCProgram(), seeds=sources,
+                              max_supersteps=max_supersteps)
+            return res._replace(values=_finish(res.values, sources))
+        sem = self._sem(policy, None, need_reverse=True)
+        if mode == "multi":
+            bc, io, steps = _bc_sync(sem, sources, max_supersteps, policy)
+            return ProgramResult(bc, steps, io)
+        bc = torch.zeros(self.n, dtype=torch.float32, device=sem.device)
+        io = IOStats.zero(sem.device)
+        steps = torch.zeros((), dtype=torch.int32)
+        group = 1 if batch is None else max(int(batch), 1)
+        for i in range(0, sources.shape[0], group):
+            b, st, it = _bc_sync(sem, sources[i:i + group], max_supersteps,
+                                 policy)
+            bc, io, steps = bc + b, io + st, steps + it
+        if batch is not None:
+            io = io._replace(queries=_i32(sources.shape[0]).to(sem.device))
+        return ProgramResult(bc, steps, io)
+
+    def diameter(self, *, num_sources: int = 32, sweeps: int = 2,
+                 seed_vertex: Optional[int] = None, mode: str = "multi",
+                 policy: Optional[ExecutionPolicy] = None) -> ProgramResult:
+        """Pseudo-peripheral diameter estimate.  ``values``: int32 scalar,
+        a lower bound on the diameter.  ``mode='uni'`` runs each sweep as
+        single-source BFS runs (no shared fetches)."""
+        if mode not in ("multi", "uni"):
+            raise ValueError(f"unknown diameter mode {mode!r}")
+        sem = self._sem(policy, BFSProgram())
+        est, io, steps = _diameter(sem, policy, num_sources=num_sources,
+                                   sweeps=sweeps, seed_vertex=seed_vertex,
+                                   multi=(mode == "multi"))
+        return ProgramResult(est, steps, io)
+
+    def triangles(self, *, variant: str = "restarted", ordered: bool = True,
+                  hash_threshold: int = 0,
+                  policy: Optional[ExecutionPolicy] = None) -> ProgramResult:
+        """Triangle count (undirected graphs).  ``values``: int count;
+        ``state``: the :class:`~repro_torch.algs.TriangleResult` ledger
+        (comparisons, row requests) of the host variants.  A blocked
+        policy runs the dense tile product on this session's device;
+        anything else the host intersections."""
+        if (policy is not None and policy.residency == "host"
+                and policy.backend in _BLOCKED):
+            raise ValueError(
+                "triangles with a blocked backend builds the dense device "
+                "tile path (O(n^2) device bytes); residency='host' has no "
+                "streamed form for it — drop the blocked backend (the "
+                "host variants are already host-resident) or use "
+                "residency='device'"
+            )
+        r: TriangleResult = count_triangles(
+            self._host, variant=variant, ordered=ordered,
+            hash_threshold=hash_threshold, policy=policy,
+            device=self.torch_device,
+        )
+        return _host_result(r.triangles, state=r, requests=r.row_requests,
+                            records=r.records, bytes_moved=r.records * 8)
+
+    def louvain(self, *, materialize: bool = False, max_levels: int = 10,
+                max_sweeps: int = 10) -> ProgramResult:
+        """Louvain modularity (undirected graphs), on the host.
+        ``values``: int64 community label per vertex (a CPU tensor);
+        ``state``: the :class:`~repro_torch.algs.LouvainResult`
+        (modularity, levels, bytes_written / gather_ops).  The default is
+        the immutable-edge indirection path (no edge bytes rewritten)."""
+        r = _louvain(self._host, materialize=materialize,
+                     max_levels=max_levels, max_sweeps=max_sweeps)
+        return _host_result(torch.from_numpy(r.comm), supersteps=r.levels,
+                            state=r, bytes_moved=r.bytes_written)

@@ -79,7 +79,7 @@ __all__ = [
     "spmv_blocked_compact",
 ]
 
-_MAX_K = 192  # lanes the kernels take
+_MAX_K = 192  # lanes one launch takes; more are split into lane groups
 _PLAIN_CHUNK = 512  # tiles per batched product in the plain versions
 _WINDOW = 32  # live tiles a B2/B4 window (kWin in csrc/spmv.cu)
 
@@ -172,9 +172,8 @@ def _check_cuda(bg, x_blocks: torch.Tensor) -> None:
         raise TypeError("the blocked kernels take float32 weights and x")
     if not x_blocks.is_contiguous():
         raise ValueError("the blocked kernels take a contiguous x")
-    k = x_blocks.shape[-1]
-    if not 1 <= k <= _MAX_K:
-        raise ValueError(f"the blocked kernels take 1..{_MAX_K} lanes, got {k}")
+    if x_blocks.shape[-1] < 1:
+        raise ValueError("the blocked kernels take at least one lane")
     if tuple(x_blocks.shape[:2]) != (bg.n_src_blocks, bg.bs):
         raise ValueError(f"x_blocks shape {tuple(x_blocks.shape)} does not "
                          f"match the tile view")
@@ -216,6 +215,28 @@ def spmv_blocked(bg, act: torch.Tensor, x_blocks: torch.Tensor) -> torch.Tensor:
     if _on_cpu(x_blocks):
         return blocked_spmv_plain(bg, act, x_blocks)
     _check_cuda(bg, x_blocks)
+    act = _i32(act.to(x_blocks.device))
+    return _lane_groups(lambda xg: _launch_rows(bg, act, xg), bg, x_blocks)
+
+
+def _lane_groups(launch, bg, x_blocks: torch.Tensor) -> torch.Tensor:
+    """``launch(x)`` over ``x_blocks`` in groups of at most ``_MAX_K``
+    lanes, one launch a group on the current stream, each group's result
+    copied into its own columns of y.  A lane's arithmetic does not depend
+    on the others, so a lane's bits do not depend on its group."""
+    k = x_blocks.shape[-1]
+    if k <= _MAX_K:
+        return launch(x_blocks)
+    y = torch.empty((bg.n_dst_blocks, bg.bd, k), dtype=torch.float32,
+                    device=x_blocks.device)
+    for lo in range(0, k, _MAX_K):
+        hi = min(lo + _MAX_K, k)
+        y[..., lo:hi] = launch(x_blocks[..., lo:hi].contiguous())
+    return y
+
+
+def _launch_rows(bg, act: torch.Tensor, x_blocks: torch.Tensor
+                 ) -> torch.Tensor:
     name = _kernel_name("spmv_blocked", bg)
     k = x_blocks.shape[-1]
     dev = x_blocks.device
@@ -226,7 +247,6 @@ def spmv_blocked(bg, act: torch.Tensor, x_blocks: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n_rows + n_segs + bg.n_src_blocks) * k,
                       dtype=torch.float32, device=dev)
     base = out.data_ptr()
-    act = _i32(act.to(dev))
     _call(name, x_blocks.data_ptr(), base, base + n_rows * k * 4,
           base + (n_rows + n_segs) * k * 4, bg.row_seg.data_ptr(),
           bg.seg_ptr.data_ptr(), bg.ent_tile.data_ptr(),
@@ -249,15 +269,21 @@ def spmv_blocked_compact(bg, perm, dbid, sbid, first, last, accum, nact: int,
         return blocked_spmv_plain_compact(bg, perm, dbid, sbid, first, last,
                                           accum, nact, x_blocks)
     _check_cuda(bg, x_blocks)
-    name = _kernel_name("spmv_blocked_compact", bg)
-    k = x_blocks.shape[-1]
-    dev = x_blocks.device
     nact = int(nact)
     lst, ldb = perm[:nact], dbid[:nact]
     if bg.tile_order != "dest":  # group the live tiles by block, stably
         ldb, order = torch.sort(ldb, stable=True)
         lst = lst[order]
     lst, ldb = _i32(lst), _i32(ldb)
+    return _lane_groups(lambda xg: _launch_compact(bg, lst, ldb, nact, xg),
+                        bg, x_blocks)
+
+
+def _launch_compact(bg, lst, ldb, nact: int, x_blocks: torch.Tensor
+                    ) -> torch.Tensor:
+    name = _kernel_name("spmv_blocked_compact", bg)
+    k = x_blocks.shape[-1]
+    dev = x_blocks.device
     n_y = bg.n_dst_blocks * bg.bd * k
     n_part = 2 * (-(-nact // _WINDOW)) * bg.bd * k
     n_int = bg.n_src_blocks * k + 2 * bg.n_dst_blocks

@@ -11,7 +11,9 @@ against the plain version of its payload arithmetic (B1/B3 the row
 payload, B2/B4 the tile-major payload), two launches must give the same
 bits, B2/B4's wrapper must not synchronise (and so can be captured in a
 CUDA graph), and on an ``x`` holding +-inf or NaN all four must put NaN
-where the reference's dense product has it; and the
+where the reference's dense product has it; past 192 lanes the wrappers
+launch lane groups, each lane bit-equal to its group run alone; the
+batched driver's BFS equals its solo runs on the card; and the
 card's façade results against the CPU's and host residency against device
 residency (BFS, WCC and their IOStats exact, PageRank ``atol=1e-6,
 rtol=1e-5``).  Kernel B5 (decode attention) is held against its plain
@@ -178,7 +180,7 @@ def test_star_hub_row_splits_on_card(card, semiring):
 
 def test_unsupported_shape_raises(card):
     """The kernels read payloads, so any tile shape runs (bs=256 here); K
-    past ``_MAX_K`` lanes is refused."""
+    past ``_MAX_K`` lanes, once refused, now runs in lane groups."""
     bg = tk.build_blocked(rmat(8, edge_factor=8, seed=1), bd=32, bs=256,
                           device=card)
     x = torch.rand(bg.n, device=card)
@@ -188,8 +190,76 @@ def test_unsupported_shape_raises(card):
             tk.blocked_spmv(tk.build_blocked(
                 rmat(8, edge_factor=8, seed=1), bd=32, bs=256, device="cpu"),
                 x.cpu(), compact=compact)[0].to(card), **F32_TOL)
-    with pytest.raises(ValueError, match="lanes"):
-        tk.blocked_spmv(bg, torch.ones(bg.n, 193, device=card))
+    y, _ = tk.blocked_spmv(bg, torch.ones(bg.n, 193, device=card))
+    torch.testing.assert_close(y, tk.blocked_spmv(
+        bg, torch.ones(bg.n, 1, device=card))[0].expand(-1, 193), **F32_TOL)
+
+
+@pytest.mark.parametrize("semiring", ["plus_times", "min_plus"])
+@pytest.mark.parametrize("k", [192, 193, 256, 400])
+def test_lane_groups_on_card(card, semiring, k):
+    """More lanes than one launch takes (192) run as launches of at most
+    192 lanes, one a group (each counted): within ``atol=rtol=1e-5`` of
+    the plain versions (B3/B4 bit for bit), two calls bit-equal, and each
+    lane bit-equal to the same lane run in a launch of its own group
+    alone (a lane's bits do not depend on its group)."""
+    g = rmat(10, edge_factor=16, seed=1, symmetrize=semiring == "min_plus")
+    bg = tk.build_blocked(g, semiring=semiring, device=card)
+    x_blocks = _x_for(bg, k, seed=k, card=card)
+    mask = np.random.default_rng(k).random(g.n) < 0.3
+    act = tk.tile_activity(bg, torch.as_tensor(mask, device=card))
+    sl = _compact_args(bg, act)
+    groups = -(-k // 192)
+    full = "spmv_blocked" + ("_min_plus" if semiring == "min_plus" else "")
+    comp = "spmv_blocked_compact" + ("_min_plus" if semiring == "min_plus"
+                                     else "")
+    tk.reset_launches()
+    y1 = tk.spmv_blocked(bg, act, x_blocks)
+    y2 = tk.spmv_blocked_compact(bg, *sl, x_blocks)
+    assert tk.launches == dict(NO_LAUNCH, **{full: groups, comp: groups})
+    for y, plain in ((y1, tk.blocked_spmv_plain(bg, act, x_blocks)),
+                     (y2, tk.blocked_spmv_plain_compact(bg, *sl, x_blocks))):
+        if semiring == "min_plus":
+            assert torch.equal(y, plain)
+        else:
+            torch.testing.assert_close(y, plain, **F32_TOL)
+    assert torch.equal(y1, tk.spmv_blocked(bg, act, x_blocks))
+    assert torch.equal(y2, tk.spmv_blocked_compact(bg, *sl, x_blocks))
+    last = slice(192 * (groups - 1), k)
+    xg = x_blocks[..., last].contiguous()
+    assert torch.equal(y1[..., last], tk.spmv_blocked(bg, act, xg))
+    assert torch.equal(y2[..., last], tk.spmv_blocked_compact(bg, *sl, xg))
+
+
+def test_batched_bfs_and_ppr_on_card(card):
+    """The batched driver on the card: BFS at Q=32 equals 32 solo runs
+    (values, query supersteps) on both blocked backends and both
+    residencies, and personalized PageRank's columns lie within
+    ``atol=1e-6, rtol=1e-5`` of width-one runs."""
+    g = rmat(10, edge_factor=16, seed=1)
+    G = repro_torch.Graph(g, device=card, bd=64, bs=64)
+    sources = list(range(0, 64, 2))
+    for backend in ("blocked", "blocked_compact"):
+        for residency in ("device", "host"):
+            pol = repro_torch.ExecutionPolicy(backend=backend,
+                                              residency=residency)
+            tk.reset_launches()
+            res = G.bfs(sources, policy=pol)
+            b1 = (backend, residency) == ("blocked", "device")
+            assert tk.launches["spmv_blocked" if b1
+                               else "spmv_blocked_compact"] > 0
+            assert int(res.iostats.queries) == len(sources)
+            for q in (0, 7, 31):
+                solo = G.bfs(sources[q], policy=pol)
+                assert torch.equal(res.values[:, q], solo.values)
+                assert int(res.query_supersteps[q]) == int(solo.supersteps)
+        ppr = G.pagerank(reset=sources[:8], policy=pol.with_(
+            residency="device"))
+        for q in (0, 5):
+            solo = G.pagerank(reset=sources[q:q + 1], policy=pol.with_(
+                residency="device"))
+            torch.testing.assert_close(ppr.values[:, q], solo.values[:, 0],
+                                       atol=1e-6, rtol=1e-5)
 
 
 ORDERS = ("dest", "morton", "hilbert")

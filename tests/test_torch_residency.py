@@ -372,8 +372,29 @@ def test_later_slices_still_raise(sym_graph):
     with pytest.raises(NotImplementedError, match="A12"):
         tres.run_program_host(host.host_view(), WCCProgram(), pol,
                               checkpoint=object())
-    with pytest.raises(NotImplementedError, match="A10"):
-        host.pagerank(policy=pol, reset=[0, 1])
+
+
+def test_host_pagerank_reset_runs(sym_graph):
+    """Personalized PageRank on host residency (once a later slice) now
+    runs: the port's device run's values, query supersteps and counters
+    (but host_bytes and retries), and within tolerance of the reference's
+    width-one device runs."""
+    from repro.algs.pagerank import PersonalizedPageRankProgram as RPPR
+
+    host = repro_torch.Graph(sym_graph, device="cpu", **KW)
+    pol = repro_torch.ExecutionPolicy(residency="host")
+    got = host.pagerank(policy=pol, reset=[0, 1])
+    dev = host.pagerank(reset=[0, 1])
+    assert torch.equal(got.values, dev.values)
+    assert torch.equal(got.query_supersteps, dev.query_supersteps)
+    _io_equal(got.iostats, dev.iostats, skip=RESIDENCY_FIELDS)
+    assert int(got.iostats.queries) == 2 and int(got.iostats.host_bytes) > 0
+    ref = repro.Graph(sym_graph, **KW)
+    for q in (0, 1):
+        want = repro.run_program(ref.device(), RPPR(),
+                                 seeds=jnp.asarray([q], jnp.int32))
+        np.testing.assert_allclose(got.values[:, q].numpy(),
+                                   np.asarray(want.values[:, 0]), **PR_TOL)
 
 
 def test_host_graph_defaults_to_cuda(sym_graph):

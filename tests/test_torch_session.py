@@ -5,7 +5,9 @@ backend.  Tolerances: BFS levels and every IOStats field exact; PageRank
 ``atol=1e-6, rtol=1e-5`` in f32 (the scatter and tile sums add in another
 order).  K-lane BFS is held against the reference's ``run_program`` with
 ``seeds`` of shape [K] — the reference façade routes a multi-source call
-to its batched driver, which the installed JAX cannot run.
+to its batched driver, which the installed JAX cannot run; the port's
+batched driver stamps ``iostats.queries`` K where that inline run leaves
+it 0.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -24,8 +26,6 @@ PR_TOL = dict(atol=1e-6, rtol=1e-5)
 
 def _io_equal(a, b):
     for name, x, y in zip(a._fields, a, b):
-        if name == "queries":  # a batch-width label, not a counter
-            continue
         assert int(x) == int(y), f"IOStats.{name}: {int(x)} != {int(y)}"
 
 
@@ -81,7 +81,11 @@ def test_bfs_k_lanes(sessions, backend, direction):
     assert got.values.shape == (port.n, len(sources))
     np.testing.assert_array_equal(got.values.numpy(), np.asarray(want.values))
     assert int(got.supersteps) == int(want.supersteps)
-    _io_equal(got.iostats, want.iostats)
+    assert got.query_supersteps.shape == (len(sources),)
+    assert int(got.query_supersteps.max()) == int(got.supersteps)
+    # the batched driver's label: K queries
+    _io_equal(got.iostats, want.iostats._replace(
+        queries=jnp.asarray(len(sources), jnp.int32)))
 
 
 def test_hilbert_tile_order(sessions):
@@ -137,14 +141,39 @@ def test_later_slices_raise(sessions):
     with pytest.raises(NotImplementedError, match="A12"):
         port.pagerank(policy=repro_torch.ExecutionPolicy(residency="host"),
                       checkpoint=object())
-    with pytest.raises(NotImplementedError, match="A10"):
-        port.pagerank(reset=[0, 1])
-    with pytest.raises(NotImplementedError, match="A10"):
-        port.run(repro_torch.algs.BFSProgram(), seeds=[0], batch=1)
     with pytest.raises(NotImplementedError, match="A12"):
         port.bfs(0, checkpoint=object())
     with pytest.raises(NotImplementedError, match="A13"):
         port.run(repro_torch.algs.BFSProgram(), seeds=[0], analyze=True)
+
+
+def test_pagerank_reset_runs(sessions):
+    """Personalized PageRank (once a later slice) now runs: each column
+    within tolerance of the reference's width-one run."""
+    from repro.algs.pagerank import PersonalizedPageRankProgram as RPPR
+
+    ref, port = sessions
+    got = port.pagerank(reset=[0, 1])
+    assert got.values.shape == (port.n, 2) and int(got.iostats.queries) == 2
+    for q in (0, 1):
+        prog = RPPR()
+        want = repro.run_program(ref.device(), prog,
+                                 seeds=jnp.asarray([q], jnp.int32))
+        np.testing.assert_allclose(got.values[:, q].numpy(),
+                                   np.asarray(want.values[:, 0]), **PR_TOL)
+        assert int(got.query_supersteps[q]) == int(want.supersteps)
+
+
+def test_run_batch_runs(sessions):
+    """``run(batch=1)`` (once a later slice) now runs the batched driver:
+    values and counters of the reference's run, labelled one query."""
+    ref, port = sessions
+    got = port.run(repro_torch.algs.BFSProgram(), seeds=[0], batch=1)
+    want = ref.run(RBFSProgram(), seeds=jnp.asarray([0], jnp.int32))
+    np.testing.assert_array_equal(got.values.numpy(), np.asarray(want.values))
+    assert int(got.query_supersteps[0]) == int(want.supersteps)
+    _io_equal(got.iostats, want.iostats._replace(
+        queries=jnp.asarray(1, jnp.int32)))
 
 
 def test_run_custom_program_matches_bfs(sessions):
