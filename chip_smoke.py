@@ -162,14 +162,46 @@ Phases, each of which raises (and so exits non-zero) on failure:
                y); the dense tile bound of the earlier design is
                logged beside it, as is the dense plain version's time.
                B1 and B2 again at K=32 (``k32_*`` keys of the kernels line).
-  16. profile — device time and idle share of blocked PageRank, blocked BFS,
+  16. recovery — kill and resume on the card (``repro_torch.core.recovery``).
+               First the sum scatter's fixed order (ROADMAP §C P17): scan
+               and compact ``pagerank()`` on the main view with the
+               fixed-order add and with the ``index_add_`` it replaced, in
+               turns (the fixed-order runs must be bit-equal; walls
+               logged).  Then, with the counts zeroed just before and read
+               just after (B1-B4 must all have run), each of these runs
+               twice uninterrupted (the two must be bit-equal, else the
+               phase fails naming the run) and once killed and resumed
+               from its newest snapshot (which must equal them: values,
+               supersteps and all ten IOStats fields, ``host_bytes`` and
+               ``retries`` included): on the main view, blocked (B1) and
+               blocked_compact (B2), PageRank push under ``run_supervised``
+               with ``every_k=8`` killed at supersteps 5 and 21, BFS from
+               the hub (``every_k=2``, killed at 3), and the batched BFS of
+               the 8 top-degree sources (killed at 3, resumed); WCC on the
+               wcc view, blocked (B3); host (b)'s WCC on blocked_compact
+               (B4); host (a)'s scan PageRank push (16 supersteps,
+               ``every_k=4``, killed at 6).  Logs per run the replayed
+               supersteps, saves, ``sync_s``, snapshot bytes and the bytes
+               the host replays streamed again, and the walls of blocked
+               PageRank push (main view) and host (a) scan PageRank push at
+               ``every_k`` 1 and 8 and without checkpoints.
+  17. profile — device time and idle share of blocked PageRank, blocked BFS,
                blocked WCC, blocked_compact PageRank and WCC, host scan
                PageRank (10 supersteps), host blocked_compact WCC, and
                blocked batched BFS (Q=32) and personalized PageRank (Q=16).
+  18. chaos   — with the parent's views freed, a ``DurableWorkQueue`` of 12
+               tasks (the batched BFS of 2 sources, over the 8 top-degree
+               vertices of host (b)'s graph, on scan, compact and blocked)
+               served by 3 worker processes spawned on the card, two
+               SIGKILLed mid-lease and two stalled past their lease and
+               restarted by ``supervise_workers``: the merge must be
+               bitwise the single-process run's, every lane equal to numpy
+               BFS, no task lost or committed twice, and more than 0 late
+               commits refused.
 
 Prints the card's ``name, power.limit``, a ``{"kernels": [...]}`` line
-(B1-B5; B1/B2's launches are the main, batched, algorithm and host batched
-paths') and, last, ``{"ok": true, "device": {...}}``.  ``--seed`` seeds
+(B1-B5; B1/B2's launches are the main, batched, algorithm, host batched
+and recovery paths', B3/B4's the WCC and recovery paths') and, last, ``{"ok": true, "device": {...}}``.  ``--seed`` seeds
 the batched phase's reset matrix (default 0).  Exits non-zero without a CUDA
 device, and when the repository's ``src/`` is not beside it.
 """
@@ -1085,9 +1117,8 @@ def phase_batched(g, G, torch, seed: int, damping=0.85, tol=1e-3):
                     raise AssertionError(f"{name} on {backend}: query {q} L1 "
                                          f"error {l1} vs numpy")
             bit_equal[(backend, name)] = same
-    # Without the point-to-point arm (whose index_add_ adds in no fixed
-    # order on the card, and which a batch and a solo run enter in
-    # different supersteps) blocked runs every superstep through B1.
+    # Without the point-to-point arm (which a batch and a solo run enter
+    # in different supersteps) blocked runs every superstep through B1.
     nop2p = repro_torch.ExecutionPolicy(backend="blocked",
                                         switch_fraction=None)
     res = G.pagerank(reset=S[:Q_PPR], policy=nop2p)
@@ -1248,6 +1279,354 @@ def phase_algs(wg, torch):
     del A, T
     torch.cuda.empty_cache()
     return counts, wall
+
+
+# ------------------------------------------------- fault tolerance
+RECOVERY_DIR = ROOT / "build" / "recovery"  # git-ignored, inside the checkout
+PUSH_ITERS_20 = 16  # host (a) PageRank push: ~0.33 s a superstep on host
+Q_RECOVERY = 8  # batched BFS sources of the recovery phase
+CHAOS_SHARD = 2  # sources per chaos task
+CHAOS_COMBOS = ("scan", "compact", "blocked")  # device residency, rmat(14)
+
+
+def same_result(label: str, a, b) -> None:
+    """Bitwise: values, supersteps, every IOStats field (host_bytes and
+    retries included) and, for batched runs, the query supersteps."""
+    import torch
+
+    diff = []
+    if not torch.equal(a.values, b.values):
+        diff.append("values")
+    if int(a.supersteps) != int(b.supersteps):
+        diff.append(f"supersteps {int(a.supersteps)} != {int(b.supersteps)}")
+    diff += [f"{f} {int(x)} != {int(y)}" for f, x, y in
+             zip(a.iostats._fields, a.iostats, b.iostats) if int(x) != int(y)]
+    if (a.query_supersteps is not None
+            and not torch.equal(a.query_supersteps, b.query_supersteps)):
+        diff.append("query_supersteps")
+    if diff:
+        raise AssertionError(f"{label}: not bit-equal ({', '.join(diff)})")
+
+
+def snapshot_bytes(directory: Path) -> int:
+    """Bytes of the newest complete snapshot under ``directory``."""
+    from repro_torch.checkpoint import latest_step
+
+    step = latest_step(directory)
+    return sum(f.stat().st_size for f in
+               (directory / f"step_{step:08d}").iterdir())
+
+
+def recovery_case(label, sem, prog, pol, torch, *, seeds=None,
+                  max_supersteps=None, every_k, kills, batched=False,
+                  host=None):
+    """Two uninterrupted runs (which must be bit-equal: the first gate),
+    then the run killed at each superstep of ``kills`` and resumed from
+    its newest snapshot (which must equal them: the second).  Returns a
+    row for the log: walls, replayed supersteps, saves, ``sync_s``,
+    snapshot bytes and the bytes the replays streamed again."""
+    import shutil
+
+    from repro_torch.core import (
+        CheckpointSpec,
+        DeviceFailure,
+        FailurePlan,
+        run_program,
+        run_program_batched,
+        run_supervised,
+    )
+
+    driver = run_program_batched if batched else run_program
+    kw = dict(seeds=seeds, max_supersteps=max_supersteps)
+    streamed = (lambda: host.streamed_bytes) if host is not None \
+        else (lambda: 0)
+    s0 = streamed()
+    base, base_ms, _ = timed(lambda: driver(sem, prog, pol, **kw), torch)
+    base_streamed = streamed() - s0
+    again = driver(sem, prog, pol, **kw)
+    same_result(f"{label}: two uninterrupted runs", base, again)
+    directory = RECOVERY_DIR / label.replace("/", "_")
+    shutil.rmtree(directory, ignore_errors=True)
+    tele: dict = {}
+    spec = CheckpointSpec(directory, every_k=every_k, telemetry=tele)
+    plan = FailurePlan({k: "crash" for k in kills})
+    s0 = streamed()
+    t0 = time.perf_counter()
+    if batched:
+        # the batched driver has no supervisor: kill, then resume
+        resumed = []
+        res = None
+        for attempt in range(len(kills) + 1):
+            try:
+                res = driver(sem, prog, pol, checkpoint=spec,
+                             resume=attempt > 0, _plan=plan, **kw)
+                break
+            except DeviceFailure:
+                from repro_torch.checkpoint import latest_step
+
+                resumed.append(latest_step(directory))
+        if res is None or len(resumed) != len(kills):
+            raise AssertionError(f"{label}: kills {kills} did not all fire")
+    else:
+        res, rep = run_supervised(sem, prog, pol, checkpoint=spec, plan=plan,
+                                  **kw)
+        resumed = rep.resumed_steps
+    torch.cuda.synchronize()
+    killed_ms = (time.perf_counter() - t0) * 1e3
+    replay_streamed = streamed() - s0 - base_streamed
+    same_result(f"{label}: killed at {kills} and resumed", res, base)
+    if len(resumed) != len(kills):
+        raise AssertionError(f"{label}: {len(resumed)} restarts for kills "
+                             f"{kills}")
+    replayed = sum(k - (r or 0) for k, r in zip(kills, resumed))
+    if host is not None and replayed and replay_streamed <= 0:
+        raise AssertionError(f"{label}: {replayed} replayed supersteps "
+                             "streamed nothing again")
+    row = dict(supersteps=int(base.supersteps), base_ms=base_ms,
+               killed_ms=killed_ms, kills=list(kills), resumed=resumed,
+               replayed_supersteps=replayed, saves=tele["saves"],
+               sync_s=tele["sync_s"],
+               sync_ms_per_save=tele["sync_s"] * 1e3 / max(tele["saves"], 1),
+               snapshot_bytes=snapshot_bytes(directory),
+               replay_streamed_bytes=replay_streamed)
+    log(f"recovery {label}: " + json.dumps(
+        {k: (round(v, 3) if isinstance(v, float) else v)
+         for k, v in row.items()}))
+    return row
+
+
+def cadence_walls(label, sem, prog, pol, torch, **kw) -> dict:
+    """Wall ms of one run at ``every_k`` 1 and 8 and without checkpoints,
+    with the checkpoint layer's synchronous seconds beside each."""
+    import shutil
+
+    from repro_torch.core import CheckpointSpec, run_program
+
+    out = {"off": timed(lambda: run_program(sem, prog, pol, **kw),
+                        torch)[1]}
+    for k in (1, 8):
+        directory = RECOVERY_DIR / f"cadence_{label}_{k}".replace("/", "_")
+        shutil.rmtree(directory, ignore_errors=True)
+        tele: dict = {}
+        spec = CheckpointSpec(directory, every_k=k, telemetry=tele)
+        out[f"every_{k}"] = timed(lambda: run_program(
+            sem, prog, pol, checkpoint=spec, **kw), torch)[1]
+        out[f"every_{k}_sync_ms"] = tele["sync_s"] * 1e3
+        out[f"every_{k}_saves"] = tele["saves"]
+        out[f"every_{k}_snapshot_bytes"] = snapshot_bytes(directory)
+    log(f"recovery cadence {label} (wall ms): " + json.dumps(
+        {k: round(v, 3) for k, v in out.items()}))
+    return out
+
+
+def p17_walls(G, torch) -> dict:
+    """Scan and compact PageRank push on the main view with the sum
+    scatter's fixed-order add and with the unordered ``index_add`` it
+    replaced, in turns (ordered, unordered, unordered, ordered); the
+    ordered runs must be bit-equal."""
+    import repro_torch
+    from repro_torch.core import semiring
+
+    ordered = semiring._ordered_add
+
+    def unordered(y, keys, contrib):
+        return y.index_add(0, keys, contrib)
+
+    out = {}
+    for backend in ("scan", "compact"):
+        pol = repro_torch.ExecutionPolicy(backend=backend)
+        runs = {"ordered": [], "index_add": []}
+        for name in ("ordered", "index_add", "index_add", "ordered"):
+            semiring._ordered_add = ordered if name == "ordered" \
+                else unordered
+            try:
+                runs[name].append(timed(lambda: G.pagerank(policy=pol),
+                                        torch)[:2])
+            finally:
+                semiring._ordered_add = ordered
+        (a, a_ms), (b, b_ms) = runs["ordered"]
+        same_result(f"p17 {backend} pr_push (fixed-order add)", a, b)
+        (c, c_ms), (d, d_ms) = runs["index_add"]
+        out[backend] = dict(
+            ordered_ms=[a_ms, b_ms], index_add_ms=[c_ms, d_ms],
+            index_add_bit_equal=bool(torch.equal(c.values, d.values)),
+            supersteps=int(a.supersteps))
+    log("p17 walls (main view pr_push, ms): " + json.dumps(out))
+    return out
+
+
+def phase_recovery(g, hub, G, W, Ha, Hb, torch):
+    """Kill and resume on the card (see the module docstring).  Returns
+    the phase's launch counts and its rows."""
+    import numpy as np
+
+    import repro_torch
+    from repro_torch.algs import BFSProgram, PageRankPushProgram
+    from repro_torch.kernels.spmv import kernel as K
+
+    rows = {"p17": p17_walls(G, torch)}
+    S = top_degree(g, Q_RECOVERY).tolist()
+    K.reset_launches()
+    for backend in ("blocked", "blocked_compact"):
+        pol = repro_torch.ExecutionPolicy(backend=backend)
+        push, bfs = PageRankPushProgram(), BFSProgram()
+        rows[f"{backend}/pr_push"] = recovery_case(
+            f"main/{backend}/pr_push", G._sem(pol, push), push, pol, torch,
+            max_supersteps=100, every_k=8, kills=(5, 21))
+        rows[f"{backend}/bfs_hub"] = recovery_case(
+            f"main/{backend}/bfs_hub", G._sem(pol, bfs), bfs, pol, torch,
+            seeds=np.asarray([hub]), every_k=2, kills=(3,))
+        rows[f"{backend}/bfs_q{Q_RECOVERY}"] = recovery_case(
+            f"main/{backend}/bfs_q{Q_RECOVERY}", G._sem(pol, bfs), bfs, pol,
+            torch, seeds=np.asarray(S), every_k=2, kills=(3,), batched=True)
+    blocked = repro_torch.ExecutionPolicy(backend="blocked")
+    wcc = wcc_program()
+    rows["wcc/blocked"] = recovery_case(
+        "wcc/blocked", W._sem(blocked, wcc), wcc, blocked, torch, every_k=2,
+        kills=(3,))
+    hpol = repro_torch.ExecutionPolicy(backend="blocked_compact",
+                                       residency="host")
+    rows["host_b/blocked_compact/wcc"] = recovery_case(
+        "host_b/blocked_compact/wcc", Hb.host_view(), wcc, hpol, torch,
+        every_k=2, kills=(3,), host=Hb.host_view())
+    counts = dict(K.launches)
+    hscan = repro_torch.ExecutionPolicy(residency="host")
+    push = PageRankPushProgram()
+    rows["host_a/scan/pr_push"] = recovery_case(
+        "host_a/scan/pr_push", Ha.host_view(), push, hscan, torch,
+        max_supersteps=PUSH_ITERS_20, every_k=4, kills=(6,),
+        host=Ha.host_view())
+    log(f"recovery path kernel launches: {counts}")
+    require_launched("recovery path", counts, KERNELS)
+    pol = repro_torch.ExecutionPolicy(backend="blocked")
+    rows["cadence/blocked/pr_push"] = cadence_walls(
+        "main/blocked/pr_push", G._sem(pol, push), push, pol, torch,
+        max_supersteps=100)
+    rows["cadence/host_a/scan/pr_push"] = cadence_walls(
+        "host_a/scan/pr_push", Ha.host_view(), push, hscan, torch,
+        max_supersteps=PUSH_ITERS_20)
+    return counts, rows
+
+
+_chaos_session = {}
+
+
+def chaos_graph():
+    from repro_torch.graph.generators import rmat
+
+    return rmat(14, edge_factor=16, seed=1, symmetrize=True)
+
+
+def chaos_work(payload):
+    """One chaos task on the card: the batched BFS of ``CHAOS_SHARD``
+    sources on one backend of ``CHAOS_COMBOS`` over host (b)'s graph.
+    The result is a float64 vector, zero outside the backend's slot,
+    holding the (n, CHAOS_SHARD) levels and the task's IOStats, so the
+    queue's additive merge sums both per backend.  Module-level, so that
+    spawned workers import it by reference."""
+    import numpy as np
+
+    import repro_torch
+
+    p = np.asarray(payload, np.int64)
+    G = _chaos_session.get("G")
+    if G is None:
+        G = _chaos_session["G"] = repro_torch.Graph(chaos_graph(),
+                                                    device="cuda")
+    r = G.bfs(p[1:].tolist(), policy=repro_torch.ExecutionPolicy(
+        backend=CHAOS_COMBOS[int(p[0])]))
+    slot = G.n * CHAOS_SHARD + len(r.iostats)
+    out = np.zeros(len(CHAOS_COMBOS) * slot, np.float64)
+    vals = r.values.cpu().numpy().astype(np.float64).reshape(-1)
+    a = int(p[0]) * slot
+    out[a:a + vals.size] = vals
+    out[a + vals.size:a + slot] = [float(v) for v in r.iostats]
+    return out
+
+
+def phase_chaos(torch):
+    """The durable queue served by 3 spawned worker processes on the
+    card, two SIGKILLed mid-lease and two stalled past their lease: the
+    merge must be bitwise the single-process run's, no task lost or
+    committed twice, and more than 0 late commits refused."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.core import DurableWorkQueue, run_workers, shard_sources
+
+    g = chaos_graph()
+    sources = top_degree(g, 4 * CHAOS_SHARD)
+    tasks = [np.concatenate([[ci], grp]).astype(np.int64)
+             for ci in range(len(CHAOS_COMBOS))
+             for grp in shard_sources(sources, CHAOS_SHARD)]
+    tpl = np.zeros(len(CHAOS_COMBOS) * (g.n * CHAOS_SHARD + 10), np.float64)
+    root = RECOVERY_DIR / "chaos"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    clean = DurableWorkQueue(root / "clean", tasks, lease_timeout=30.0,
+                             result_template=tpl)
+    rep0 = run_workers(clean, chaos_work, processes=1, timeout=300.0)
+    clean_s = time.perf_counter() - t0
+    if not (rep0.finished and rep0.completed == len(tasks)
+            and rep0.kills == 0 and rep0.stale_rejections == 0):
+        raise AssertionError(f"chaos: the single-process run failed: "
+                             f"{rep0}")
+    want = clean.merge(lambda a, b: a + b)
+    # The kills hit the first two tasks leased, while most of the queue is
+    # still pending, so the supervisor must restart both workers.  The
+    # stalls hit the last two, which are leased after the kills.  A stall
+    # outlasts its lease plus twice the single-process run's wall, which
+    # bounds the time a worker takes from its spawn to its first lease, so
+    # a restarted worker is live to reap the stalled claim and rerun it
+    # before the late commit comes in, however slowly workers start.
+    lease_s = 3.0
+    stall_s = lease_s + 2.0 * clean_s + 5.0
+    last = len(tasks) - 1
+    faults = {(0, 1): "sigkill", (1, 1): "sigkill", (last - 1, 1): stall_s,
+              (last, 1): stall_s}
+    t0 = time.perf_counter()
+    chaos = DurableWorkQueue(root / "chaos", tasks, lease_timeout=lease_s,
+                             max_attempts=4, result_template=tpl)
+    rep = run_workers(chaos, chaos_work, processes=3, faults=faults,
+                      timeout=300.0)
+    chaos_s = time.perf_counter() - t0
+    done = sorted(p.name for p in (root / "chaos" / "done").iterdir())
+    problems = []
+    if not rep.finished:
+        problems.append("not finished")
+    if rep.kills < 2 or rep.restarts < 2:
+        problems.append(f"kills {rep.kills}, restarts {rep.restarts}")
+    if rep.stale_rejections <= 0:
+        problems.append("no stale commit refused")
+    if rep.dead_letters:
+        problems.append(f"dead letters {rep.dead_letters}")
+    if len(done) != len(tasks) or len({m.split(".")[0] for m in done}) \
+            != len(tasks):
+        problems.append(f"done markers {done}")
+    if not np.array_equal(chaos.merge(lambda a, b: a + b), want):
+        problems.append("merge differs from the single-process run")
+    slot = g.n * CHAOS_SHARD + 10
+    for ci, backend in enumerate(CHAOS_COMBOS):  # every lane a numpy BFS
+        levels = want[ci * slot:ci * slot + g.n * CHAOS_SHARD].reshape(
+            g.n, CHAOS_SHARD)
+        expect = sum(np.stack([numpy_bfs(g, int(s)) for s in grp], 1)
+                     .astype(np.float64)
+                     for grp in shard_sources(sources, CHAOS_SHARD))
+        if not np.array_equal(levels, expect):
+            problems.append(f"{backend} levels differ from numpy BFS")
+    if problems:
+        raise AssertionError(f"chaos gate: {'; '.join(problems)}; log "
+                             f"{rep.log}")
+    row = dict(tasks=len(tasks), clean_s=clean_s, stall_s=stall_s,
+               chaos_s=chaos_s,
+               spawned=rep.spawned, kills=rep.kills, restarts=rep.restarts,
+               stale_rejections=rep.stale_rejections, leases=rep.leases)
+    log(f"chaos: 3 spawned workers on the card, 2 SIGKILLs and 2 stalls; "
+        f"merge bitwise the single-process run's, every lane equal to numpy"
+        f" BFS: " + json.dumps({k: round(v, 3) if isinstance(v, float) else v
+                                for k, v in row.items()}))
+    return row
 
 
 def phase_warmup() -> None:
@@ -2172,6 +2551,7 @@ def main(argv=None) -> int:
     bhost_counts, bhost_rows = phase_batched_host(Ha, Hb, torch)
     errs = phase_kernels(G, W, torch)
     times = phase_time(g, G, wg, W, torch)
+    rec_counts, rec_rows = phase_recovery(g, hub, G, W, Ha, Hb, torch)
     blocked = repro_torch.ExecutionPolicy(backend="blocked")
     compact = repro_torch.ExecutionPolicy(backend="blocked_compact")
     host_scan = repro_torch.ExecutionPolicy(residency="host")
@@ -2194,13 +2574,24 @@ def main(argv=None) -> int:
             reset=top_degree(g, Q_PPR).tolist(), policy=blocked)),
     ), torch)
 
-    # B1/B2: the main path and this slice's paths (batched, algorithms,
-    # host batched); B3/B4: the WCC path.
+    # The chaos gate's workers build their own views: free the parent's.
+    del G, W, bg, Ha, Hb, results
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"chaos: parent holds {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        "on the card before spawning its workers")
+    chaos_row = phase_chaos(torch)
+
+    # B1/B2: the main path and the batched, algorithm, host batched and
+    # recovery paths; B3/B4: the WCC and recovery paths.
     launched = {k: counts[k] + batched_counts[k] + algs_counts[k]
-                + bhost_counts[k] for k in ("spmv_blocked",
-                                            "spmv_blocked_compact")}
-    launched.update({k: wcc_counts[k] for k in ("spmv_blocked_min_plus",
-                                                "spmv_blocked_compact_min_plus")})
+                + bhost_counts[k] + rec_counts[k]
+                for k in ("spmv_blocked", "spmv_blocked_compact")}
+    launched.update({k: wcc_counts[k] + rec_counts[k]
+                     for k in ("spmv_blocked_min_plus",
+                               "spmv_blocked_compact_min_plus")})
     kernels = [
         {"name": name, "route": "cuda",
          "source": "src/repro_torch/csrc/spmv.cu", "replaces": REPLACES[name],
@@ -2240,6 +2631,8 @@ def main(argv=None) -> int:
         + json.dumps({f"{b}/{n}": v for (b, n), v in ppr_bits.items()}))
     log(f"algs wall ms: {json.dumps({k: round(v, 3) for k, v in algs_wall.items()})}")
     log(f"batched host: {json.dumps(bhost_rows)}")
+    log(f"recovery: {json.dumps(rec_rows)}")
+    log(f"chaos: {json.dumps(chaos_row)}")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -145,17 +145,27 @@ def _finish(delta: torch.Tensor, sources) -> torch.Tensor:
     return torch.sum(delta, dim=1)
 
 
-def _bc_sync(sg: SemGraph, sources, max_iters, pol):
+def _bc_sync(sg: SemGraph, sources, max_iters, pol, *, checkpoint=None,
+             resume: bool = False):
     """Forward then backward phase through :func:`run_program`:
-    ``(bc[n], IOStats, supersteps)``."""
+    ``(bc[n], IOStats, supersteps)``.
+
+    With ``checkpoint``, each phase snapshots into its own fingerprinted
+    subtree (``fwd/`` and ``bwd/``): a kill during the backward sweep
+    resumes there, replaying the finished forward phase from its final
+    snapshot."""
     sources = torch.as_tensor(sources, dtype=torch.int32)
     max_iters = max_iters or sg.n + 1
+    ck_f = checkpoint.child("fwd") if checkpoint is not None else None
+    ck_b = checkpoint.child("bwd") if checkpoint is not None else None
     fwd = run_program(sg, BCForwardProgram(), pol, seeds=sources,
-                      max_supersteps=max_iters)
+                      max_supersteps=max_iters, checkpoint=ck_f,
+                      resume=resume)
     dist = fwd.state.dist
     max_level = int(torch.max(torch.where(dist < 0, -1, dist)))
     bwd = run_program(sg, BCBackwardProgram(), pol,
-                      seeds=(fwd.state.sigma, dist, max_level))
+                      seeds=(fwd.state.sigma, dist, max_level),
+                      checkpoint=ck_b, resume=resume)
     return (_finish(bwd.values, sources), fwd.iostats + bwd.iostats,
             fwd.supersteps + max(max_level, 0))
 

@@ -123,6 +123,8 @@ def run_program(
     seeds=None,
     max_supersteps: Optional[int] = None,
     checkpoint=None,
+    resume: bool = False,
+    _plan=None,
 ) -> ProgramResult:
     """The BSP driver: one loop iteration is one superstep::
 
@@ -141,9 +143,17 @@ def run_program(
     fields the algorithm owns.  A ``residency='host'`` policy or a host
     view runs :func:`repro_torch.core.residency.run_program_host`, the same
     loop over streamed supersteps.
+
+    ``checkpoint=CheckpointSpec(...)`` snapshots the run every ``every_k``
+    supersteps (state, frontier, accumulated IOStats, superstep) through
+    :mod:`repro_torch.core.recovery`; ``resume=True`` restores the newest
+    complete snapshot and continues, bitwise-equal to an uninterrupted run
+    on every backend and both residencies.  ``_plan`` is the supervisor's
+    fault-injection channel (:func:`~repro_torch.core.recovery.
+    run_supervised`); user code leaves it None.
     """
-    if checkpoint is not None:
-        raise NotImplementedError("checkpointed runs: ROADMAP A12")
+    from .recovery import checkpoint_ctx
+
     pol = policy if policy is not None else prog.default_policy
     pol = pol if pol is not None else ExecutionPolicy()
     if pol.residency == "host" or getattr(sg, "is_host_view", False):
@@ -151,9 +161,13 @@ def run_program(
         from .residency import run_program_host
 
         return run_program_host(sg, prog, pol, seeds=seeds,
-                                max_supersteps=max_supersteps)
-    return bsp_loop(sg, prog, prog.prepare_policy(sg, pol), seeds=seeds,
-                    max_supersteps=max_supersteps)
+                                max_supersteps=max_supersteps,
+                                checkpoint=checkpoint, resume=resume,
+                                _plan=_plan)
+    pol = prog.prepare_policy(sg, pol)
+    return bsp_loop(sg, prog, pol, seeds=seeds, max_supersteps=max_supersteps,
+                    ctx=checkpoint_ctx(checkpoint, sg, prog, pol, seeds),
+                    resume=resume, plan=_plan)
 
 
 def superstep(sg, prog: VertexProgram, pol: ExecutionPolicy, state, io):
@@ -172,10 +186,17 @@ def superstep(sg, prog: VertexProgram, pol: ExecutionPolicy, state, io):
 
 
 def bsp_loop(sg, prog: VertexProgram, pol: ExecutionPolicy, *, seeds,
-             max_supersteps: Optional[int]) -> ProgramResult:
+             max_supersteps: Optional[int], ctx=None, resume: bool = False,
+             plan=None) -> ProgramResult:
     """The superstep loop of :func:`run_program` under a prepared policy,
     on a device or a host view alike (the traverse inside ``gather`` and
-    ``activate`` routes by residency)."""
+    ``activate`` routes by residency).
+
+    ``ctx`` (a :mod:`~repro_torch.core.recovery` checkpoint channel)
+    snapshots the run when due and, with ``resume``, restores the newest
+    snapshot first; ``plan`` injects failures before supersteps."""
+    from .recovery import maybe_fail
+
     state = prog.init(sg, seeds)
     budget = max_supersteps if max_supersteps is not None \
         else prog.max_supersteps(sg)
@@ -183,12 +204,38 @@ def bsp_loop(sg, prog: VertexProgram, pol: ExecutionPolicy, *, seeds,
     done = (bool(prog.converged(sg, state, None))
             if prog.check_initial_convergence else False)
     it = 0
-    while not done and it < budget:
-        state, io, activated = superstep(sg, prog, pol, state, io)
-        done = bool(prog.converged(sg, state, activated))
-        it += 1
+    if resume and ctx is not None:
+        hit = ctx.try_restore(sg, state)
+        if hit is not None:
+            state, io, it, finished = hit
+            if finished:
+                return ProgramResult(prog.finalize(sg, state),
+                                     torch.tensor(it, dtype=torch.int32), io,
+                                     state)
+            done = False  # an unfinished snapshot is mid-loop by definition
+    try:
+        while not done and it < budget:
+            maybe_fail(plan, it)
+            state, io, activated = superstep(sg, prog, pol, state, io)
+            done = bool(prog.converged(sg, state, activated))
+            it += 1
+            finished = done or it >= budget
+            if ctx is not None and ctx.due(it, finished):
+                ctx.save(it, finished, state, io,
+                         _union(prog.frontier(sg, state).active))
+    except BaseException:
+        if ctx is not None:
+            ctx.wait()  # drain any in-flight async save before unwinding
+        raise
+    if ctx is not None:
+        ctx.close(sg, it, state, io)
     return ProgramResult(prog.finalize(sg, state),
                          torch.tensor(it, dtype=torch.int32), io, state)
+
+
+def _union(active: torch.Tensor) -> torch.Tensor:
+    """The 1-D union of a (possibly (n, Q)-batched) frontier mask."""
+    return torch.any(active, dim=-1) if active.ndim > 1 else active
 
 
 # --------------------------------------------------------------------------
@@ -254,6 +301,7 @@ def run_program_batched(
     max_supersteps: Optional[int] = None,
     checkpoint=None,
     resume: bool = False,
+    _plan=None,
 ) -> ProgramResult:
     """The Q-query driver: one superstep loop serving Q query columns, each
     streamed chunk or tile serving all of them.
@@ -281,13 +329,20 @@ def run_program_batched(
     and policy raise :class:`~repro_torch.core.engine.ResidencyError`.
     ``ProgramResult.state`` is the final full-width state when no column
     retired, ``None`` otherwise.
+
+    ``checkpoint``/``resume``/``_plan`` are :func:`run_program`'s.  With
+    ``checkpoint`` set, retirement is off (snapshots need a fixed (n, Q)
+    schema): the run stays at width Q, converged columns ride along
+    inactive, and each snapshot holds the state, ``done_at`` and the 1-D
+    union of the live frontiers.
     """
-    if checkpoint is not None or resume:
-        raise NotImplementedError("checkpointed runs: ROADMAP A12")
+    from .recovery import checkpoint_ctx, maybe_fail
+
     pol = policy if policy is not None else prog.default_policy
     pol = pol if pol is not None else ExecutionPolicy()
     check_residency(sg, pol)  # a host view runs under a host policy only
-    step = functools.partial(superstep, sg, prog, prog.prepare_policy(sg, pol))
+    pol = prog.prepare_policy(sg, pol)
+    step = functools.partial(superstep, sg, prog, pol)
     state = prog.init(sg, seeds)
     active0 = prog.frontier(sg, state).active
     if active0.ndim != 2:
@@ -298,6 +353,11 @@ def run_program_batched(
     Q = int(active0.shape[-1])
     budget = int(max_supersteps if max_supersteps is not None
                  else prog.max_supersteps(sg))
+    ctx = checkpoint_ctx(checkpoint, sg, prog, pol, seeds)
+
+    def wrap(state, done_at):
+        return {"done_at": torch.as_tensor(done_at.astype(np.int32)),
+                "state": state}
 
     done_at = np.full(Q, -1, np.int64)
     io = IOStats.zero(sg.device)
@@ -306,28 +366,56 @@ def run_program_batched(
             if prog.check_initial_convergence else False)
     if done:
         done_at[:] = 0
+    if resume and ctx is not None:
+        hit = ctx.try_restore(sg, wrap(state, done_at))
+        if hit is not None:
+            wrapped, io, it, finished = hit
+            state = wrapped["state"]
+            done_at = wrapped["done_at"].numpy().astype(np.int64)
+            if finished:
+                return ProgramResult(
+                    prog.finalize(sg, state),
+                    torch.tensor(it, dtype=torch.int32),
+                    io._replace(queries=i32(Q).to(sg.device)), state,
+                    torch.as_tensor(done_at.astype(np.int32)))
+            done = False  # an unfinished snapshot is mid-loop by definition
+    retire = ctx is None  # snapshots need a fixed (n, Q) schema
     cur = list(range(Q))  # original column at each live position
     width = Q  # current (pow2-padded) column count of `state`
     parts = []  # (orig cols, finalized values) captured at retirement
-    while not done and it < budget:
-        state, io, activated = step(state, io)
-        conv = prog.converged_cols(sg, state, activated).cpu().numpy()
-        it += 1
-        for i, q in enumerate(cur):
-            if conv[i] and done_at[q] < 0:
-                done_at[q] = it
-        live = [i for i, q in enumerate(cur) if done_at[q] < 0]
-        done = not live
-        g = _pow2_at_least(len(live))
-        if not done and g < width:
-            dropped = [i for i, q in enumerate(cur) if done_at[q] >= 0]
-            parts.append(([cur[i] for i in dropped], prog.finalize(
-                sg, prog.take_cols(state, dropped, width))))
-            state = prog.take_cols(
-                state, live + [dropped[0]] * (g - len(live)), width)
-            cur = [cur[i] for i in live]
-            width = g
-    done_at[done_at < 0] = it  # budget-exhausted and zero-superstep exits
+    try:
+        while not done and it < budget:
+            maybe_fail(_plan, it)
+            state, io, activated = step(state, io)
+            conv = prog.converged_cols(sg, state, activated).cpu().numpy()
+            it += 1
+            for i, q in enumerate(cur):
+                if conv[i] and done_at[q] < 0:
+                    done_at[q] = it
+            live = [i for i, q in enumerate(cur) if done_at[q] < 0]
+            done = not live
+            g = _pow2_at_least(len(live))
+            if retire and not done and g < width:
+                dropped = [i for i, q in enumerate(cur) if done_at[q] >= 0]
+                parts.append(([cur[i] for i in dropped], prog.finalize(
+                    sg, prog.take_cols(state, dropped, width))))
+                state = prog.take_cols(
+                    state, live + [dropped[0]] * (g - len(live)), width)
+                cur = [cur[i] for i in live]
+                width = g
+            finished = done or it >= budget
+            if finished:
+                done_at[done_at < 0] = it  # budget-exhausted columns
+            if ctx is not None and ctx.due(it, finished):
+                ctx.save(it, finished, wrap(state, done_at), io,
+                         _union(prog.frontier(sg, state).active))
+    except BaseException:
+        if ctx is not None:
+            ctx.wait()  # drain any in-flight async save before unwinding
+        raise
+    done_at[done_at < 0] = it  # zero-superstep exits
+    if ctx is not None:
+        ctx.close(sg, it, wrap(state, done_at), io)
 
     io = io._replace(queries=i32(Q).to(sg.device))
     if parts:

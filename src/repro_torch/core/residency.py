@@ -953,17 +953,26 @@ def run_program_host(
     max_supersteps: Optional[int] = None,
     checkpoint=None,
     resume: bool = False,
+    _plan=None,
 ) -> ProgramResult:
     """:func:`~repro_torch.core.program.run_program` on a host view: the
     same superstep loop, each superstep streaming its live edges.  Values,
     supersteps and IOStats (``host_bytes`` and ``retries`` aside) equal the
-    device residency's."""
-    if checkpoint is not None or resume:
-        raise NotImplementedError("checkpointed runs: ROADMAP A12")
+    device residency's.
+
+    ``checkpoint`` / ``resume`` / ``_plan`` are the device driver's (see
+    :mod:`repro_torch.core.recovery`): a resumed run equals an
+    uninterrupted one, ``host_bytes`` and ``retries`` included, because
+    the accumulated ledger is part of the snapshot.
+    ``HostGraph.streamed_bytes`` is not: it counts the bytes the replayed
+    supersteps really shipped again."""
+    from .recovery import checkpoint_ctx
+
     pol = policy if policy is not None else prog.default_policy
     pol = pol if pol is not None else ExecutionPolicy()
     check_residency(sg, pol.with_(residency="host"))  # a host view ...
     check_residency(sg, pol)  # ... under a host policy
-    return bsp_loop(sg, prog, prog.prepare_policy(sg, pol), seeds=seeds,
-                    max_supersteps=max_supersteps)
-
+    pol = prog.prepare_policy(sg, pol)
+    return bsp_loop(sg, prog, pol, seeds=seeds, max_supersteps=max_supersteps,
+                    ctx=checkpoint_ctx(checkpoint, sg, prog, pol, seeds),
+                    resume=resume, plan=_plan)

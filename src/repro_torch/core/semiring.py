@@ -2,10 +2,16 @@
 ``repro.core.semiring``).
 
 ``y[k] = combine(y[k], edge_op(x[gather], w))`` over edges.  ``add``
-scatters with ``index_add_``; ``min``/``max`` with
-``scatter_reduce_(..., include_self=True)``.  ``max`` on bool is logical
-OR (the BFS reachability semiring); torch has no bool scatter reduction,
-so bool buffers reduce as uint8 and are cast back.
+scatters with ``index_add_`` on the CPU, which adds each key's terms one
+after another in edge order; on the card ``index_add_`` adds with atomics
+in no fixed order, so there a float ``add`` sorts the terms by key
+(stably, keeping edge order) and sums each key's run in that order
+(:func:`_ordered_add`): two runs give the same bits, from a zero ``y``
+the CPU's bits, and a term of ``+0.0`` (an inactive lane of a batched
+run) leaves a sum's bits as they are.  ``min``/``max`` scatter with ``scatter_reduce_(...,
+include_self=True)``, whose result is the same in any order.  ``max`` on
+bool is logical OR (the BFS reachability semiring); torch has no bool
+scatter reduction, so bool buffers reduce as uint8 and are cast back.
 """
 from __future__ import annotations
 
@@ -34,8 +40,13 @@ class Semiring:
 
     def scatter(self, y: torch.Tensor, keys: torch.Tensor,
                 contrib: torch.Tensor) -> torch.Tensor:
-        """Scatter-combine ``contrib`` into a copy of ``y`` at rows ``keys``."""
+        """Scatter-combine ``contrib`` into a copy of ``y`` at rows ``keys``.
+        The last row of ``y`` is the sentinel row ``n``, which takes the
+        masked terms and which every caller drops; on the card the add
+        leaves it as it is (:func:`_ordered_add`)."""
         if self.combine == "add":
+            if y.is_cuda and y.is_floating_point():
+                return _ordered_add(y, keys, contrib.to(y.dtype))
             return y.index_add(0, keys, contrib.to(y.dtype))
         if self.combine not in _REDUCE:
             raise ValueError(f"unknown combine {self.combine!r}")
@@ -67,6 +78,31 @@ class Semiring:
         inactive contribute the ``combine`` identity."""
         ident = torch.tensor(self.identity, dtype=x.dtype, device=x.device)
         return torch.where(active, x, ident)
+
+
+def _ordered_add(y: torch.Tensor, keys: torch.Tensor,
+                 contrib: torch.Tensor) -> torch.Tensor:
+    """``y.index_add(0, keys, contrib)`` with each key's terms summed in
+    edge order, ``y[k] + (((0 + c_1) + c_2) + ...)``: a stable sort by key,
+    then ``segment_reduce`` over every row's run (empty runs give 0).  The
+    contributions go in as (E, lanes), so that a lane's sum runs the same
+    sequential loop whatever the lane count; the run offsets come from
+    ``searchsorted``, so nothing waits on the device.  The last row of
+    ``y`` is the sentinel row that takes the masked terms (up to all E of
+    them) and that every caller drops: its run is not summed, since one
+    sequential loop over it would cost more than all the others.  No
+    terms at all (a compact gather with no live chunk) leave ``y`` as it
+    is, as ``index_add`` does."""
+    if keys.numel() == 0:
+        return y.clone()
+    keys, order = torch.sort(keys.to(torch.int32), stable=True)
+    starts = torch.searchsorted(keys, torch.arange(
+        y.shape[0], dtype=torch.int32, device=keys.device))
+    lengths = torch.diff(starts, append=starts[-1:])  # the sentinel's is 0
+    flat = contrib[order].reshape(keys.shape[0], -1)
+    sums = torch.segment_reduce(flat, "sum", lengths=lengths, axis=0,
+                                unsafe=True)
+    return y + sums.reshape(y.shape)
 
 
 def _times(xv, w):

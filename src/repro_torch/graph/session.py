@@ -330,19 +330,24 @@ class Graph:
         an (n, Q) frontier, the result gains ``query_supersteps`` and
         ``iostats.queries == Q``, and converged columns retire mid-run;
         ``Q`` must match the frontier's query axis (``ValueError``
-        otherwise).  ``checkpoint``/``resume`` and ``analyze`` belong to
-        later slices of the port and raise."""
-        if checkpoint is not None or resume:
-            raise NotImplementedError("checkpoint/resume: ROADMAP A12")
+        otherwise).
+
+        ``checkpoint=CheckpointSpec(dir)`` makes the run fault-tolerant
+        (superstep snapshots; ``resume=True`` continues a killed run,
+        bitwise-equal to an uninterrupted one; see
+        :mod:`repro_torch.core.recovery`).  ``analyze`` belongs to a later
+        slice of the port and raises."""
         if analyze:
             raise NotImplementedError("analyze=True: ROADMAP A13")
         pol = policy if policy is not None else program.default_policy
         sem = self._sem(pol, program)
         if batch is None:
             return run_program(sem, program, policy, seeds=seeds,
-                               max_supersteps=max_supersteps)
+                               max_supersteps=max_supersteps,
+                               checkpoint=checkpoint, resume=resume)
         res = run_program_batched(sem, program, policy, seeds=seeds,
-                                  max_supersteps=max_supersteps)
+                                  max_supersteps=max_supersteps,
+                                  checkpoint=checkpoint, resume=resume)
         q = int(res.iostats.queries)
         if int(batch) != q:
             raise ValueError(
@@ -361,14 +366,13 @@ class Graph:
         chunk or tile serves every lane, and the result carries
         ``query_supersteps`` (int32[K], each source's solo superstep
         count) and ``iostats.queries == K``."""
-        if checkpoint is not None or resume:
-            raise NotImplementedError("checkpoint/resume: ROADMAP A12")
         scalar = np.ndim(sources) == 0
         seeds = np.atleast_1d(np.asarray(sources, np.int64))
         prog = BFSProgram()
         driver = run_program if scalar else run_program_batched
         res = driver(self._sem(policy, prog), prog, policy, seeds=seeds,
-                     max_supersteps=max_supersteps)
+                     max_supersteps=max_supersteps, checkpoint=checkpoint,
+                     resume=resume)
         return res._replace(values=res.values[:, 0] if scalar else res.values)
 
     def pagerank(self, *, mode: str = "push", damping: float = 0.85,
@@ -385,8 +389,6 @@ class Graph:
         ``iostats.queries == Q``.  Push only: ``mode='pull'`` raises."""
         if mode not in ("push", "pull"):
             raise ValueError(f"unknown pagerank mode {mode!r}")
-        if checkpoint is not None or resume:
-            raise NotImplementedError("checkpoint/resume: ROADMAP A12")
         if reset is not None:
             if mode != "push":
                 raise ValueError(
@@ -399,12 +401,14 @@ class Graph:
             if seeds.ndim == 0:
                 seeds = seeds[None]
             return run_program_batched(self._sem(policy, prog), prog, policy,
-                                       seeds=seeds, max_supersteps=max_iters)
+                                       seeds=seeds, max_supersteps=max_iters,
+                                       checkpoint=checkpoint, resume=resume)
         prog = (PageRankPushProgram if mode == "push" else PageRankPullProgram)(
             damping=damping, tol=tol
         )
         return run_program(self._sem(policy, prog), prog, policy,
-                           max_supersteps=max_iters)
+                           max_supersteps=max_iters, checkpoint=checkpoint,
+                           resume=resume)
 
     def coreness(self, *, prune: bool = True, messaging: str = "hybrid",
                  policy: Optional[ExecutionPolicy] = None,
@@ -429,9 +433,9 @@ class Graph:
         source at a time; ``batch=Q`` runs groups of Q sources and stamps
         ``iostats.queries`` K), or 'fused' (per-source phases over the
         chunk store, ``state.shared`` the chunks both phases shared; it
-        takes no ``policy``)."""
-        if checkpoint is not None or resume:
-            raise NotImplementedError("checkpoint/resume: ROADMAP A12")
+        takes no ``policy``).  With ``checkpoint``, each phase snapshots
+        under its own subtree (``fwd/``, ``bwd/``; 'uni' groups under
+        ``src_<i>/``)."""
         if mode not in ("multi", "uni", "fused"):
             raise ValueError(f"unknown betweenness mode {mode!r}")
         if batch is not None and mode != "uni":
@@ -456,19 +460,26 @@ class Graph:
                     "execution; policy is not supported (use mode='multi')"
                 )
             res = run_program(self.device(), FusedBCProgram(), seeds=sources,
-                              max_supersteps=max_supersteps)
+                              max_supersteps=max_supersteps,
+                              checkpoint=checkpoint, resume=resume)
             return res._replace(values=_finish(res.values, sources))
         sem = self._sem(policy, None, need_reverse=True)
         if mode == "multi":
-            bc, io, steps = _bc_sync(sem, sources, max_supersteps, policy)
+            bc, io, steps = _bc_sync(sem, sources, max_supersteps, policy,
+                                     checkpoint=checkpoint, resume=resume)
             return ProgramResult(bc, steps, io)
         bc = torch.zeros(self.n, dtype=torch.float32, device=sem.device)
         io = IOStats.zero(sem.device)
         steps = torch.zeros((), dtype=torch.int32)
         group = 1 if batch is None else max(int(batch), 1)
         for i in range(0, sources.shape[0], group):
+            # per-group checkpoint subtree: a kill mid-sweep resumes at the
+            # interrupted group, finished groups replay their final
+            # snapshots.
+            ck = checkpoint.child(f"src_{i:05d}") \
+                if checkpoint is not None else None
             b, st, it = _bc_sync(sem, sources[i:i + group], max_supersteps,
-                                 policy)
+                                 policy, checkpoint=ck, resume=resume)
             bc, io, steps = bc + b, io + st, steps + it
         if batch is not None:
             io = io._replace(queries=_i32(sources.shape[0]).to(sem.device))

@@ -19,7 +19,10 @@ residency (BFS, WCC and their IOStats exact, PageRank ``atol=1e-6,
 rtol=1e-5``).  Kernel B5 (decode attention) is held against its plain
 version within ``atol=rtol=1e-4``, two launches must give the same bits
 and a CUDA graph must capture it, and the LM serve path on the card must
-launch it on every layer of every step.
+launch it on every layer of every step.  The sum scatter adds in a fixed
+order on the card (two runs bit-equal, batched PPR columns bit-equal to
+their solo runs), an asynchronous checkpoint copies the state before the
+next superstep writes it, and a killed run resumes to the same bits.
 """
 from typing import NamedTuple
 
@@ -620,3 +623,124 @@ def test_decode_step_kernel_matches_plain_route(card):
         lb, b = plain.decode_step(params, b, tok)
         scale = max(float(lb.abs().max()), 1.0)
         assert float((la - lb).abs().max()) < 0.05 * scale
+
+
+# ------------------------------------------------- fixed-order sums (P17)
+def test_scatter_add_fixed_order_on_card(card):
+    """``Semiring.scatter``'s add on the card equals the CPU's
+    ``index_add`` within ``atol=1e-6, rtol=1e-5`` (bit for bit from a zero
+    ``y``: both add each key's terms one after another in edge order) on
+    every row but the sentinel (the last, which callers drop), and gives
+    the same bits on every call, at one and at 16 lanes."""
+    from repro_torch.core.semiring import PLUS_TIMES
+
+    g = torch.Generator().manual_seed(0)
+    for lanes in (None, 16):
+        shape = (200_000,) if lanes is None else (200_000, lanes)
+        keys = torch.randint(0, 5001, (200_000,), generator=g)
+        keys[:5000] = 77  # one hub key with a long run
+        keys[-90_000:] = 5000  # masked terms, into the sentinel row
+        contrib = torch.randn(shape, generator=g)
+        y = torch.zeros((5001,) + shape[1:])
+        want = y.index_add(0, keys, contrib)
+        first = PLUS_TIMES.scatter(y.to(card), keys.to(card),
+                                   contrib.to(card))
+        got = first.cpu()[:-1]
+        torch.testing.assert_close(got, want[:-1], atol=1e-6, rtol=1e-5)
+        assert torch.equal(got, want[:-1])
+        for _ in range(10):
+            again = PLUS_TIMES.scatter(y.to(card), keys.to(card),
+                                       contrib.to(card))
+            assert torch.equal(again, first)
+
+
+def test_scan_and_compact_pagerank_repeat_bitwise_on_card(card):
+    """Two PageRank push runs on scan and on compact give the same bits,
+    and so do two one-hot personalized PageRank batches, whose columns
+    also equal their solo runs bit for bit (the +0.0 terms of inactive
+    lanes leave a fixed-order sum unchanged)."""
+    g = rmat(10, edge_factor=16, seed=1)
+    G = repro_torch.Graph(g, device=card, bd=64, bs=64)
+    sources = [0, 2, 4, 6, 8, 10, 12, 14]
+    for backend in ("scan", "compact"):
+        pol = repro_torch.ExecutionPolicy(backend=backend)
+        a, b = G.pagerank(policy=pol), G.pagerank(policy=pol)
+        assert torch.equal(a.values, b.values)
+        p, q = (G.pagerank(reset=sources, policy=pol) for _ in range(2))
+        assert torch.equal(p.values, q.values)
+        for col in range(len(sources)):
+            solo = G.pagerank(reset=sources[col:col + 1], policy=pol)
+            assert torch.equal(p.values[:, col], solo.values[:, 0])
+
+
+def test_no_live_chunk_on_card(card):
+    """A frontier of sinks that lie outside every chunk's [lo, hi] gives
+    the compact gather no edge terms: the card's add scatter then returns
+    ``y`` as the CPU's ``index_add`` does, and one-hot personalized
+    PageRank from such a sink (an extra vertex with no edges) on compact
+    matches the CPU's run."""
+    from repro_torch.core.semiring import PLUS_TIMES
+
+    y = torch.randn(38, 5, generator=torch.Generator().manual_seed(1))
+    keys = torch.zeros(0, dtype=torch.int64)
+    got = PLUS_TIMES.scatter(y.to(card), keys.to(card),
+                             torch.zeros(0, 5, device=card))
+    assert torch.equal(got.cpu(), y)
+    base = rmat(10, edge_factor=8, seed=3)
+    src = np.repeat(np.arange(base.n), np.diff(base.indptr))
+    g = tcsr.from_edges(src, base.indices, n=base.n + 1)
+    pol = repro_torch.ExecutionPolicy(backend="compact", switch_fraction=None)
+    on = {d: repro_torch.Graph(g, device=d).pagerank(reset=[base.n],
+                                                     policy=pol)
+          for d in (card, "cpu")}
+    torch.testing.assert_close(on[card].values.cpu(), on["cpu"].values,
+                               atol=1e-6, rtol=1e-5)
+    assert int(on[card].supersteps) == int(on["cpu"].supersteps)
+
+
+def test_async_save_snapshots_before_the_next_superstep(card, tmp_path):
+    """A background checkpoint taken just before a superstep mutates the
+    card's state in place restores the pre-mutation bits."""
+    from repro_torch.checkpoint import CheckpointManager, restore_checkpoint
+
+    x = torch.randn(1 << 22, device=card)
+    flags = x > 0
+    want = (x.cpu().clone(), flags.cpu().clone())
+    mgr = CheckpointManager(tmp_path, keep=1, max_shard_bytes=1 << 20)
+    mgr.save(1, {"x": x, "flags": flags}, blocking=False)
+    for _ in range(8):  # the next supersteps write the live tensors
+        x.mul_(-1.5).add_(2.0)
+        flags.logical_not_()
+    mgr.wait()
+    got, _ = restore_checkpoint(tmp_path, {"x": torch.zeros_like(x),
+                                           "flags": torch.zeros_like(flags)})
+    assert got["x"].device.type == "cuda"
+    assert torch.equal(got["x"].cpu(), want[0])
+    assert torch.equal(got["flags"].cpu(), want[1])
+
+
+def test_kill_and_resume_on_card(card, tmp_path):
+    """PageRank push killed twice and BFS killed once on the blocked
+    backends and scan, device residency: bitwise the uninterrupted run."""
+    from repro_torch.core import CheckpointSpec, FailurePlan, run_supervised
+    from repro_torch.algs import BFSProgram, PageRankPushProgram
+
+    g = rmat(10, edge_factor=16, seed=1)
+    G = repro_torch.Graph(g, device=card, bd=64, bs=64)
+    for backend in ("scan", "blocked", "blocked_compact"):
+        pol = repro_torch.ExecutionPolicy(backend=backend)
+        for name, prog, seeds, plan in (
+            ("pr", PageRankPushProgram(), None, {5: "crash", 11: "crash"}),
+            ("bfs", BFSProgram(), torch.tensor([3]), {2: "crash"}),
+        ):
+            sem = G._sem(pol, prog)
+            base = repro_torch.run_program(sem, prog, pol, seeds=seeds)
+            res, rep = run_supervised(
+                sem, prog, pol, seeds=seeds, plan=FailurePlan(dict(plan)),
+                checkpoint=CheckpointSpec(tmp_path / backend / name,
+                                          every_k=4))
+            assert rep.restarts == len(plan)
+            assert torch.equal(res.values, base.values)
+            assert int(res.supersteps) == int(base.supersteps)
+            for x, y in zip(res.iostats, base.iostats):
+                assert int(x) == int(y)

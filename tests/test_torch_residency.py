@@ -364,14 +364,25 @@ def test_traverse_routes_host_view(sym_graph):
     assert int(sth.host_bytes) > 0
 
 
-def test_later_slices_still_raise(sym_graph):
+def test_later_slices_still_raise(sym_graph, tmp_path):
+    """Static analysis (ROADMAP A13) still raises on a host view;
+    checkpointed host runs (A12, which raised here before it was ported)
+    now run and equal the plain host runs, IOStats included."""
     host = repro_torch.Graph(sym_graph, device="cpu", **KW)
     pol = repro_torch.ExecutionPolicy(residency="host")
-    with pytest.raises(NotImplementedError, match="A12"):
-        host.bfs(0, policy=pol, checkpoint=object())
-    with pytest.raises(NotImplementedError, match="A12"):
-        tres.run_program_host(host.host_view(), WCCProgram(), pol,
-                              checkpoint=object())
+    with pytest.raises(NotImplementedError, match="A13"):
+        host.run(WCCProgram(), policy=pol, analyze=True)
+    spec = repro_torch.CheckpointSpec(tmp_path / "bfs", every_k=2)
+    got, want = host.bfs(0, policy=pol, checkpoint=spec), host.bfs(
+        0, policy=pol)
+    assert torch.equal(got.values, want.values)
+    _io_equal(got.iostats, want.iostats, skip=())
+    spec = repro_torch.CheckpointSpec(tmp_path / "wcc", every_k=2)
+    got = tres.run_program_host(host.host_view(), WCCProgram(), pol,
+                                checkpoint=spec)
+    want = tres.run_program_host(host.host_view(), WCCProgram(), pol)
+    assert torch.equal(got.values, want.values)
+    _io_equal(got.iostats, want.iostats, skip=())
 
 
 def test_host_pagerank_reset_runs(sym_graph):

@@ -136,13 +136,16 @@ def test_device_memory_report_equals_the_reference():
     assert bg.payload_nbytes > 0
 
 
-def test_later_slices_raise(sessions):
+def test_later_slices_raise(sessions, tmp_path):
+    """``analyze=True`` (ROADMAP A13) still raises; ``checkpoint=`` (A12,
+    which raised here before it was ported) now runs and changes nothing."""
     _, port = sessions
-    with pytest.raises(NotImplementedError, match="A12"):
-        port.pagerank(policy=repro_torch.ExecutionPolicy(residency="host"),
-                      checkpoint=object())
-    with pytest.raises(NotImplementedError, match="A12"):
-        port.bfs(0, checkpoint=object())
+    host = repro_torch.ExecutionPolicy(residency="host")
+    spec = repro_torch.CheckpointSpec(tmp_path / "pr", every_k=3)
+    got = port.pagerank(policy=host, checkpoint=spec)
+    assert torch.equal(got.values, port.pagerank(policy=host).values)
+    got = port.bfs(0, checkpoint=repro_torch.CheckpointSpec(tmp_path / "b"))
+    assert torch.equal(got.values, port.bfs(0).values)
     with pytest.raises(NotImplementedError, match="A13"):
         port.run(repro_torch.algs.BFSProgram(), seeds=[0], analyze=True)
 
