@@ -185,11 +185,33 @@ Phases, each of which raises (and so exits non-zero) on failure:
                the host replays streamed again, and the walls of blocked
                PageRank push (main view) and host (a) scan PageRank push at
                ``every_k`` 1 and 8 and without checkpoints.
-  17. profile — device time and idle share of blocked PageRank, blocked BFS,
+  17. analysis — the contract checker (``repro_torch.analysis``) on the
+               card, over the views the script already holds, counts zeroed
+               before and read after (B1-B4 must all have run): the
+               zero-findings gate of ``python -m
+               repro_torch.analysis.semlint --analyze`` (BFS, PageRank push
+               and pull, coreness, betweenness forward and backward,
+               personalized PageRank and the README's WCC) on the wcc and
+               main views under scan, compact, blocked and blocked_compact,
+               on host (b) under blocked_compact and host (a) under scan;
+               the recorded superstep of the main view's PageRank push must
+               launch B1 (blocked) and B2 (blocked_compact), the wcc view's
+               WCC B3 and B4.  Each pair's superstep also runs under
+               ``torch.cuda.set_sync_debug_mode('warn')``, and no user frame
+               may synchronize (R2 found none).  The extra tile views each
+               graph needs are freed before the next.  Then the broken
+               fixtures of ``tests/test_analysis.py`` (twins on the WCC
+               program) must each raise exactly their rule (B1's R1 on host
+               (b)), and B2's R2 line must be the one line the sync debug
+               mode reports.  Logs the first and the cached ``analyze()``
+               wall and ``run()`` against ``run(analyze=True)`` (cached and
+               not) for blocked PageRank push on the main view and host
+               (b)'s blocked_compact WCC, whose results must be bit-equal.
+  18. profile — device time and idle share of blocked PageRank, blocked BFS,
                blocked WCC, blocked_compact PageRank and WCC, host scan
                PageRank (10 supersteps), host blocked_compact WCC, and
                blocked batched BFS (Q=32) and personalized PageRank (Q=16).
-  18. chaos   — with the parent's views freed, a ``DurableWorkQueue`` of 12
+  19. chaos   — with the parent's views freed, a ``DurableWorkQueue`` of 12
                tasks (the batched BFS of 2 sources, over the 8 top-degree
                vertices of host (b)'s graph, on scan, compact and blocked)
                served by 3 worker processes spawned on the card, two
@@ -200,8 +222,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
                commits refused.
 
 Prints the card's ``name, power.limit``, a ``{"kernels": [...]}`` line
-(B1-B5; B1/B2's launches are the main, batched, algorithm, host batched
-and recovery paths', B3/B4's the WCC and recovery paths') and, last, ``{"ok": true, "device": {...}}``.  ``--seed`` seeds
+(B1-B5; B1/B2's launches are the main, batched, algorithm, host batched,
+recovery and analysis paths', B3/B4's the WCC, recovery and analysis
+paths') and, last, ``{"ok": true, "device": {...}}``.  ``--seed`` seeds
 the batched phase's reset matrix (default 0).  Exits non-zero without a CUDA
 device, and when the repository's ``src/`` is not beside it.
 """
@@ -1508,6 +1531,244 @@ def phase_recovery(g, hub, G, W, Ha, Hb, torch):
     return counts, rows
 
 
+# ------------------------------------------------- the contract checker
+def analysis_fixtures():
+    """Twins of ``tests/test_analysis.py``'s broken programs on the WCC
+    program, each with the one rule it must raise."""
+    import torch
+
+    from repro_torch.core.semiring import Semiring
+
+    WCC = type(wcc_program())
+
+    class B1MaterializesEdges(WCC):
+        def apply(self, sg, s, gathered):
+            leak = torch.zeros(sg.m, device=sg.device)  # O(m) on the card
+            labels = torch.minimum(s.labels, gathered) + leak.sum() * 0.0
+            changed = labels < s.labels
+            return type(s)(labels, changed), changed
+
+    class B2HostSync(WCC):
+        def apply(self, sg, s, gathered):
+            total = float(torch.sum(gathered))  # a host read a superstep
+            labels = torch.minimum(s.labels, gathered + total * 0.0)
+            changed = labels < s.labels
+            return type(s)(labels, changed), changed
+
+    class B3DtypeDrift(WCC):
+        def init(self, sg, seeds):
+            return super().init(sg, seeds)._replace(labels=torch.full(
+                (sg.n,), 1.0e9, dtype=torch.float64, device=sg.device))
+
+        def apply(self, sg, s, gathered):
+            labels = torch.minimum(s.labels, gathered).to(torch.float32)
+            changed = labels < s.labels
+            return type(s)(labels, changed), changed
+
+    class B4LedgerLeak(WCC):
+        def gather(self, sg, s, fr, policy):
+            gathered, st = super().gather(sg, s, fr, policy)
+            return gathered, st._replace(records=st.records + st.x_fetches)
+
+    class B5UnlawfulSemiring(WCC):
+        semiring = Semiring("bad_plus", combine="add", identity=1.0,
+                            edge_op=lambda xv, w: xv if w is None else xv * w)
+
+    class B6ConstantConverged(WCC):
+        def converged(self, sg, s, activated):
+            return torch.zeros((), dtype=torch.bool, device=sg.device)
+
+    unhashable = WCC()
+    unhashable.scratch = [1, 2, 3]  # a list defeats the caches
+    return {"B1": (B1MaterializesEdges(), "R1"), "B2": (B2HostSync(), "R2"),
+            "B3": (B3DtypeDrift(), "R3"), "B4": (B4LedgerLeak(), "R4"),
+            "B5": (B5UnlawfulSemiring(), "R5"),
+            "B6": (B6ConstantConverged(), "R6"), "unhashable": (unhashable,
+                                                                "R3")}
+
+
+def sync_frames(S, prog, pol, seeds, torch) -> set:
+    """The user frames that synchronize with the card in one superstep
+    (frontier, gather, apply, activate, then converged), found by
+    ``torch.cuda.set_sync_debug_mode('warn')``: each sync warning is
+    attributed to its innermost frame outside torch, numpy and the
+    standard library, and the engine's own frames (``repro_torch/core``,
+    ``repro_torch/kernels``) are dropped, so only the user hooks count."""
+    import warnings
+
+    from repro_torch.analysis.inspect import frame_is_engine, user_location
+    from repro_torch.core.program import superstep
+    from repro_torch.core.sem import IOStats
+
+    sem = S._sem(pol, prog)
+    pol = prog.prepare_policy(sem, pol)
+    state, io = prog.init(sem, seeds), IOStats.zero(sem.device)
+    torch.cuda.synchronize()
+    frames = set()
+
+    def seen(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            loc = user_location(sys._getframe(1))
+            if loc is not None and not frame_is_engine(loc[0]) \
+                    and loc[2] != "sync_frames":  # the window's own frame
+                frames.add(f"{loc[0]}:{loc[1]}")
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = seen
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            state, io, act = superstep(sem, prog, pol, state, io)
+            prog.converged(sem, state, act)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return frames
+
+
+def drop_tile_views(S, torch, keep=None) -> None:
+    """Free session ``S``'s tile views but its forward ``keep`` encoding,
+    and the analysis cache that pins views: one graph's forward, reverse
+    and min_plus views fill ~50 GB of the card."""
+    import gc
+
+    from repro_torch.analysis import rules
+
+    rules._ANALYSIS_CACHE.clear()
+    for cache in (S._tiles, S._views):
+        for key in [k for k in cache if k[:2] != (keep, False)]:
+            del cache[key]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_analysis(G, W, Ha, Hb, torch):
+    """The contract checker on the card (see the module docstring).
+    Returns the phase's launch counts and its rows."""
+    import repro_torch
+    from repro_torch import analysis
+    from repro_torch.algs import PageRankPushProgram
+    from repro_torch.analysis import rules
+    from repro_torch.analysis.semlint import gate_programs
+    from repro_torch.kernels.spmv import kernel as K
+
+    P = repro_torch.ExecutionPolicy
+    # one graph's tile views on the card at a time: G's are rebuilt for its
+    # gate, which keeps its plus_times view for the profile phase; W's
+    # min_plus view is rebuilt by the fixtures below
+    views = [
+        ("wcc", W, [(b, P(backend=b)) for b in BACKENDS], None),
+        ("main", G, [(b, P(backend=b)) for b in BACKENDS], "plus_times"),
+        ("host_b", Hb, [("blocked_compact", P(backend="blocked_compact",
+                                              residency="host"))], None),
+        ("host_a", Ha, [("scan", P(residency="host"))], None),
+    ]
+    drop_tile_views(G, torch)
+    # the kernel that each view's recorded superstep of a program must
+    # launch, by policy
+    expect = {("main", "blocked"): ("pr_push", "spmv_blocked"),
+              ("main", "blocked_compact"): ("pr_push", "spmv_blocked_compact"),
+              ("wcc", "blocked"): ("wcc", "spmv_blocked_min_plus"),
+              ("wcc", "blocked_compact"): ("wcc",
+                                           "spmv_blocked_compact_min_plus")}
+    rows, gate, inside = {}, 0, {}
+    t_phase = time.perf_counter()
+    log(f"analysis: {torch.cuda.memory_allocated() / 1e9:.2f} GB on the "
+        "card at the start")
+    rows["peak_gb/before"] = round(torch.cuda.max_memory_allocated() / 1e9, 3)
+    torch.cuda.reset_peak_memory_stats()  # the groups' peaks, logged
+    K.reset_launches()
+    for vname, S, pols, keep in views:
+        t0 = time.perf_counter()
+        progs = gate_programs(S)
+        for pname, pol in pols:
+            for name, prog, seeds in progs:
+                rep, _, ran = timed(lambda: analysis.check(
+                    S, prog, pol, seeds=seeds), torch)
+                if not rep.ok:
+                    raise AssertionError(f"analysis gate {vname}/{pname}/"
+                                         f"{name}:\n{rep.render()}")
+                frames = sync_frames(S, prog, pol, seeds, torch)
+                if frames:
+                    raise AssertionError(
+                        f"{vname}/{pname}/{name}: the card's sync debug "
+                        f"mode saw user frames sync ({sorted(frames)}) "
+                        "where the analyzer found no R2")
+                inside[f"{vname}/{pname}/{name}"] = {
+                    k: v for k, v in ran.items() if v}
+                gate += 1
+            if (vname, pname) in expect:
+                prog_name, kernel = expect[vname, pname]
+                ran = inside[f"{vname}/{pname}/{prog_name}"]
+                if not ran.get(kernel):
+                    raise AssertionError(
+                        f"{vname}/{pname}/{prog_name}: {kernel} did not "
+                        f"launch inside the recorded superstep ({ran})")
+        rows[f"gate_s/{vname}"] = round(time.perf_counter() - t0, 3)
+        rows[f"peak_gb/{vname}"] = round(
+            torch.cuda.max_memory_allocated() / 1e9, 3)
+        if vname in ("wcc", "main"):
+            drop_tile_views(S, torch, keep)
+    log(f"analysis gate: {gate} program x view x policy pairs clean on the "
+        f"card, each superstep's user frames free of syncs under "
+        f"set_sync_debug_mode; launches inside the recorded supersteps "
+        + json.dumps({k: v for k, v in inside.items() if v}))
+
+    # each broken fixture flagged with exactly its rule; R2 against the
+    # card's own sync detector
+    blocked = P(backend="blocked")
+    host_bc = P(backend="blocked_compact", residency="host")
+    for name, (prog, rule) in analysis_fixtures().items():
+        # R1 needs host residency; B5's semiring has no tiles
+        S, pol = {"B1": (Hb, host_bc), "B5": (W, P())}.get(name, (W, blocked))
+        rep = analysis.check(S, prog, pol)
+        got = [f.rule for f in rep.findings]
+        if got != [rule]:
+            raise AssertionError(f"fixture {name}: {got} != [{rule!r}]\n"
+                                 + rep.render())
+        if name == "B1":
+            continue  # its superstep would allocate the O(m) tensor
+        r2 = {f.location for f in rep.findings if f.rule == "R2"}
+        frames = sync_frames(S, prog, pol, None, torch)
+        if frames != r2:
+            raise AssertionError(f"fixture {name}: sync debug mode saw "
+                                 f"{sorted(frames)}, R2 {sorted(r2)}")
+        rows[f"fixture/{name}"] = rule
+    log("analysis fixtures: each flagged with exactly its rule on the card "
+        "(B1 on host (b), B5 on the wcc view's scan, the rest on its "
+        "blocked tiles); B2's R2 line is the one the card's sync debug "
+        "mode reports, and the others sync in no user frame")
+
+    # walls: the first analysis, the cached one, run() against
+    # run(analyze=True)
+    cases = (("main/blocked/pr_push", G, PageRankPushProgram, blocked),
+             ("host_b/blocked_compact/wcc", Hb, lambda: wcc_program(),
+              host_bc))
+    for label, S, make, pol in cases:
+        rules._ANALYSIS_CACHE.clear()
+        first = timed(lambda: analysis.check(S, make(), pol), torch)[1]
+        cached = timed(lambda: analysis.check(S, make(), pol), torch)[1]
+        plain, plain_ms, _ = timed(lambda: S.run(make(), policy=pol), torch)
+        checked, checked_ms, _ = timed(
+            lambda: S.run(make(), policy=pol, analyze=True), torch)
+        rules._ANALYSIS_CACHE.clear()
+        fresh, fresh_ms, _ = timed(
+            lambda: S.run(make(), policy=pol, analyze=True), torch)
+        same_result(f"{label} analyze=True", plain, checked)
+        same_result(f"{label} analyze=True (uncached)", plain, fresh)
+        rows[label] = {"analyze_ms": round(first, 3),
+                       "cached_ms": round(cached, 6),
+                       "run_ms": round(plain_ms, 3),
+                       "run_analyze_cached_ms": round(checked_ms, 3),
+                       "run_analyze_first_ms": round(fresh_ms, 3)}
+    counts = dict(K.launches)
+    rules._ANALYSIS_CACHE.clear()
+    rows["phase_s"] = round(time.perf_counter() - t_phase, 3)
+    log(f"analysis path kernel launches: {counts}")
+    require_launched("analysis path", counts, KERNELS)
+    log(f"analysis: {json.dumps(rows)}")
+    return counts, rows
+
+
 _chaos_session = {}
 
 
@@ -2538,6 +2799,7 @@ def main(argv=None) -> int:
         f"device_views={report['device_views']} device_edge_total="
         f"{report['device_edge_total']}; payload_nbytes={bg.payload_nbytes} "
         f"beside it (ROADMAP §C P14)")
+    del bg  # G's cache alone holds its tiles (the analysis phase frees them)
 
     hub = int(np.argmax(np.diff(g.indptr)))
     phase_warmup()
@@ -2552,6 +2814,7 @@ def main(argv=None) -> int:
     errs = phase_kernels(G, W, torch)
     times = phase_time(g, G, wg, W, torch)
     rec_counts, rec_rows = phase_recovery(g, hub, G, W, Ha, Hb, torch)
+    an_counts, an_rows = phase_analysis(G, W, Ha, Hb, torch)
     blocked = repro_torch.ExecutionPolicy(backend="blocked")
     compact = repro_torch.ExecutionPolicy(backend="blocked_compact")
     host_scan = repro_torch.ExecutionPolicy(residency="host")
@@ -2575,7 +2838,7 @@ def main(argv=None) -> int:
     ), torch)
 
     # The chaos gate's workers build their own views: free the parent's.
-    del G, W, bg, Ha, Hb, results
+    del G, W, Ha, Hb, results
     import gc
 
     gc.collect()
@@ -2584,12 +2847,13 @@ def main(argv=None) -> int:
         "on the card before spawning its workers")
     chaos_row = phase_chaos(torch)
 
-    # B1/B2: the main path and the batched, algorithm, host batched and
-    # recovery paths; B3/B4: the WCC and recovery paths.
+    # B1/B2: the main path and the batched, algorithm, host batched,
+    # recovery and analysis paths; B3/B4: the WCC, recovery and analysis
+    # paths.
     launched = {k: counts[k] + batched_counts[k] + algs_counts[k]
-                + bhost_counts[k] + rec_counts[k]
+                + bhost_counts[k] + rec_counts[k] + an_counts[k]
                 for k in ("spmv_blocked", "spmv_blocked_compact")}
-    launched.update({k: wcc_counts[k] + rec_counts[k]
+    launched.update({k: wcc_counts[k] + rec_counts[k] + an_counts[k]
                      for k in ("spmv_blocked_min_plus",
                                "spmv_blocked_compact_min_plus")})
     kernels = [
@@ -2632,8 +2896,11 @@ def main(argv=None) -> int:
     log(f"algs wall ms: {json.dumps({k: round(v, 3) for k, v in algs_wall.items()})}")
     log(f"batched host: {json.dumps(bhost_rows)}")
     log(f"recovery: {json.dumps(rec_rows)}")
+    log(f"analysis: {json.dumps(an_rows)}")
     log(f"chaos: {json.dumps(chaos_row)}")
-    log(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    peak = max(an_rows["peak_gb/before"],
+               torch.cuda.max_memory_allocated() / 1e9)
+    log(f"peak device memory {peak:.2f} GB")
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

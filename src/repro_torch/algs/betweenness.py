@@ -14,26 +14,31 @@ Three variants, as in the reference:
 
 Under a blocked backend the K source lanes are the kernels' K lanes (one
 tile fetch serves every source); the backward phase runs the reverse tile
-view.
+view.  ``bc_multisource``/``bc_unisource``/``bc_fused`` are deprecated
+shims; new code goes through ``repro_torch.Graph.betweenness()``.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from ..core import (
     ExecutionPolicy,
     Frontier,
+    IOStats,
     SemGraph,
     VertexProgram,
+    legacy_policy,
     run_program,
     sem_spmv,
+    warn_legacy,
 )
 from ..core.sem import _store_record_bytes, chunk_activity, i32
 from ..core.semiring import PLUS_TIMES
 
-__all__ = ["BCBackwardProgram", "BCForwardProgram", "FusedBCProgram"]
+__all__ = ["BCBackwardProgram", "BCForwardProgram", "FusedBCProgram",
+           "bc_fused", "bc_multisource", "bc_unisource"]
 
 # Historical BC behaviour: pure multicast (no p2p arm), static push.
 _BC_DEFAULT = ExecutionPolicy(switch_fraction=None)
@@ -90,7 +95,7 @@ class _BwdState(NamedTuple):
     delta: torch.Tensor  # f32[n, K] dependency scores
     sigma: torch.Tensor  # f32[n, K] (constant through the loop)
     dist: torch.Tensor  # int32[n, K] (constant through the loop)
-    level: int  # current receiving level
+    level: torch.Tensor  # int32 0-d current receiving level
 
 
 def _dependency_x(delta, sigma, send_mask):
@@ -114,8 +119,8 @@ class BCBackwardProgram(VertexProgram):
 
     def init(self, sg: SemGraph, seeds) -> _BwdState:
         sigma, dist, max_level = seeds
-        return _BwdState(torch.zeros_like(sigma), sigma, dist,
-                         int(max_level) - 1)
+        level = torch.as_tensor(max_level).to(sigma.device, torch.int32) - 1
+        return _BwdState(torch.zeros_like(sigma), sigma, dist, level)
 
     def frontier(self, sg: SemGraph, s: _BwdState) -> Frontier:
         x = _dependency_x(s.delta, s.sigma, s.dist == s.level + 1)
@@ -266,3 +271,51 @@ class FusedBCProgram(VertexProgram):
 
     def finalize(self, sg: SemGraph, s: _FusedState) -> torch.Tensor:
         return s.delta
+
+
+def bc_multisource(
+    sg: SemGraph, sources, *, max_iters: Optional[int] = None,
+    backend: Optional[str] = None, chunk_cap: Optional[int] = None,
+    policy: Optional[ExecutionPolicy] = None,
+):
+    """Deprecated shim over the forward/backward programs — use
+    ``repro_torch.Graph.betweenness()``.  Returns (bc[n], IOStats,
+    supersteps)."""
+    pol = legacy_policy("bc_multisource",
+                        "repro.Graph.betweenness(policy=...)",
+                        policy, _BC_DEFAULT,
+                        backend=backend, chunk_cap=chunk_cap)
+    return _bc_sync(sg, sources, max_iters, pol)
+
+
+def bc_unisource(
+    sg: SemGraph, sources, *, max_iters: Optional[int] = None,
+    backend: Optional[str] = None, chunk_cap: Optional[int] = None,
+    policy: Optional[ExecutionPolicy] = None,
+):
+    """Deprecated shim: K separate single-source runs (the uni-source
+    baseline).  Returns (bc[n], IOStats, supersteps)."""
+    pol = legacy_policy("bc_unisource",
+                        "repro.Graph.betweenness(mode='uni', policy=...)",
+                        policy, _BC_DEFAULT,
+                        backend=backend, chunk_cap=chunk_cap)
+    sources = torch.as_tensor(sources, dtype=torch.int32)
+    bc = torch.zeros(sg.n, dtype=torch.float32, device=sg.device)
+    io = IOStats.zero(sg.device)
+    steps = torch.zeros((), dtype=torch.int32)
+    for i in range(int(sources.shape[0])):
+        b, st, it = _bc_sync(sg, sources[i:i + 1], max_iters, pol)
+        bc, io, steps = bc + b, io + st, steps + it
+    return bc, io, steps
+
+
+def bc_fused(sg: SemGraph, sources, *, max_iters: Optional[int] = None):
+    """Deprecated shim over :class:`FusedBCProgram` — use
+    ``repro_torch.Graph.betweenness(mode='fused')``.  Returns (bc[n],
+    IOStats, supersteps, shared_chunks)."""
+    warn_legacy("bc_fused", "repro.Graph.betweenness(mode='fused')")
+    sources = torch.as_tensor(sources, dtype=torch.int32)
+    res = run_program(sg, FusedBCProgram(), seeds=sources,
+                      max_supersteps=max_iters)
+    return (_finish(res.values, sources), res.iostats, res.supersteps,
+            res.state.shared)

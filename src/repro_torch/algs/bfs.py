@@ -5,18 +5,27 @@ K searches advance in one superstep: every vertex carries a K-lane
 reachability vector and every streamed chunk or tile serves all K lanes.
 The frontier carries an ``unexplored`` candidate set, so a
 ``direction='auto'`` policy gets Beamer push/pull switching.
+``bfs_multi``/``bfs_uni`` are deprecated shims; new code goes through
+``repro_torch.Graph.bfs()``.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from ..core import ExecutionPolicy, Frontier, SemGraph, VertexProgram
+from ..core import (
+    ExecutionPolicy,
+    Frontier,
+    SemGraph,
+    VertexProgram,
+    legacy_policy,
+    run_program,
+)
 from ..core.semiring import OR_AND
 
-__all__ = ["BFSProgram", "UNREACHED"]
+__all__ = ["BFSProgram", "UNREACHED", "bfs_multi", "bfs_uni"]
 
 UNREACHED = np.int32(np.iinfo(np.int32).max)
 
@@ -63,3 +72,37 @@ class BFSProgram(VertexProgram):
 
     def finalize(self, sg: SemGraph, s: BFSState) -> torch.Tensor:
         return s.dist
+
+
+def bfs_multi(
+    sg: SemGraph,
+    sources,
+    *,
+    max_iters: Optional[int] = None,
+    backend: Optional[str] = None,
+    chunk_cap: Optional[int] = None,
+    policy: Optional[ExecutionPolicy] = None,
+):
+    """Deprecated shim over :class:`BFSProgram` — use
+    ``repro_torch.Graph.bfs()``.  Returns (dist int32[n, K], UNREACHED
+    where not reached; IOStats; supersteps)."""
+    pol = legacy_policy("bfs_multi", "repro.Graph.bfs(policy=...)",
+                        policy, _BFS_DEFAULT,
+                        backend=backend, chunk_cap=chunk_cap)
+    res = run_program(sg, BFSProgram(), pol, seeds=sources,
+                      max_supersteps=max_iters)
+    return res.values, res.iostats, res.supersteps
+
+
+def bfs_uni(
+    sg: SemGraph, source: int, *, max_iters: Optional[int] = None,
+    backend: Optional[str] = None, chunk_cap: Optional[int] = None,
+    policy: Optional[ExecutionPolicy] = None,
+):
+    """Deprecated single-source shim (the K=1 case of :class:`BFSProgram`)."""
+    pol = legacy_policy("bfs_uni", "repro.Graph.bfs(policy=...)",
+                        policy, _BFS_DEFAULT,
+                        backend=backend, chunk_cap=chunk_cap)
+    res = run_program(sg, BFSProgram(), pol, seeds=[int(source)],
+                      max_supersteps=max_iters)
+    return res.values[:, 0], res.iostats, res.supersteps

@@ -8,14 +8,18 @@ reference's benchmark triple: 'dense' is pure multicast, 'p2p' always
 row-exact fetches, 'hybrid' the engine's density dispatch.  Works on
 undirected (symmetrized) graphs, where out-degree is the degree.
 
-The loop is a :class:`CorenessProgram` on the shared driver.  Its
-``gather`` skips the engine on a round that removes nothing, so empty
-rounds cost no I/O, as in the reference (whose ``lax.cond`` is a Python
-branch here).
+The loop is a :class:`CorenessProgram` on the shared driver.  Its hooks
+never read the device from the host: ``gather`` always calls the engine
+and zeroes the round's IOStats and result when nothing was removed, so
+empty rounds count no I/O, as in the reference; ``apply``
+computes the remove and the advance branch of the reference's
+``lax.cond`` and selects the level with ``torch.where``.
+``coreness`` is a deprecated shim; new code goes through
+``repro_torch.Graph.coreness()``.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -25,12 +29,13 @@ from ..core import (
     IOStats,
     SemGraph,
     VertexProgram,
-    p2p_spmv,
+    legacy_policy,
+    run_program,
     traverse,
 )
 from ..core.semiring import PLUS_TIMES
 
-__all__ = ["CoreState", "CorenessProgram"]
+__all__ = ["CoreState", "CorenessProgram", "coreness"]
 
 _INT_MAX = torch.iinfo(torch.int32).max
 
@@ -39,7 +44,7 @@ class CoreState(NamedTuple):
     deg: torch.Tensor  # int32[n] current (decremented) degree
     alive: torch.Tensor  # bool[n]
     core: torch.Tensor  # int32[n] assigned coreness (valid once removed)
-    k: int  # current peeling level
+    k: torch.Tensor  # int32 0-d current peeling level
 
 
 class CorenessProgram(VertexProgram):
@@ -75,7 +80,7 @@ class CorenessProgram(VertexProgram):
             deg=sg.out_degree.to(torch.int32),
             alive=torch.ones(sg.n, dtype=torch.bool, device=dev),
             core=torch.zeros(sg.n, dtype=torch.int32, device=dev),
-            k=0,
+            k=torch.zeros((), dtype=torch.int32, device=dev),
         )
 
     def frontier(self, sg: SemGraph, s: CoreState) -> Frontier:
@@ -83,32 +88,41 @@ class CorenessProgram(VertexProgram):
         return Frontier(x=torch.where(removed, -1.0, 0.0), active=removed)
 
     def gather(self, sg: SemGraph, s: CoreState, fr: Frontier, policy):
-        """Push -1 along the out-edges of removed vertices, only when the
-        round removes anything; an advance round does no I/O."""
-        if not bool(torch.any(fr.active)):
-            return (torch.zeros(sg.n, dtype=torch.float32, device=sg.device),
-                    IOStats.zero(sg.device))
-        if self.messaging != "p2p":
-            return traverse(sg, fr.x, fr.active, PLUS_TIMES, policy=policy)
-        cap = dict(vcap=sg.n, ecap=max(int(sg.m), 1))
-        if getattr(sg, "is_host_view", False):
-            # The raw p2p gather has no host form: force the host
-            # dispatcher's p2p arm with the same caps (capacity-invariant,
-            # so values and IOStats equal the direct call).
-            return traverse(sg, fr.x, fr.active, PLUS_TIMES,
-                            policy=policy.with_(switch_fraction=1.0, **cap))
-        return p2p_spmv(sg, fr.x, fr.active, PLUS_TIMES, direction="out",
-                        **cap)
+        """Push -1 along the out-edges of removed vertices.  A round that
+        removes nothing still calls the engine on its empty frontier, and
+        its result and IOStats are zeroed, so an advance round counts no
+        I/O.  Where a p2p arm may run, adaptive capacities (value- and
+        IOStats-neutral) size its buckets to the frontier: at the
+        reference's caps an empty round would cost a full O(n + m) p2p
+        pass, while an empty multicast is cheap as it stands."""
+        pol = policy.with_(adaptive_cap=self.messaging != "dense")
+        if self.messaging == "p2p":
+            # Always row-exact: the p2p arm at the reference's caps (it is
+            # capacity-invariant, so values and IOStats equal the direct
+            # p2p gather's; on a host view it is the host p2p arm).
+            pol = pol.with_(switch_fraction=1.0, vcap=sg.n,
+                            ecap=max(int(sg.m), 1))
+        y, st = traverse(sg, fr.x, fr.active, PLUS_TIMES, policy=pol)
+        fetched = torch.any(fr.active)
+        # field by field: a stacked mask would mix x_fetches into the
+        # order-invariant counters (rule R4 follows taint per tensor)
+        return (torch.where(fetched, y, 0.0),
+                IOStats(*(torch.where(fetched, f, 0) for f in st)))
 
     def apply(self, sg: SemGraph, s: CoreState, delta):
+        """The reference's ``lax.cond(any(removed), remove, advance)`` with
+        no host read: the remove branch's degree, liveness and core
+        updates are the identity when nothing is removed (``delta`` is
+        then zero), so only the level selects between the branches, on
+        the device."""
         removed = s.alive & (s.deg <= s.k)
-        if bool(torch.any(removed)):
-            s = CoreState(s.deg + delta.to(torch.int32), s.alive & ~removed,
-                          torch.where(removed, s.k, s.core), s.k)
-        else:
-            live_deg = torch.where(s.alive, s.deg, _INT_MAX)
-            next_k = int(torch.min(live_deg)) if self.prune else s.k + 1
-            s = s._replace(k=max(next_k, s.k + 1))
+        # advance: the next level, pruned to the least live degree
+        live_deg = torch.where(s.alive, s.deg, _INT_MAX)
+        next_k = torch.amin(live_deg) if self.prune else s.k + 1
+        next_k = torch.maximum(next_k, s.k + 1)
+        s = CoreState(s.deg + delta.to(torch.int32), s.alive & ~removed,
+                      torch.where(removed, s.k, s.core),
+                      torch.where(torch.any(removed), s.k, next_k))
         return s, s.alive
 
     def converged(self, sg: SemGraph, s: CoreState, activated):
@@ -119,3 +133,24 @@ class CorenessProgram(VertexProgram):
 
     def finalize(self, sg: SemGraph, s: CoreState) -> torch.Tensor:
         return s.core
+
+
+def coreness(
+    sg: SemGraph,
+    *,
+    prune: bool = True,
+    messaging: str = "hybrid",
+    switch_fraction: Optional[float] = None,
+    max_supersteps: Optional[int] = None,
+    chunk_cap: Optional[int] = None,
+    policy: Optional[ExecutionPolicy] = None,
+):
+    """Deprecated shim over :class:`CorenessProgram` — use
+    ``repro_torch.Graph.coreness()``.  Returns (core_number[n], IOStats,
+    supersteps)."""
+    pol = legacy_policy("coreness", "repro.Graph.coreness(policy=...)",
+                        policy, None, chunk_cap=chunk_cap,
+                        switch_fraction=switch_fraction)
+    res = run_program(sg, CorenessProgram(prune=prune, messaging=messaging),
+                      pol, max_supersteps=max_supersteps)
+    return res.values, res.iostats, res.supersteps

@@ -9,6 +9,8 @@ bound on the diameter.  ``multi=True`` runs a sweep as one K-lane
 ``multi=False`` as K single-source runs (the same answer, K times the
 fetches).  Sources are chosen on the host between the searches; ties go to
 the lower vertex id, as the reference's stable sort and ``argmax`` give.
+``diameter_multisource``/``diameter_unisource`` are deprecated shims; new
+code goes through ``repro_torch.Graph.diameter()``.
 """
 from __future__ import annotations
 
@@ -16,8 +18,16 @@ from typing import Optional
 
 import torch
 
-from ..core import ExecutionPolicy, IOStats, SemGraph, run_program
-from .bfs import UNREACHED, BFSProgram
+from ..core import (
+    ExecutionPolicy,
+    IOStats,
+    SemGraph,
+    legacy_policy,
+    run_program,
+)
+from .bfs import _BFS_DEFAULT, UNREACHED, BFSProgram
+
+__all__ = ["diameter_multisource", "diameter_unisource"]
 
 _UNREACHED = int(UNREACHED)
 
@@ -77,3 +87,42 @@ def _diameter(
                                      torch.where(d_i == _UNREACHED, -1, d_i))
         dist = torch.where(best < 0, _UNREACHED, best)
     return estimate, io, total_steps
+
+
+def diameter_multisource(
+    sg: SemGraph,
+    *,
+    num_sources: int = 32,
+    sweeps: int = 2,
+    seed_vertex: Optional[int] = None,
+    backend: Optional[str] = None,
+    chunk_cap: Optional[int] = None,
+    policy: Optional[ExecutionPolicy] = None,
+):
+    """Deprecated shim — use ``repro_torch.Graph.diameter()``.  Returns
+    (estimate, IOStats, supersteps)."""
+    pol = legacy_policy("diameter_multisource",
+                        "repro.Graph.diameter(policy=...)",
+                        policy, _BFS_DEFAULT,
+                        backend=backend, chunk_cap=chunk_cap)
+    return _diameter(sg, pol, num_sources=num_sources, sweeps=sweeps,
+                     seed_vertex=seed_vertex, multi=True)
+
+
+def diameter_unisource(
+    sg: SemGraph,
+    *,
+    num_sources: int = 32,
+    sweeps: int = 2,
+    seed_vertex: Optional[int] = None,
+    backend: Optional[str] = None,
+    chunk_cap: Optional[int] = None,
+    policy: Optional[ExecutionPolicy] = None,
+):
+    """Deprecated shim: the same sweeps, one full BFS per source."""
+    pol = legacy_policy("diameter_unisource",
+                        "repro.Graph.diameter(mode='uni', policy=...)",
+                        policy, _BFS_DEFAULT,
+                        backend=backend, chunk_cap=chunk_cap)
+    return _diameter(sg, pol, num_sources=num_sources, sweeps=sweeps,
+                     seed_vertex=seed_vertex, multi=False)

@@ -5,19 +5,31 @@ Both iterate ``R(u) = (1 - c)/n + c * sum_{v in B_u} R(v) / N_v``; PR-push
 sends only deltas above the threshold, so its active set and its edge I/O
 shrink as ranks converge.  :class:`PersonalizedPageRankProgram` is PR-push
 with a query axis: Q reset distributions in one (n, Q) state.  State is
-pinned to float32.
+pinned to float32.  ``pagerank_pull``/``pagerank_push`` are deprecated
+shims (new code goes through ``repro_torch.Graph.pagerank()``);
+``pagerank_inmem`` is the flat in-memory baseline.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
-from ..core import ExecutionPolicy, Frontier, SemGraph, VertexProgram, traverse
+from ..core import (
+    ExecutionPolicy,
+    Frontier,
+    SemGraph,
+    VertexProgram,
+    flat_spmv,
+    legacy_policy,
+    run_program,
+    traverse,
+)
 from ..core.semiring import OR_AND, PLUS_TIMES
 
 __all__ = ["PPRState", "PageRankPullProgram", "PageRankPushProgram",
-           "PersonalizedPageRankProgram"]
+           "PersonalizedPageRankProgram", "pagerank_inmem", "pagerank_pull",
+           "pagerank_push"]
 
 # PR-pull's historical execution: pure multicast, no p2p arm.
 _PULL_DEFAULT = ExecutionPolicy(switch_fraction=None)
@@ -212,3 +224,73 @@ class PersonalizedPageRankProgram(VertexProgram):
 
     def finalize(self, sg: SemGraph, s: PPRState) -> torch.Tensor:
         return s.rank
+
+
+def pagerank_pull(
+    sg: SemGraph,
+    *,
+    damping: float = 0.85,
+    tol: float = 1e-3,
+    max_iters: int = 100,
+    backend: Optional[str] = None,
+    chunk_cap: Optional[int] = None,
+    policy: Optional[ExecutionPolicy] = None,
+):
+    """Deprecated shim over :class:`PageRankPullProgram` — use
+    ``repro_torch.Graph.pagerank(mode='pull')``.  Returns (rank, IOStats,
+    supersteps)."""
+    pol = legacy_policy("pagerank_pull",
+                        "repro.Graph.pagerank(mode='pull', policy=...)",
+                        policy, _PULL_DEFAULT,
+                        backend=backend, chunk_cap=chunk_cap)
+    res = run_program(sg, PageRankPullProgram(damping=damping, tol=tol), pol,
+                      max_supersteps=max_iters)
+    return res.values, res.iostats, res.supersteps
+
+
+def pagerank_push(
+    sg: SemGraph,
+    *,
+    damping: float = 0.85,
+    tol: float = 1e-3,
+    max_iters: int = 100,
+    ecap: Optional[int] = None,
+    switch_fraction: Optional[float] = None,
+    backend: Optional[str] = None,
+    chunk_cap: Optional[int] = None,
+    policy: Optional[ExecutionPolicy] = None,
+):
+    """Deprecated shim over :class:`PageRankPushProgram` — use
+    ``repro_torch.Graph.pagerank()``.  Returns (rank, IOStats,
+    supersteps)."""
+    pol = legacy_policy("pagerank_push", "repro.Graph.pagerank(policy=...)",
+                        policy, None, backend=backend, chunk_cap=chunk_cap,
+                        ecap=ecap, switch_fraction=switch_fraction)
+    res = run_program(sg, PageRankPushProgram(damping=damping, tol=tol), pol,
+                      max_supersteps=max_iters)
+    return res.values, res.iostats, res.supersteps
+
+
+def pagerank_inmem(
+    sg: SemGraph,
+    *,
+    damping: float = 0.85,
+    tol: float = 1e-3,
+    max_iters: int = 100,
+):
+    """In-memory baseline: flat unchunked pull iteration over all m edges
+    (:func:`~repro_torch.core.engine.flat_spmv`, no SEM machinery).
+    Returns (rank, iterations); the delta test reads the device once an
+    iteration."""
+    n = sg.n
+    base = (1.0 - damping) / n
+    allv = torch.ones(n, dtype=torch.bool, device=sg.device)
+    rank = torch.full((n,), 1.0 / n, dtype=torch.float32, device=sg.device)
+    it, more = 0, True
+    while more and it < max_iters:
+        acc = flat_spmv(sg, _out_contrib(sg, rank), allv, PLUS_TIMES,
+                        direction="in")
+        new = base + damping * acc
+        more = bool(torch.max(torch.abs(new - rank)) * n > tol)
+        rank, it = new, it + 1
+    return rank, torch.tensor(it, dtype=torch.int32)

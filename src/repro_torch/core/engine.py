@@ -22,7 +22,7 @@ dispatch over streamed edges.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
@@ -49,10 +49,13 @@ __all__ = [
     "ExecutionPolicy",
     "PolicyError",
     "ResidencyError",
+    "as_policy",
     "batched_union_frontier",
     "beamer_use_pull",
     "blocked_backend_spmv",
+    "bsp_run",
     "flat_spmv",
+    "hybrid_spmv",
     "spmv",
     "traverse",
 ]
@@ -122,6 +125,37 @@ class ExecutionPolicy:
     def with_(self, **kw) -> "ExecutionPolicy":
         """A copy with the given fields replaced."""
         return dataclasses.replace(self, **kw)
+
+
+def as_policy(
+    policy: Optional[ExecutionPolicy],
+    default: Optional[ExecutionPolicy] = None,
+    **deprecated,
+) -> ExecutionPolicy:
+    """Merge an explicit policy with an algorithm's deprecated kwargs:
+    ``policy`` is the base (else ``default``, else a plain
+    :class:`ExecutionPolicy`), and each deprecated kwarg the caller passed
+    (non-``None``) overrides its field."""
+    base = policy if policy is not None else (default or ExecutionPolicy())
+    kw = {k: v for k, v in deprecated.items() if v is not None}
+    return dataclasses.replace(base, **kw) if kw else base
+
+
+def bsp_run(
+    step: Callable[[Any], Tuple[Any, torch.Tensor]],
+    state0: Any,
+    max_supersteps: int,
+) -> Tuple[Any, torch.Tensor]:
+    """Run ``step`` (state -> (state, done)) until it reports done or the
+    budget is spent; returns the final state and the int32 number of
+    supersteps run.  The reference's ``lax.while_loop`` is a host loop
+    here, reading ``done`` once a superstep."""
+    state, it, done = state0, 0, False
+    while not done and it < max_supersteps:
+        state, d = step(state)
+        done = bool(d)
+        it += 1
+    return state, torch.tensor(it, dtype=torch.int32)
 
 
 def beamer_use_pull(
@@ -549,6 +583,40 @@ def traverse(
         y, st = _dispatch(sg, xm, unexplored, sr, direction="in",
                           reverse=False, y_init=y_init, pol=pol)
     return y, st._replace(messages=mf)
+
+
+def hybrid_spmv(
+    sg: SemGraph,
+    x: torch.Tensor,
+    active: torch.Tensor,
+    sr: Semiring,
+    *,
+    direction: str = "out",
+    vcap: Optional[int] = None,
+    ecap: Optional[int] = None,
+    switch_fraction: float = 0.10,
+    y_init: Optional[torch.Tensor] = None,
+    backend: str = "scan",
+    chunk_cap: Optional[int] = None,
+    compact_fraction: float = 0.5,
+    policy: Optional[ExecutionPolicy] = None,
+    unexplored: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, IOStats]:
+    """The pre-policy density dispatch, kept for compatibility: the loose
+    kwargs become an :class:`ExecutionPolicy` (unless ``policy`` is given)
+    and the call is :func:`traverse`'s."""
+    if policy is None:
+        policy = ExecutionPolicy(
+            backend=backend,
+            direction=direction,
+            chunk_cap=chunk_cap,
+            vcap=vcap,
+            ecap=ecap,
+            switch_fraction=switch_fraction,
+            compact_fraction=compact_fraction,
+        )
+    return traverse(sg, x, active, sr, policy=policy, unexplored=unexplored,
+                    y_init=y_init)
 
 
 def flat_spmv(

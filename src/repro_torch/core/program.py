@@ -12,17 +12,18 @@ query columns, retiring converged columns as it goes.
 from __future__ import annotations
 
 import functools
+import warnings
 from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from .engine import ExecutionPolicy, check_residency, traverse
+from .engine import ExecutionPolicy, as_policy, check_residency, traverse
 from .sem import IOStats, SemGraph, i32
 from .semiring import PLUS_TIMES, Semiring
 
-__all__ = ["Frontier", "ProgramResult", "VertexProgram", "run_program",
-           "run_program_batched"]
+__all__ = ["Frontier", "ProgramResult", "VertexProgram", "legacy_policy",
+           "run_program", "run_program_batched", "warn_legacy"]
 
 State = Any
 
@@ -426,3 +427,37 @@ def run_program_batched(
         values, final_state = prog.finalize(sg, state), state
     return ProgramResult(values, torch.tensor(it, dtype=torch.int32), io,
                          final_state, torch.as_tensor(done_at.astype(np.int32)))
+
+
+# --------------------------------------------------------------------------
+# deprecation plumbing of the pre-façade entry points
+# --------------------------------------------------------------------------
+def warn_legacy(entry: str, replacement: str, *, kwargs: Optional[dict] = None,
+                stacklevel: int = 3) -> None:
+    """The library's one :class:`DeprecationWarning`, worded as the
+    reference's: every deprecated shim (``bfs_multi``, ``pagerank_push``,
+    ``bc_*``, ``coreness``, ``diameter_*``) funnels through here.
+    ``kwargs`` are the deprecated keyword arguments the caller passed
+    (non-``None`` values), named with their :class:`ExecutionPolicy`
+    replacement; ``stacklevel`` lands the warning on the user's call."""
+    dead = sorted(k for k, v in (kwargs or {}).items() if v is not None)
+    msg = f"{entry} is deprecated; use {replacement}"
+    if dead:
+        msg += (
+            f" (deprecated kwarg{'s' if len(dead) > 1 else ''} "
+            f"{', '.join(dead)}: set the ExecutionPolicy field instead)"
+        )
+    warnings.warn(msg, DeprecationWarning, stacklevel=stacklevel)
+
+
+def legacy_policy(
+    entry: str,
+    replacement: str,
+    policy: Optional[ExecutionPolicy],
+    default: Optional[ExecutionPolicy],
+    **deprecated,
+) -> ExecutionPolicy:
+    """Warn (:func:`warn_legacy`) and merge a legacy call's kwargs into a
+    policy (:func:`~repro_torch.core.engine.as_policy`)."""
+    warn_legacy(entry, replacement, kwargs=deprecated, stacklevel=4)
+    return as_policy(policy, default, **deprecated)

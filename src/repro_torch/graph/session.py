@@ -335,11 +335,20 @@ class Graph:
         ``checkpoint=CheckpointSpec(dir)`` makes the run fault-tolerant
         (superstep snapshots; ``resume=True`` continues a killed run,
         bitwise-equal to an uninterrupted one; see
-        :mod:`repro_torch.core.recovery`).  ``analyze`` belongs to a later
-        slice of the port and raises."""
-        if analyze:
-            raise NotImplementedError("analyze=True: ROADMAP A13")
+        :mod:`repro_torch.core.recovery`).
+
+        ``analyze=True`` runs the SEM contract checker
+        (:func:`repro_torch.analysis.check`) over the program and policy
+        first, raising :class:`~repro_torch.analysis.AnalysisError` on
+        error-severity findings.  The check is cached per graph, program,
+        policy and seeds; it runs the O(n) hooks on fake tensors and one
+        superstep for real, and leaves the run itself unchanged."""
         pol = policy if policy is not None else program.default_policy
+        if analyze:
+            from .. import analysis
+
+            analysis.check(self, program, pol, seeds=seeds,
+                           raise_on_error=True)
         sem = self._sem(pol, program)
         if batch is None:
             return run_program(sem, program, policy, seeds=seeds,

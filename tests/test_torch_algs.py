@@ -88,6 +88,50 @@ def test_coreness_backends(ugraph, messaging, backend, residency):
     _io_equal(got.iostats, want.iostats, skip)
 
 
+@pytest.fixture(scope="module")
+def ref_coreness(ugraph):
+    """The reference's device coreness per (backend, messaging), computed
+    once for both residencies of the port."""
+    ref, _ = ugraph
+    memo = {}
+
+    def get(backend, messaging):
+        if (backend, messaging) not in memo:
+            memo[backend, messaging] = ref.coreness(
+                messaging=messaging, policy=_pols(backend)[0])
+        return memo[backend, messaging]
+
+    return get
+
+
+@pytest.mark.parametrize("messaging", ["dense", "p2p", "hybrid"])
+@pytest.mark.parametrize("backend", ["scan", "compact", "blocked",
+                                     "blocked_compact"])
+@pytest.mark.parametrize("residency", ["device", "host"])
+def test_coreness_sync_free_grid(ugraph, ref_coreness, messaging, backend,
+                                 residency):
+    """Coreness's hooks read nothing to the host (their rounds that remove
+    nothing still call the engine and zero its counters): values,
+    supersteps and the ten IOStats fields equal the reference's on every
+    backend, residency and messaging mode (host_bytes and retries aside
+    on host, against the reference's device driver), and the analyzer
+    finds nothing, R2 included."""
+    from repro_torch import analysis
+    from repro_torch.algs import CorenessProgram
+
+    _, port = ugraph
+    tpol = _pols(backend, residency)[1]
+    want = ref_coreness(backend, messaging)
+    got = port.coreness(messaging=messaging, policy=tpol)
+    np.testing.assert_array_equal(got.values.numpy(), np.asarray(want.values))
+    assert int(got.supersteps) == int(want.supersteps)
+    skip = ("host_bytes", "retries") if residency == "host" else ()
+    _io_equal(got.iostats, want.iostats, skip)
+    assert got.state.k.dtype == torch.int32 and got.state.k.ndim == 0
+    rep = analysis.check(port, CorenessProgram(messaging=messaging), tpol)
+    assert rep.ok, rep.render()
+
+
 def test_coreness_matches_networkx(ugraph):
     ref, port = ugraph
     want = nx.core_number(nx.Graph(list(zip(*ref.host.edges()))))

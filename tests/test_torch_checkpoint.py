@@ -179,6 +179,31 @@ def test_reference_snapshot_restores_through_port(tmp_path, layout):
     assert arrs["bf"].tobytes() == _bytes(tree["bf"])[2]
 
 
+def test_coreness_state_crosses_packages(tmp_path):
+    """A mid-run coreness state (its level ``k`` a 0-d int32 leaf, as the
+    reference's) writes the reference's manifest and restores through
+    either package."""
+    from repro.algs.coreness import CorenessProgram as RCore
+
+    from repro_torch.algs.coreness import CorenessProgram as TCore
+
+    g = rmat(8, edge_factor=8, seed=1, symmetrize=True)
+    kw = dict(chunk_size=128, device="cpu")
+    ts = repro_torch.core.run_program(repro_torch.Graph(g, **kw).device(),
+                                      TCore(), max_supersteps=7).state
+    rs = repro.core.run_program(repro.Graph(g, chunk_size=128).device(),
+                                RCore(), max_supersteps=7).state
+    assert ts.k.dtype == torch.int32 and ts.k.ndim == 0
+    save_checkpoint(tmp_path / "port", 7, ts)
+    rck.save_checkpoint(tmp_path / "ref", 7, rs)
+    assert _manifest(tmp_path / "port", 7) == _manifest(tmp_path / "ref", 7)
+    got, _ = restore_checkpoint(tmp_path / "ref", ts)
+    back, _ = rck.restore_checkpoint(tmp_path / "port", rs)
+    for a, b, c in zip(_flatten(got)[0], jax.tree_util.tree_leaves(back),
+                       _flatten(ts)[0]):
+        assert _bytes(a) == _bytes(b) == _bytes(c)
+
+
 def test_restore_places_tensors_and_keeps_python_scalars(tmp_path):
     save_checkpoint(tmp_path, 1, {"t": torch.arange(4), "n": np.ones(2),
                                   "k": 7, "flag": True})

@@ -22,7 +22,10 @@ and a CUDA graph must capture it, and the LM serve path on the card must
 launch it on every layer of every step.  The sum scatter adds in a fixed
 order on the card (two runs bit-equal, batched PPR columns bit-equal to
 their solo runs), an asynchronous checkpoint copies the state before the
-next superstep writes it, and a killed run resumes to the same bits.
+next superstep writes it, and a killed run resumes to the same bits.  The
+contract checker on a CUDA view flags a host read as R2, finds nothing in
+a clean WCC whose recorded superstep launches B3/B4, and leaves
+``run(analyze=True)`` bit-equal to ``run()``.
 """
 from typing import NamedTuple
 
@@ -744,3 +747,40 @@ def test_kill_and_resume_on_card(card, tmp_path):
             assert int(res.supersteps) == int(base.supersteps)
             for x, y in zip(res.iostats, base.iostats):
                 assert int(x) == int(y)
+
+
+class HostSyncWCC(WCCProgram):
+    """WCC whose apply reads a device value to the host (the twin of
+    ``tests/test_analysis.py``'s ``B2HostSync``)."""
+
+    def apply(self, sg, s, gathered):
+        total = float(torch.sum(gathered))
+        labels = torch.minimum(s.labels, gathered + total * 0.0)
+        changed = labels < s.labels
+        return WCCState(labels, changed), changed
+
+
+@pytest.mark.parametrize("backend", ["blocked", "blocked_compact"])
+def test_analyzer_on_card(card, backend):
+    """The analyzer on a CUDA view: the host read is R2 in apply, the clean
+    WCC has no finding and launches its min_plus kernel (B3 or B4) inside
+    the recorded superstep, and ``run(analyze=True)`` equals ``run()`` bit
+    for bit."""
+    from repro_torch import analysis
+
+    g = rmat(10, edge_factor=8, seed=3, symmetrize=True)
+    pol = repro_torch.ExecutionPolicy(backend=backend)
+    s = repro_torch.Graph(g, device=card)
+    bad = analysis.check(s, HostSyncWCC(), pol)
+    assert [(f.rule, f.hook) for f in bad.findings] == [("R2", "apply")]
+    rep = analysis.check(s, WCCProgram(), pol)
+    assert rep.ok, rep.render()
+    kernel = {"blocked": "spmv_blocked_min_plus",
+              "blocked_compact": "spmv_blocked_compact_min_plus"}[backend]
+    assert any(f"{kernel} 1" in n for n in rep.notes), rep.notes
+    a = repro_torch.Graph(g, device=card).run(WCCProgram(), policy=pol)
+    b = repro_torch.Graph(g, device=card).run(WCCProgram(), policy=pol,
+                                              analyze=True)
+    assert torch.equal(a.values, b.values)
+    assert int(a.supersteps) == int(b.supersteps)
+    assert [int(x) for x in a.iostats] == [int(x) for x in b.iostats]

@@ -365,13 +365,15 @@ def test_traverse_routes_host_view(sym_graph):
 
 
 def test_later_slices_still_raise(sym_graph, tmp_path):
-    """Static analysis (ROADMAP A13) still raises on a host view;
-    checkpointed host runs (A12, which raised here before it was ported)
-    now run and equal the plain host runs, IOStats included."""
+    """Static analysis (A13) and checkpointed host runs (A12), which
+    raised here before they were ported, now run on a host view and equal
+    the plain host runs, IOStats included."""
     host = repro_torch.Graph(sym_graph, device="cpu", **KW)
     pol = repro_torch.ExecutionPolicy(residency="host")
-    with pytest.raises(NotImplementedError, match="A13"):
-        host.run(WCCProgram(), policy=pol, analyze=True)
+    got = host.run(WCCProgram(), policy=pol, analyze=True)
+    want = host.run(WCCProgram(), policy=pol)
+    assert torch.equal(got.values, want.values)
+    _io_equal(got.iostats, want.iostats, skip=())
     spec = repro_torch.CheckpointSpec(tmp_path / "bfs", every_k=2)
     got, want = host.bfs(0, policy=pol, checkpoint=spec), host.bfs(
         0, policy=pol)

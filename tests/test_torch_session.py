@@ -137,8 +137,8 @@ def test_device_memory_report_equals_the_reference():
 
 
 def test_later_slices_raise(sessions, tmp_path):
-    """``analyze=True`` (ROADMAP A13) still raises; ``checkpoint=`` (A12,
-    which raised here before it was ported) now runs and changes nothing."""
+    """``checkpoint=`` (A12) and ``analyze=True`` (A13), which raised here
+    before they were ported, now run and change nothing."""
     _, port = sessions
     host = repro_torch.ExecutionPolicy(residency="host")
     spec = repro_torch.CheckpointSpec(tmp_path / "pr", every_k=3)
@@ -146,8 +146,10 @@ def test_later_slices_raise(sessions, tmp_path):
     assert torch.equal(got.values, port.pagerank(policy=host).values)
     got = port.bfs(0, checkpoint=repro_torch.CheckpointSpec(tmp_path / "b"))
     assert torch.equal(got.values, port.bfs(0).values)
-    with pytest.raises(NotImplementedError, match="A13"):
-        port.run(repro_torch.algs.BFSProgram(), seeds=[0], analyze=True)
+    got = port.run(repro_torch.algs.BFSProgram(), seeds=[0], analyze=True)
+    want = port.run(repro_torch.algs.BFSProgram(), seeds=[0])
+    assert torch.equal(got.values, want.values)
+    _io_equal(got.iostats, want.iostats)
 
 
 def test_pagerank_reset_runs(sessions):
