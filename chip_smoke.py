@@ -20,8 +20,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
                  over T=8192 (whole blocks skipped), an empty row (must be
                  0), KV=4 with G=2; G=1, 4 and 16; hd=64 and 128 in bf16;
                  T=1000 (ragged blocks of 125) and T=96; KV=4, G=8 with a
-                 window.  The build fails if ptxas spills in B5's bf16
-                 kernel.
+                 window; and the shapes the families phase gives it:
+                 zamba2's hd=80 with KV=32, G=1 (T=2112), qwen3-moe's
+                 G=16 (KV=4, hd=128, T=1088) and whisper's KV=8, G=1 at
+                 hd=64 (T=1564).  The build fails if ptxas spills in B5's
+                 bf16 kernel.
   3. lm_serve  — ``serve_batch('gemma-2b', smoke=False, n_requests=8,
                  max_batch=4, max_new=16, max_len=1024, seed=0)`` at the
                  published width and depth, weights from the port's own
@@ -42,30 +45,57 @@ Phases, each of which raises (and so exits non-zero) on failure:
                  bound / ms.
   5. lm_profile — device time and idle share over 32 decode steps of the
                  full-width serve loop.
+  6. lm_families — the serving path of every family at its published
+                 width, weights seeded on the card, one model at a time:
+                 gemma-2b (18 layers; B=4, S=512 on the dense attention and
+                 S=1,024 on the chunked one), gemma3-4b (34 layers; B=2,
+                 S=2,048, the local layers' window caches rotating),
+                 mamba2-370m (48 layers; B=4, S=2,048), zamba2-2.7b (54
+                 layers; B=2, S=2,048), whisper-base (6 + 6 layers; B=4,
+                 1,500 frames and tokens), qwen3-moe-235b-a22b (4 of 94
+                 layers, capacity factor 8; B=2, S=1,024) and qwen2-vl-72b
+                 (8 of 80 layers; B=2, S=1,024 with 256 stub vision
+                 embeddings).  ``prefill`` of S tokens (max_len = S + 64)
+                 and one ``decode_step`` of token S against ``forward`` over
+                 S + 1 tokens at the last position (max |d| < 0.05 x
+                 max|logits| and the argmax equal on every row; moe: the
+                 90th percentile < 0.06 x max and half the argmaxes);
+                 8 teacher-forced steps from the primed cache, each from
+                 one cache state through B5 and through the plain
+                 attention, within the same bounds
+                 (the argmax equal where the plain run's top-two margin
+                 exceeds twice the bound, as in lm_serve);
+                 B5's count zeroed before and read after each decode run:
+                 attention layers (n_layers; zamba2's n_layers / 6; 0 for
+                 mamba2) x steps; ``serve_batch(smoke=False, n_requests=4,
+                 max_batch=2, max_new=8, max_len=256)`` for the five that
+                 fit whole; prefill ms against its FLOP bound and ms per
+                 decode step against its byte bound; the chunked attention
+                 of one layer against one SDPA call at six prefill shapes.
 
   The graph slices (views freed of the LM's weights):
 
-  6. graph   — ``rmat(16, edge_factor=16, seed=1)``: n=65,536, m=955,396;
+  7. graph   — ``rmat(16, edge_factor=16, seed=1)``: n=65,536, m=955,396;
                its 128x128 f32 tile view (239,398 tiles, ~15.7 GB) lives on
                the card, with the row payload B1 reads and the tile-major
                payload B2 reads (955,396 entries of 12 B each, built from
                the tiles on the card): logs the payloads' build time and
                bytes.
-  7. main    — after one warm-up run per backend and residency on rmat(10),
+  8. main    — after one warm-up run per backend and residency on rmat(10),
                the slice-1 path through ``repro_torch.Graph``:
                ``pagerank()`` push and pull and ``bfs(0)``/``bfs(hub)`` on the
                backends scan, compact, blocked and blocked_compact, plus
                ``bfs([0, 1, 2, 3])`` on blocked.  Kernel launch counts are
                zeroed just before and read just after; B1 and B2 must have
                run.
-  8. check   — BFS levels equal across backends and equal a numpy BFS of the
+  9. check   — BFS levels equal across backends and equal a numpy BFS of the
                host CSR; K-lane BFS equals K single-source numpy BFS runs;
                PageRank agrees across backends (atol 1e-6, rtol 1e-5) and
                with a numpy power iteration within the push/pull error bound
                (L1 <= tol / (1 - damping)); BFS IOStats agree field for field
                between backends sharing a layout and in the layout-free
                fields (messages, supersteps) across all four.
-  9. wcc     — ``Graph.run(WCC)`` (min-label propagation, the MIN_PLUS
+  10. wcc     — ``Graph.run(WCC)`` (min-label propagation, the MIN_PLUS
                program of ``examples/custom_program.py``) on
                ``rmat(16, edge_factor=16, seed=1, symmetrize=True)``
                (n=65,536, m=1,820,044; its min_plus tile view holds 257,273
@@ -74,22 +104,22 @@ Phases, each of which raises (and so exits non-zero) on failure:
                residency, with
                the counts zeroed just before and read just after: B3 and B4
                must have run.  Labels equal across backends and equal a
-               numpy union-find labelling; IOStats as in phase 8.
-  10. batched — the batched (n, Q) driver on the main view, device
+               numpy union-find labelling; IOStats as in phase 9.
+  11. batched — the batched (n, Q) driver on the main view, device
                residency, all four backends, with the counts zeroed just
                before and read just after (B1 and B2 must have run; the lane
                widths the kernels saw are logged): ``bfs(S)`` for the 32
                vertices of largest out-degree (ties to the lower id), each
                lane equal to numpy BFS, ``query_supersteps`` equal to the
                solo ``bfs(s)`` runs on blocked, ``iostats.queries == 32``,
-               IOStats as in phase 8; ``run(BFSProgram(), seeds=S,
+               IOStats as in phase 9; ``run(BFSProgram(), seeds=S,
                batch=32)`` equal to it; ``pagerank(reset=S[:16])`` and a
                float (n, 4) reset matrix from ``--seed``, each column within
                atol=1e-6, rtol=1e-5 of its width-one run and within
                tol / (1 - damping) in L1 of a numpy personalized power
                iteration.  Logs the wall per query against the solo walls
                and how many columns are bit-equal to their solo runs.
-  11. algs    — on ``rmat(16, symmetrize=True)`` (its plus_times forward and
+  12. algs    — on ``rmat(16, symmetrize=True)`` (its plus_times forward and
                reverse tile views), counts zeroed before and read after:
                ``coreness()`` dense/p2p/hybrid on scan and blocked, equal to
                numpy peeling; ``betweenness(S32)`` 'multi' on scan, blocked
@@ -100,7 +130,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
                replay of its sweeps; ``triangles(policy=blocked)`` on
                ``rmat(14, symmetrize=True)`` (a 1.07 GB dense product) equal
                to the numpy ladder.
-  12. host    — host residency (edges in host RAM, streamed per superstep)
+  13. host    — host residency (edges in host RAM, streamed per superstep)
                against device residency in this process:
                (a) ``rmat(20, edge_factor=16, seed=1)`` (n=1,048,576) on scan
                    and compact: ``pagerank()`` push and pull (pull capped
@@ -128,7 +158,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
                bytes per second beside the pinned host-to-device rate of a
                plain 1 GB copy.  Host launches of B2/B4 are counted apart
                from the main paths'.
-  13. batched_host — ``bfs`` of 8 sources (``default_rng(7)`` over the
+  14. batched_host — ``bfs`` of 8 sources (``default_rng(7)`` over the
                vertices with an out-edge, as ``benchmarks/
                bench_multisource.py`` draws them) under host residency on
                rmat(20) (scan) and the rmat(14, symmetrize) tile store
@@ -136,7 +166,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
                host_bytes and retries equal device residency's, and
                ``host_bytes`` a query at least 4x below the 8 solo host
                runs' mean (the benchmark's gate; the factor is logged).
-  14. kernels — both payloads scattered back equal the dense tiles of the
+  15. kernels — both payloads scattered back equal the dense tiles of the
                full-size main and wcc views (a chunk of tiles at a time, on
                the card); B1-B4 held against their plain torch versions on
                the card (K=1 and K=4; full and n/8 frontiers; the 'dest'
@@ -149,7 +179,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
                versions, NaN for NaN (ROADMAP §C P12).  B1/B2 also at
                K=32, 192 and 256 (two lane groups) on both views and
                frontiers.
-  15. time    — each kernel at K=1 beside its bound, its plain version and a
+  16. time    — each kernel at K=1 beside its bound, its plain version and a
                library call over the same live edges (``torch.sparse.mm``
                for B1/B2, ``scatter_reduce_(..., 'amin')`` for B3/B4), and
                one call's device time in a CUDA graph and by kernel
@@ -162,7 +192,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
                y); the dense tile bound of the earlier design is
                logged beside it, as is the dense plain version's time.
                B1 and B2 again at K=32 (``k32_*`` keys of the kernels line).
-  16. recovery — kill and resume on the card (``repro_torch.core.recovery``).
+  17. recovery — kill and resume on the card (``repro_torch.core.recovery``).
                First the sum scatter's fixed order (ROADMAP §C P17): scan
                and compact ``pagerank()`` on the main view with the
                fixed-order add and with the ``index_add_`` it replaced, in
@@ -185,7 +215,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
                the host replays streamed again, and the walls of blocked
                PageRank push (main view) and host (a) scan PageRank push at
                ``every_k`` 1 and 8 and without checkpoints.
-  17. analysis — the contract checker (``repro_torch.analysis``) on the
+  18. analysis — the contract checker (``repro_torch.analysis``) on the
                card, over the views the script already holds, counts zeroed
                before and read after (B1-B4 must all have run): the
                zero-findings gate of ``python -m
@@ -207,11 +237,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
                wall and ``run()`` against ``run(analyze=True)`` (cached and
                not) for blocked PageRank push on the main view and host
                (b)'s blocked_compact WCC, whose results must be bit-equal.
-  18. profile — device time and idle share of blocked PageRank, blocked BFS,
+  19. profile — device time and idle share of blocked PageRank, blocked BFS,
                blocked WCC, blocked_compact PageRank and WCC, host scan
                PageRank (10 supersteps), host blocked_compact WCC, and
                blocked batched BFS (Q=32) and personalized PageRank (Q=16).
-  19. chaos   — with the parent's views freed, a ``DurableWorkQueue`` of 12
+  20. chaos   — with the parent's views freed, a ``DurableWorkQueue`` of 12
                tasks (the batched BFS of 2 sources, over the 8 top-degree
                vertices of host (b)'s graph, on scan, compact and blocked)
                served by 3 worker processes spawned on the card, two
@@ -224,7 +254,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
 Prints the card's ``name, power.limit``, a ``{"kernels": [...]}`` line
 (B1-B5; B1/B2's launches are the main, batched, algorithm, host batched,
 recovery and analysis paths', B3/B4's the WCC, recovery and analysis
-paths') and, last, ``{"ok": true, "device": {...}}``.  ``--seed`` seeds
+paths', B5's the lm_serve and lm_families paths') and, last, ``{"ok": true, "device": {...}}``.  ``--seed`` seeds
 the batched phase's reset matrix (default 0).  Exits non-zero without a CUDA
 device, and when the repository's ``src/`` is not beside it.
 """
@@ -2447,6 +2477,13 @@ def phase_lm_kernel(torch, dev="cuda"):
          (2, 1, 8, 256, 96, bf16, (96, 50)), 0, False),
         ("KV=4 G=8 strided rows, window 256 over T=2048",
          (2, 4, 8, 128, 2048, bf16, (2048, 1111)), 256, False),
+        # the shapes the families phase gives B5 (max_len = S + 64)
+        ("zamba2: hd=80 KV=32 G=1, T=2112 (bt=96), fills 2049/1000",
+         (2, 32, 1, 80, 2112, bf16, (2049, 1000)), 0, False),
+        ("qwen3-moe: KV=4 G=16 hd=128, T=1088 (bt=68), fills 1025/600",
+         (2, 4, 16, 128, 1088, bf16, (1025, 600)), 0, False),
+        ("whisper: KV=8 G=1 hd=64, T=1564 (bt=92), fills 1501/800/1564/3",
+         (4, 8, 1, 64, 1564, bf16, (1501, 800, 1564, 3)), 0, False),
     ]
     worst = 0.0
     for i, (name, (b, kv, g, hd, t, dtype, fill), window, rot) in enumerate(
@@ -2690,6 +2727,451 @@ def phase_lm_time(torch, dev="cuda", copies=18, big=(128, 32768)):
     return rows
 
 
+# ------------------------------------------------------ LM families phase
+# (arch, depth cut or None, batch, prefill lengths): each family's
+# configuration at its published width; qwen3-moe-235b-a22b (469 GB of
+# bf16 weights) and qwen2-vl-72b (143 GB) do not fit one card and keep 4
+# of their 94 and 8 of their 80 layers.
+FAMILY_RUNS = (
+    ("gemma-2b", None, 4, (512, 1024)),
+    ("gemma3-4b", None, 2, (2048,)),
+    ("mamba2-370m", None, 4, (2048,)),
+    ("zamba2-2.7b", None, 2, (2048,)),
+    ("whisper-base", None, 4, (1500,)),
+    ("qwen3-moe-235b-a22b", 4, 2, (1024,)),
+    ("qwen2-vl-72b", 8, 2, (1024,)),
+)
+FAMILY_HEADROOM = 64  # prefill's max_len = S + 64
+FAMILY_TEACHER = 8  # teacher-forced decode steps, B5 against plain
+FAMILY_DECODE_REPS = 16
+# serve_batch's arguments for the families that fit the card whole
+FAMILY_SERVE = dict(n_requests=4, max_batch=2, max_new=8, max_len=256, seed=0)
+VISION_TOKENS = 256  # qwen2-vl's stub vision embeddings at the prompt's head
+MOE_P90_BOUND = 0.06  # tests/test_serving_parity.py:69
+
+
+def family_config(arch: str, depth):
+    """The published configuration, cut in depth where it must be, at the
+    lossless capacity factor of ``tests/test_serving_parity.py`` for moe
+    (a 1-token decode and a 2,050-token forward drop different tokens at
+    the published 1.25 by design)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if depth:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+    return cfg
+
+
+def attn_layers(cfg) -> int:
+    """Layers whose decode step runs B5."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    return cfg.n_layers
+
+
+def family_batch(cfg, b: int, s: int, dev, torch, seed: int) -> dict:
+    """s + 1 tokens, with whisper's s stub frames and qwen2-vl's stub
+    vision embeddings, drawn on the card from ``seed``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    batch = {"tokens": torch.randint(1, cfg.vocab, (b, s + 1), generator=gen,
+                                     device=dev)}
+    stub = {"encdec": ("frames", s), "vlm": ("vision_embeds", VISION_TOKENS)}
+    if cfg.family in stub:
+        key, n = stub[cfg.family]
+        batch[key] = (torch.randn((b, n, cfg.d_model), generator=gen,
+                                  device=dev) * 0.1).to(torch.bfloat16)
+    return batch
+
+
+def clone_cache(cache, torch):
+    def walk(node):
+        if isinstance(node, torch.Tensor):
+            return node.clone()
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*(walk(v) for v in node))
+        if isinstance(node, tuple):
+            return tuple(walk(v) for v in node)
+        return node
+    return walk(cache)
+
+
+class RouteLog:
+    """Records the experts each moe layer routes every token to, by
+    wrapping ``repro_torch.models.moe._route`` (nothing for the other
+    families).  A token's routing is a discontinuous function of its
+    hidden state: the last f32 bits B5 and the plain attention differ in
+    can send a token whose 8th and 9th expert of 128 nearly tie to
+    another expert, which moves its logits by a whole expert's output."""
+
+    def __init__(self, cfg):
+        self.on = cfg.family == "moe"
+        self.experts = []
+
+    def __enter__(self):
+        if self.on:
+            from repro_torch.models import moe
+
+            self._moe, self._orig = moe, moe._route
+
+            def route(*args, **kw):
+                out = self._orig(*args, **kw)
+                self.experts.append(out[1][-1].sort(dim=-1).values)
+                return out
+
+            moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        if self.on:
+            self._moe._route = self._orig
+
+    def same_rows(self, other):
+        """[B] bool: rows routed alike in every layer (None off moe)."""
+        if not self.on:
+            return None
+        same = None
+        for a, b in zip(self.experts, other.experts, strict=True):
+            eq = (a == b).all(dim=-1)
+            same = eq if same is None else same & eq
+        return same
+
+
+def check_family_logits(label, got, want, cfg, torch,
+                        margin: bool = False, rows=None) -> float:
+    """``tests/test_serving_parity.py``'s bounds over the vocabulary's
+    columns (the padding columns hold -1e30 on both sides, which would
+    make any bound relative to max|want| vacuous): max |d| < 0.05 x
+    max|want| and the argmax equal on every row; moe: the 90th percentile
+    of |d| < 0.06 x max|want| and the argmax equal on half the rows.
+    ``margin``: the lm_serve phase's teacher-forced rule instead, the
+    argmax equal wherever ``want``'s top-two margin exceeds twice the
+    bound.  ``rows`` (moe): the rows both runs routed to the same experts
+    in every layer, which must be at least half (the parity rule's "half
+    the argmaxes"); the bound holds over them.  Returns |d| (max, or
+    moe's 90th percentile) over max|want|."""
+    family = cfg.family
+    got, want = got[..., :cfg.vocab], want[..., :cfg.vocab]
+    if rows is not None:
+        if 2 * int(rows.sum()) < rows.numel():
+            raise AssertionError(f"{label}: {int((~rows).sum())} of "
+                                 f"{rows.numel()} rows routed apart")
+        got, want = got[rows], want[rows]
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError(f"{label}: non-finite logits")
+    scale = max(float(want.abs().max()), 1.0)
+    d = (got - want).abs().float()
+    same = got.argmax(-1) == want.argmax(-1)
+    if family == "moe":
+        err, bound = float(torch.quantile(d.flatten(), 0.9)), MOE_P90_BOUND
+        ok = float(same.float().mean()) >= 0.5
+    else:
+        err, bound = float(d.max()), LOGIT_BOUND
+        ok = bool(same.all())
+    if margin:
+        top2 = want.topk(2, dim=-1).values
+        ok = bool(same[(top2[:, 0] - top2[:, 1]) > 2 * bound * scale].all())
+    if err >= bound * scale or not ok:
+        raise AssertionError(f"{label}: |d| {err} vs {scale}, argmax equal "
+                             f"on {same.tolist()}")
+    return err / scale
+
+
+def live_pairs(s: int, window: int = 0) -> int:
+    """(query, key) pairs a causal attention over s positions computes."""
+    if not window or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def prefill_bound(model, params, b: int, s: int):
+    """(bound_ms, flops): 2 x the non-embedding parameters a token uses x
+    tokens (moe: top_k of n_experts experts; mamba2's SSD products beyond
+    its projections not counted), the last position's unembedding, and 4
+    x heads x head_dim x the live (query, key) pairs of every attention,
+    over the bf16 tensor-core peak."""
+    cfg = model.cfg
+    n = 0
+    for name, sub in params.items():
+        if name == "embed":
+            continue
+        for leaf in _leaves(sub):
+            n += leaf.numel()
+    if cfg.family == "moe":
+        experts = sum(params["blocks"]["moe"][k].numel()
+                      for k in ("up", "gate", "down"))
+        n -= experts * (1 - cfg.top_k / cfg.n_experts)
+    flops = 2.0 * n * b * s + 2.0 * b * cfg.d_model * cfg.vocab_padded
+    per = 4.0 * b * cfg.n_heads * cfg.head_dim
+    if cfg.family in ("dense", "vlm", "moe"):
+        flops += per * sum(live_pairs(s, w) for w in model.layer_windows())
+    elif cfg.family == "hybrid":
+        flops += per * attn_layers(cfg) * live_pairs(s)
+    elif cfg.family == "encdec":  # encoder, decoder self and cross
+        flops += per * (cfg.encoder_layers * s * s
+                        + cfg.n_layers * (live_pairs(s) + s * s))
+    return flops / BF16_FLOPS * 1e3, flops
+
+
+def decode_bound(params, cache, torch):
+    """(bound_ms, bytes): every weight once and the cache's live part once
+    (K/V of slots holding a position, SSM states and conv tails, cross
+    K/V), over the memory rate."""
+    from repro_torch.models.attention import KVCache
+
+    nbytes = sum(p.numel() * p.element_size() for p in _leaves(params))
+
+    def walk(node):
+        nonlocal nbytes
+        if isinstance(node, KVCache):
+            live = int((node.pos >= 0).sum())
+            row = node.k[0, 0].numel() * node.k.element_size()
+            nbytes += 2 * live * row + node.pos.numel() * 4
+        elif isinstance(node, torch.Tensor):
+            nbytes += node.numel() * node.element_size()
+        elif isinstance(node, dict):
+            for v in node.values():
+                walk(v)
+        elif isinstance(node, tuple):
+            for v in node:
+                walk(v)
+
+    walk(cache["layers"])
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def time_chunked(label, b, s, h, kv, hd, window, causal, dev, torch):
+    """One layer's chunked attention (``models/flash.py``) at a prefill
+    shape against one ``scaled_dot_product_attention`` call on the same
+    bf16 inputs (timed only), with the bound of the live pairs' operations
+    and the q/k/v/output bytes."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.flash import TileTable, flash_attention, pick_chunk
+
+    gen = torch.Generator(device=dev).manual_seed(s + h)
+    bf16 = torch.bfloat16
+    q = torch.randn((b, s, h, hd), generator=gen, device=dev).to(bf16)
+    k = torch.randn((b, s, kv, hd), generator=gen, device=dev).to(bf16)
+    v = torch.randn((b, s, kv, hd), generator=gen, device=dev).to(bf16)
+    pos = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
+    cq, ck = pick_chunk(s, 512), pick_chunk(s, 1024)
+    live = TileTable(pos, pos, cq, ck).live(window, causal)
+
+    def chunked():
+        return flash_attention(q, k, v, pos, pos, window, causal, hd**-0.5,
+                               cq, ck, live=live)
+
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    mask = None
+    if window:
+        p = torch.arange(s, device=dev)
+        mask = (p[None, :] <= p[:, None]) & (p[None, :] > p[:, None] - window)
+
+    def library():
+        if mask is not None:
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                              enable_gqa=True)
+
+    ms = cuda_ms(chunked, reps=5, warmup=1)
+    lib_ms = cuda_ms(library, reps=5, warmup=1)
+    got, want = chunked(), library().transpose(1, 2).float()
+    scale = float(want.abs().max())
+    err = float((got.float() - want).abs().max())
+    if err >= 0.02 * max(scale, 1.0):
+        raise AssertionError(f"chunked attention {label}: |d| {err} against "
+                             f"SDPA (max {scale})")
+    pairs = live_pairs(s, window) if causal else s * s
+    flops = 4.0 * b * h * hd * pairs
+    nbytes = (q.numel() * 2 + (k.numel() + v.numel()) * 2) * 2
+    t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+    bound = max(t_ops, t_bytes) * 1e3
+    tiles = int(live.sum())
+    log(f"lm_families chunked attention {label}: B={b} S={s} H={h} KV={kv} "
+        f"hd={hd} window={window} causal={causal} (cq={cq}, ck={ck}, "
+        f"{tiles}/{live.size} tiles live): ms={ms:.3f} sdpa_ms={lib_ms:.3f} "
+        f"bound_ms={bound:.4f} ({'operations' if t_ops >= t_bytes else 'bytes'})"
+        f" |chunked - sdpa| / max = {err / max(scale, 1.0):.3g}")
+    return dict(ms=ms, sdpa_ms=lib_ms, bound_ms=bound)
+
+
+def phase_lm_families(torch, dev="cuda", runs=FAMILY_RUNS,
+                      serve=FAMILY_SERVE):
+    """The serving path of every family at full width: per configuration,
+    prefill of S tokens (``max_len = S + 64``) then one decode step of
+    token S, held against ``forward`` over S + 1 tokens at the last
+    position; ``FAMILY_TEACHER`` teacher-forced steps from the primed
+    cache through B5 and through the plain attention; B5's count zeroed before
+    and read after each decode run (attention layers x steps);
+    ``serve_batch`` for the families that fit whole; prefill and decode
+    timed against their bounds.  Returns (B5 launches, rows)."""
+    import gc
+
+    from repro_torch.kernels import decode_attn as tda
+    from repro_torch.kernels.decode_attn import decode_attention_plain
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    peak_before = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    launched = 0
+    rows = {}
+    for arch, depth, b, lengths in runs:
+        cfg = family_config(arch, depth)
+        t0 = time.perf_counter()
+        model = build_model(cfg, dev)
+        plain = build_model(cfg, dev, attention=decode_attention_plain)
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        w_bytes = sum(p.numel() * p.element_size() for p in _leaves(params))
+        log(f"lm_families {arch}: {cfg.family}, {cfg.n_layers} layers"
+            + (f" (of {depth and family_config(arch, None).n_layers})"
+               if depth else "")
+            + f", d={cfg.d_model}, {w_bytes / 1e9:.3f} GB of weights, "
+            f"initialised in {time.perf_counter() - t0:.1f} s")
+        n_attn = attn_layers(cfg)
+        row = {"family": cfg.family, "layers": cfg.n_layers,
+               "weights_gb": w_bytes / 1e9}
+        for s in lengths:
+            key = f"{arch}/S{s}"
+            batch = family_batch(cfg, b, s, dev, torch, seed=s)
+            prompt = dict(batch, tokens=batch["tokens"][:, :s])
+            with torch.inference_mode():
+                oracle = model.forward(params, batch)[0][:, -1].clone()
+            pre_logits, cache = model.prefill(params, prompt,
+                                              max_len=s + FAMILY_HEADROOM)
+            # teacher-forced: token S, then seeded tokens, through B5 and
+            # through the plain attention, every step from the B5 route's
+            # cache (separate caches drift apart step by step).  Step 0 is
+            # also the parity step against the forward.
+            gen = torch.Generator(device=dev).manual_seed(s + 1)
+            toks = torch.cat([batch["tokens"][:, s:s + 1],
+                              torch.randint(1, cfg.vocab, (b, FAMILY_TEACHER - 1),
+                                            generator=gen, device=dev)], 1)
+            worst, flipped = 0.0, 0
+            tda.reset_launches()
+            for i in range(FAMILY_TEACHER):
+                cache_plain = clone_cache(cache, torch)
+                with RouteLog(cfg) as fast_route:
+                    got, cache = model.decode_step(params, cache,
+                                                   toks[:, i:i + 1])
+                if i == 0:
+                    parity = check_family_logits(
+                        f"{key} prefill+decode vs forward", got, oracle, cfg,
+                        torch)
+                    del oracle
+                with RouteLog(cfg) as plain_route:
+                    want, _ = plain.decode_step(params, cache_plain,
+                                                toks[:, i:i + 1])
+                same = fast_route.same_rows(plain_route)
+                flipped += 0 if same is None else int((~same).sum())
+                worst = max(worst, check_family_logits(
+                    f"{key} teacher step {i}: B5 vs plain", got, want, cfg,
+                    torch, margin=True, rows=same))
+            torch.cuda.synchronize()
+            count = tda.launches[B5]
+            if count != n_attn * FAMILY_TEACHER:
+                raise AssertionError(f"{key}: B5 ran {count} times, not "
+                                     f"{n_attn} x {FAMILY_TEACHER}")
+            launched += count
+            del cache_plain
+            # timing: prefill against its FLOP bound, a decode step
+            # against its byte bound (on the cache the steps above left)
+            pre_ms = cuda_ms(lambda: model.prefill(
+                params, prompt, max_len=s + FAMILY_HEADROOM), reps=3,
+                warmup=1)
+            pre_bound, pre_flops = prefill_bound(model, params, b, s)
+            step_tok = toks[:, -1:]
+
+            def one_step():
+                nonlocal cache
+                _, cache = model.decode_step(params, cache, step_tok)
+
+            tda.reset_launches()
+            dec_ms = cuda_ms(one_step, reps=FAMILY_DECODE_REPS, warmup=2)
+            launched += tda.launches[B5]
+            if tda.launches[B5] != n_attn * (FAMILY_DECODE_REPS + 2):
+                raise AssertionError(f"{key}: B5 ran {tda.launches[B5]} "
+                                     f"times in {FAMILY_DECODE_REPS + 2} steps")
+            dec_bound, dec_bytes = decode_bound(params, cache, torch)
+            log(f"lm_families {key}: B={b} prefill+decode vs forward "
+                f"{parity:.3g} (bound {MOE_P90_BOUND if cfg.family == 'moe' else LOGIT_BOUND}); "
+                f"{FAMILY_TEACHER} teacher-forced steps B5 vs plain worst {worst:.3g}"
+                + (f" ({flipped} rows of {FAMILY_TEACHER * b} routed to another "
+                   f"expert set)" if cfg.family == "moe" else "") + "; "
+                f"B5 launches {count} = {n_attn} attention layers x "
+                f"{FAMILY_TEACHER}; prefill ms={pre_ms:.3f} bound_ms={pre_bound:.3f} "
+                f"({pre_flops / 1e12:.3f} TFLOP) share={pre_bound / pre_ms:.3f}"
+                f"; decode ms/step={dec_ms:.3f} bound_ms={dec_bound:.3f} "
+                f"({dec_bytes / 1e9:.3f} GB) share={dec_bound / dec_ms:.3f}")
+            row[f"S{s}"] = dict(batch=b, parity=parity, teacher_worst=worst,
+                                routing_flips=flipped, b5_launches=count, prefill_ms=pre_ms,
+                                prefill_bound_ms=pre_bound, decode_ms=dec_ms,
+                                decode_bound_ms=dec_bound)
+            del batch, prompt, cache, pre_logits, got, want
+        if not depth:
+            tda.reset_launches()
+            res = serve_batch(arch, smoke=False, device=dev, params=params,
+                              **serve)
+            count = tda.launches[B5]
+            launched += count
+            want_tokens = serve["n_requests"] * serve["max_new"]
+            if (res["tokens"] != want_tokens
+                    or count != n_attn * res["decode_steps"]):
+                raise AssertionError(f"{arch} serve_batch: {res['tokens']} "
+                                     f"tokens, B5 ran {count} times in "
+                                     f"{res['decode_steps']} steps")
+            row["serve"] = dict(tokens=res["tokens"],
+                                decode_steps=res["decode_steps"],
+                                ms_per_step=res["seconds"]
+                                / res["decode_steps"] * 1e3,
+                                b5_launches=count)
+            log(f"lm_families {arch} serve_batch: {res['tokens']} tokens, "
+                f"{res['decode_steps']} decode steps, "
+                f"{row['serve']['ms_per_step']:.3f} ms per step, B5 {count}"
+                f" = {n_attn} x {res['decode_steps']}")
+        rows[arch] = row
+        del model, plain, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    rows["chunked_attention"] = {
+        "gemma-2b/S1024": time_chunked("gemma-2b S=1024", 4, 1024, 8, 1,
+                                       256, 0, True, dev, torch),
+        "gemma3-4b/S2048/global": time_chunked(
+            "gemma3-4b S=2048 global", 2, 2048, 8, 4, 256, 0, True, dev,
+            torch),
+        "gemma3-4b/S2048/local": time_chunked(
+            "gemma3-4b S=2048 window 1024", 2, 2048, 8, 4, 256, 1024,
+            True, dev, torch),
+        "zamba2-2.7b/S2048": time_chunked("zamba2-2.7b S=2048", 2, 2048,
+                                          32, 32, 80, 0, True, dev,
+                                          torch),
+        "whisper-base/enc1500": time_chunked(
+            "whisper-base encoder S=1500", 4, 1500, 8, 8, 64, 0, False,
+            dev, torch),
+        "qwen3-moe/S1024": time_chunked("qwen3-moe S=1024", 2, 1024, 64,
+                                        4, 128, 0, True, dev, torch),
+    }
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    wall = time.perf_counter() - t_phase
+    log(f"lm_families: {wall:.1f} s, peak device memory {peak:.2f} GB "
+        f"(before the phase {peak_before:.2f} GB), B5 launched {launched} "
+        f"times")
+    rows["wall_s"], rows["peak_gb"] = wall, peak
+    return launched, rows
+
+
 def phase_lm_profile(model, params, torch, steps=PROFILE_STEPS,
                      batch=4, max_len=1024):
     """Device time and idle share over ``steps`` decode steps of the
@@ -2782,6 +3264,7 @@ def main(argv=None) -> int:
     lm_profile = phase_lm_profile(model, params, torch)
     del model, params
     torch.cuda.empty_cache()
+    fam_launches, fam_rows = phase_lm_families(torch)
 
     t0 = time.perf_counter()
     g = rmat(16, edge_factor=16, seed=1)
@@ -2874,7 +3357,7 @@ def main(argv=None) -> int:
         {"name": B5, "route": "cuda",
          "source": "src/repro_torch/csrc/decode_attn.cu",
          "replaces": "src/repro/kernels/decode_attn/kernel.py:44",
-         "launches": lm["launches"],
+         "launches": lm["launches"] + fam_launches,
          "max_abs_err": max([lm_err] + [r["err"] for r in lm_times.values()]),
          "ms": serve_t["ms"], "plain_ms": serve_t["plain_ms"],
          "bound_ms": serve_t["bound_ms"], "bound_by": serve_t["bound_by"],
@@ -2885,6 +3368,7 @@ def main(argv=None) -> int:
         "bound_ms_per_step": lm["bound_ms"],
         "idle_share": 1 - lm_profile["device_ms"] / lm_profile["wall_ms"],
         "b5_decode_32k": {k: lm_times[k] for k in ("b_full", "b_half")}}))
+    log("lm_families: " + json.dumps(fam_rows))
     main_ms = {f"{b}/{r}": round(v, 3) for (b, r), v in wall.items()}
     log(f"main path wall ms: {json.dumps(main_ms)}")
     log(f"wcc wall ms: {json.dumps({b: round(v, 3) for b, v in wcc_wall.items()})}")

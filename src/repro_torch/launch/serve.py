@@ -4,10 +4,12 @@
     python -m repro_torch.launch.serve --arch gemma-2b          # smoke config
     python -m repro_torch.launch.serve --arch gemma-2b --full   # published width
 
-Requests arrive with different prompt lengths, are prefilled by stepping
+Every family of ``configs/registry.py`` serves (``--arch whisper-base``,
+``mamba2-370m``, ...).  Requests arrive with different prompt lengths, are prefilled by stepping
 their prompt through the decode step, join the in-flight decode batch, and
 leave when they emit ``max_new`` tokens; slot reuse keeps the decode batch
-full.  The schedule is the reference's exactly: the same numpy prompt queue
+full.  The encoder-decoder's cross K/V are ``max_len`` zero frames, as the
+reference's.  The schedule is the reference's exactly: the same numpy prompt queue
 from ``seed``, every slot stepping together on one shared cache position,
 and a refilled slot keeping the previous request's cache rows.  Each
 layer's attention runs through kernel B5 on the card.
@@ -30,6 +32,7 @@ from .steps import make_decode_step
 __all__ = ["main", "serve_batch"]
 
 
+@torch.inference_mode()
 def serve_batch(
     arch: str,
     *,
@@ -64,7 +67,7 @@ def serve_batch(
     decode = make_decode_step(model, sample=False)
 
     # Slots: continuous batching over a fixed decode batch.
-    cache = model.init_cache(max_batch, max_len)
+    cache = model.init_cache(max_batch, max_len, enc_len=max_len)
     slot_req = [-1] * max_batch
     slot_remaining = [0] * max_batch
     done: dict = {}

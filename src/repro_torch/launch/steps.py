@@ -1,7 +1,9 @@
 """Step functions: the torch twin of the JAX package's
-``repro/launch/steps.py``.  Only ``make_decode_step`` is ported;
-``make_train_step`` and ``make_prefill_step`` come with the training and
-prefill slices (ROADMAP §A A15).
+``repro/launch/steps.py``.  ``make_prefill_step`` and ``make_decode_step``
+are ported; ``make_train_step`` comes with the training slice (ROADMAP §A
+A15.2).  The reference jit-compiles these steps; the port runs them
+eagerly, under ``torch.inference_mode()`` (``Model.prefill`` and
+``Model.decode_step`` enter it).
 """
 from __future__ import annotations
 
@@ -9,14 +11,22 @@ import torch
 
 from ..models.model import Model
 
-__all__ = ["make_decode_step"]
+__all__ = ["make_decode_step", "make_prefill_step"]
+
+
+def make_prefill_step(model: Model, unroll: bool = False):
+    """(params, batch) -> (last-token logits, primed decode cache)."""
+
+    def prefill_step(params, batch):
+        return model.prefill(params, batch, unroll=unroll)
+
+    return prefill_step
 
 
 def make_decode_step(model: Model, sample: bool = False):
     """(params, cache, tokens[B,1]) -> (next_tokens[B,1], logits, cache).
 
     ``sample`` is kept for the reference's signature: both pick the argmax.
-    The reference jit-compiles this step; the port runs it eagerly.
     """
 
     def decode_step(params, cache, tokens):

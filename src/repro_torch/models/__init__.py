@@ -1,4 +1,5 @@
-"""The LM stack's dense-family decode path (torch twin of ``repro.models``)."""
+"""The LM stack's serving path for every family (torch twin of
+``repro.models``)."""
 from .model import Model, build_model
 
 __all__ = ["Model", "build_model"]

@@ -1,6 +1,5 @@
-"""Grouped-query attention, cached decode: the torch twin of the JAX
-package's ``repro/models/attention.py`` (``init_attention``, ``KVCache``,
-``init_kv_cache``, ``_project_qkv`` and ``attn_decode``).
+"""Grouped-query attention, full-sequence and cached decode: the torch twin
+of the JAX package's ``repro/models/attention.py``.
 
 The decode path keeps the paper's discipline: the O(1) query state stays in
 fast memory while the O(seq) KV cache is streamed, and sliding-window layers
@@ -9,9 +8,12 @@ attention after the cache write runs through B5
 (``repro_torch.kernels.decode_attn.decode_attention``): the CUDA kernel on
 the card, its plain version on the CPU.
 
-The full-sequence and cross-attention paths (``attn_full``, ``_sdpa``,
-``attn_cross``, ``project_kv``) wait for the prefill, training and
-encoder-decoder slices of the port.
+The full-sequence path (``attn_full``, training and prefill) takes the
+dense ``_sdpa`` below ``FLASH_MIN_SEQ`` query rows and the chunked
+``flash_attention`` (``models/flash.py``) from there on, as the reference
+does; ``attn_cross`` and ``project_kv`` are the encoder-decoder's cross
+attention.  Neither is a TPU kernel in the reference: their counterparts
+are plain torch.
 """
 from __future__ import annotations
 
@@ -21,10 +23,16 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels.decode_attn import decode_attention
+from .flash import NEG_INF, TileTable, flash_attention, pick_chunk
 from .layers import apply_rope, rmsnorm
 from .param import Mk
 
-__all__ = ["KVCache", "attn_decode", "init_attention", "init_kv_cache"]
+__all__ = ["FLASH_MIN_SEQ", "KVCache", "attn_cross", "attn_decode",
+           "attn_full", "init_attention", "init_kv_cache", "project_kv"]
+
+# Above this many query rows the dense [B,H,S,T] score tensor is replaced by
+# the chunked online-softmax path (models/flash.py).
+FLASH_MIN_SEQ = 1024
 
 
 def init_attention(mk: Mk, cfg: ModelConfig, layers: Optional[int] = None):
@@ -76,9 +84,71 @@ def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig, positions):
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"]["w"])
         k = rmsnorm(k, p["k_norm"]["w"])
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.pos == "rope":
+        sec = cfg.m_rope_sections
+        q = apply_rope(q, positions, cfg.rope_theta, sec)
+        k = apply_rope(k, positions, cfg.rope_theta, sec)
     return q, k, v
+
+
+def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """``einsum('bshk,hkd->bsd', out, wo)`` as one matrix product."""
+    h, k, d = wo.shape
+    return out.reshape(*out.shape[:-2], h * k) @ wo.reshape(h * k, d)
+
+
+def _sdpa(q, k, v, mask):
+    """Grouped SDPA.  q: [B,S,H,hd]; k/v: [B,T,KV,hd]; mask: [B,S,T] or
+    [S,T].  f32 scores of the bf16 operands, the probabilities rounded to
+    q's dtype before the p.v product, as the reference does (ROADMAP §C
+    P9)."""
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, s, kvh, h // kvh, hd)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float())
+    scores = scores * (hd**-0.5)
+    if mask.dim() == 2:
+        mask = mask[None]
+    scores = scores.masked_fill(~mask[:, None, None], NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+    return out.reshape(b, s, h, hd)
+
+
+def _attention(q, k, v, pos1d, window: int, causal: bool, tiles):
+    """The attention of ``attn_full`` after the projections."""
+    s = q.shape[1]
+    if s >= FLASH_MIN_SEQ:
+        cq, ck = pick_chunk(s, 512), pick_chunk(s, 1024)
+        if tiles is None or (tiles.cq, tiles.ck) != (cq, ck):
+            tiles = TileTable(pos1d, pos1d, cq, ck)
+        return flash_attention(q, k, v, pos1d, pos1d, window, causal,
+                               q.shape[-1]**-0.5, cq, ck,
+                               live=tiles.live(window, causal))
+    qp = pos1d[..., :, None]
+    kp = pos1d[..., None, :]
+    if causal:
+        mask = kp <= qp
+    else:
+        mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if window:
+        mask = mask & (kp > qp - window)
+    return _sdpa(q, k, v, mask)
+
+
+def attn_full(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
+              window: int = 0, causal: bool = True,
+              tiles: Optional[TileTable] = None, return_kv: bool = False):
+    """Full-sequence attention (training / prefill).  ``window > 0`` is
+    sliding-window attention.  ``tiles`` is the forward's table of live
+    flash tiles over these positions (made here when None);
+    ``return_kv=True`` also returns the projected K and V, which prefill
+    lays into the decode cache."""
+    pos1d = positions[0] if cfg.m_rope_sections else positions
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    out = _out_proj(_attention(q, k, v, pos1d, int(window), causal, tiles),
+                    p["wo"])
+    return (out, k, v) if return_kv else out
 
 
 def attn_decode(
@@ -92,8 +162,8 @@ def attn_decode(
 ) -> tuple[torch.Tensor, KVCache]:
     """One-token decode against the cache.
 
-    x: [B, 1, d]; positions: [B, 1] int32 — the absolute position of the
-    new token.  The new K/V/pos land at slot
+    x: [B, 1, d]; positions: [B, 1] int32 (or [3, B, 1] for M-RoPE) — the
+    absolute position of the new token.  The new K/V/pos land at slot
     ``pos % T`` (full cache: T >= max positions, so this is just ``pos``;
     window cache: rotating overwrite, so evicted tokens are unreachable).
 
@@ -111,7 +181,7 @@ def attn_decode(
     """
     q, k_new, v_new = _project_qkv(p, x, cfg, positions)
     b, t = cache.pos.shape
-    pos1d = positions[:, 0]  # [B]
+    pos1d = (positions[0] if cfg.m_rope_sections else positions)[:, 0]  # [B]
     slot = (pos1d % t).long()
     bidx = torch.arange(b, device=x.device)
     cache.k.index_put_((bidx, slot), k_new[:, 0])
@@ -123,3 +193,28 @@ def attn_decode(
     out = out.to(x.dtype).reshape(b, 1, h * hd)
     out = out @ p["wo"].reshape(h * hd, -1)
     return out, cache
+
+
+def attn_cross(p, x: torch.Tensor, enc_k: torch.Tensor, enc_v: torch.Tensor,
+               cfg: ModelConfig) -> torch.Tensor:
+    """Cross-attention over precomputed encoder K/V (whisper decoder): no
+    mask, the chunked path once either side reaches ``FLASH_MIN_SEQ``."""
+    q = _proj(x, p["wq"])
+    b, s = x.shape[:2]
+    t = enc_k.shape[1]
+    if s >= FLASH_MIN_SEQ or t >= FLASH_MIN_SEQ:
+        ar = dict(dtype=torch.int32, device=x.device)
+        pos_q = torch.arange(s, **ar)[None].expand(b, s)
+        pos_k = torch.arange(t, **ar)[None].expand(b, t)
+        out = flash_attention(q, enc_k, enc_v, pos_q, pos_k, 0, False,
+                              cfg.head_dim**-0.5, pick_chunk(s, 512),
+                              pick_chunk(t, 1024))
+    else:
+        mask = torch.ones((s, t), dtype=torch.bool, device=x.device)
+        out = _sdpa(q, enc_k, enc_v, mask)
+    return _out_proj(out, p["wo"])
+
+
+def project_kv(p, x_enc: torch.Tensor, cfg: ModelConfig):
+    """Encoder-side K/V for cross attention (computed once per request)."""
+    return _proj(x_enc, p["wk"]), _proj(x_enc, p["wv"])

@@ -3,9 +3,9 @@
 
 The reference's ``shard_ctx.constrain`` calls are left out: with no mesh
 they do nothing.  Parameters are nested dicts of tensors with the JAX
-tree's keys, shapes and layouts.  Only what the dense family uses is here:
-the untied head, learned positions, the ungated MLP and M-RoPE come with
-the families that use them (ROADMAP §A A15).
+tree's keys, shapes and layouts: the untied head and learned positions
+where a configuration asks for them, the ungated MLP (whisper) and M-RoPE
+sections (qwen2-vl) beside the dense family's pieces.
 """
 from __future__ import annotations
 
@@ -59,11 +59,13 @@ def init_rmsnorm(mk: Mk, d: int, layers: Optional[int] = None):
 
 def init_mlp(mk: Mk, cfg: ModelConfig, layers: Optional[int] = None):
     d, ff = cfg.d_model, cfg.d_ff
-    return {
+    p = {
         "up": mk.param((d, ff), layers=layers),
         "down": mk.param((ff, d), layers=layers),
-        "gate": mk.param((d, ff), layers=layers),
     }
+    if cfg.gated_mlp:
+        p["gate"] = mk.param((d, ff), layers=layers)
+    return p
 
 
 def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -75,16 +77,27 @@ def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
 
 
 def mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Gated MLP: GeGLU or SwiGLU."""
-    h = _act(x @ p["gate"], cfg.act) * (x @ p["up"])
+    """Gated MLP (GeGLU or SwiGLU), or the plain two-layer one
+    (``gated_mlp=False``)."""
+    up = x @ p["up"]
+    if cfg.gated_mlp:
+        h = _act(x @ p["gate"], cfg.act) * up
+    else:
+        h = _act(up, cfg.act)
     return h @ p["down"]
 
 
 def init_embedding(mk: Mk, cfg: ModelConfig):
     # d^-0.5 table init keeps tied-unembed logits O(1) at init (archs with
     # embed_scale multiply inputs back up by sqrt(d), gemma-style).
-    return {"table": mk.param((cfg.vocab_padded, cfg.d_model),
-                              scale=cfg.d_model**-0.5)}
+    p = {"table": mk.param((cfg.vocab_padded, cfg.d_model),
+                           scale=cfg.d_model**-0.5)}
+    if not cfg.tie_embeddings:
+        p["head"] = mk.param((cfg.d_model, cfg.vocab_padded),
+                             scale=cfg.d_model**-0.5)
+    if cfg.pos == "learned":
+        p["pos"] = mk.param((cfg.max_pos, cfg.d_model), scale=0.02)
+    return p
 
 
 def embed(p, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -97,15 +110,15 @@ def embed(p, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def unembed(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """f32 logits [..., V] of a bf16 product with the tied table, never
-    rounded to bf16.
+    """f32 logits [..., V] of a bf16 product with the tied table (or the
+    untied ``head``), never rounded to bf16.
 
     On the card ``torch.mm(..., out_dtype=torch.float32)`` accumulates in
     f32 and writes f32 from the bf16 operands, as the reference's
     ``preferred_element_type``.  The CPU build has no such ``mm``: there
     both operands are upcast, which gives the same exact f32 products.
     """
-    table = p["table"].T
+    table = p["table"].T if cfg.tie_embeddings else p["head"]
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x2.device.type == "cuda":
@@ -129,13 +142,35 @@ def rope(positions: torch.Tensor, dim: int, theta: float) -> tuple:
     return torch.cos(ang), torch.sin(ang)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """Rotary embedding on [..., S, H, hd] at positions [..., S]."""
-    half = x.shape[-1] // 2
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               sections: tuple = ()) -> torch.Tensor:
+    """Rotary embedding on [..., S, H, hd].
+
+    ``sections`` (pairs per section) enables qwen2-vl M-RoPE: ``positions``
+    is then [3, ..., S] (t/h/w) and each head-dim section rotates by its own
+    position stream.  Empty sections: standard 1D RoPE at positions
+    [..., S].
+    """
+    hd = x.shape[-1]
+    half = hd // 2
     xf = x.float()
     x1, x2 = xf[..., :half], xf[..., half:]
-    cos, sin = rope(positions, x.shape[-1], theta)
-    cos, sin = cos[..., None, :], sin[..., None, :]  # broadcast over heads
+    if sections:
+        assert sum(sections) == half, (sections, half)
+        cos_parts, sin_parts = [], []
+        for i, sec in enumerate(sections):
+            lo = sum(sections[:i])
+            exps = torch.arange(lo, lo + sec, dtype=torch.float32,
+                                device=x.device) * 2 / hd
+            freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32),
+                                    exps)
+            ang = positions[i].float()[..., None] * freqs
+            cos_parts.append(torch.cos(ang))
+            sin_parts.append(torch.sin(ang))
+        cos = torch.cat(cos_parts, -1)[..., None, :]
+        sin = torch.cat(sin_parts, -1)[..., None, :]
+    else:
+        cos, sin = rope(positions, hd, theta)
+        cos, sin = cos[..., None, :], sin[..., None, :]  # broadcast over heads
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)

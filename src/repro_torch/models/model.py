@@ -1,18 +1,31 @@
-"""Model assembly, dense family, cached decode: the torch twin of the JAX
-package's ``repro/models/model.py`` (``Model.init``, ``layer_windows``,
-``init_cache``, ``decode_step`` and ``build_model``).
+"""Model assembly for every architecture family: the torch twin of the JAX
+package's ``repro/models/model.py``.
 
-The dense family is a pre-norm GQA transformer (optional sliding windows,
-a local:global pattern, qk-norm, GeGLU/SwiGLU).  ``decode_step``
-runs the layers unrolled, so each layer's cache keeps its own length
-(window or full).  Parameters are a nested dict of tensors with the JAX
-tree's keys; the layer parameters are stacked along a leading layer axis
-under ``blocks``, as the JAX package stacks them for its layer scan.
+One :class:`Model` covers:
+  dense / vlm — pre-norm GQA transformer (optional sliding windows, a
+                local:global pattern, M-RoPE, qk-norm, GeGLU/SwiGLU)
+  moe         — dense attention + top-k expert FFN
+  ssm         — mamba2 (SSD) stack
+  hybrid      — mamba2 stack + ONE shared attention+MLP block applied every
+                ``attn_every`` layers (zamba2)
+  encdec      — whisper-style encoder/decoder with cross attention
 
-Not ported yet (ROADMAP A15): ``forward`` and ``prefill`` (with
-``attn_full`` and ``models/flash.py``), and the moe, ssm, hybrid, encdec
-and vlm families.  The reference's mesh hooks (``set_mesh``,
-``_constrain*``) have no meaning on one card.
+Execution paths:
+  * ``forward``     — full-sequence logits (the training-path oracle).
+  * ``prefill``     — full sequence -> (last-token logits, decode cache).
+  * ``decode_step`` — one token against the cache, through B5 (the decode
+    attention kernel) on every attention layer; each layer's cache keeps
+    its own length (window or full).
+
+Parameters are a nested dict of tensors with the JAX tree's keys; the
+layer parameters are stacked along a leading layer axis under ``blocks``
+(and ``encoder``), as the JAX package stacks them for its layer scan.  The
+layers run as a Python loop: the reference's ``lax.scan`` and its
+``lax.cond`` on the hybrid's shared block become a loop over the static
+layer index, so ``unroll`` changes nothing, and ``remat`` (activation
+recomputation) matters only to training memory.  The reference's mesh
+hooks (``set_mesh``, ``_constrain*``) have no meaning on one card.
+``prefill`` and ``decode_step`` run under ``torch.inference_mode()``.
 """
 from __future__ import annotations
 
@@ -23,7 +36,17 @@ import torch
 from .._device import resolve_device
 from ..configs.base import ModelConfig
 from ..kernels.decode_attn import decode_attention
-from .attention import attn_decode, init_attention, init_kv_cache
+from .attention import (
+    FLASH_MIN_SEQ,
+    KVCache,
+    attn_cross,
+    attn_decode,
+    attn_full,
+    init_attention,
+    init_kv_cache,
+    project_kv,
+)
+from .flash import TileTable, pick_chunk
 from .layers import (
     embed,
     init_embedding,
@@ -34,27 +57,42 @@ from .layers import (
     rmsnorm,
     unembed,
 )
+from .mamba2 import init_mamba2, init_ssm_cache, mamba2_decode, mamba2_full
+from .moe import init_moe, moe_apply
 from .param import Mk
 
 __all__ = ["Model", "build_model"]
 
-_NOT_PORTED = ("the {} family is not ported yet (ROADMAP §A A15: the moe, "
-               "ssm/hybrid, enc-dec and vlm families come after prefill and "
-               "training)")
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
+_ATTN = ("dense", "vlm", "moe")
+_REMAT = ("none", "dots", "full")
+
+
+def _at(tree, l: int):
+    """Layer ``l`` of a stacked parameter tree."""
+    return {k: _at(v, l) if isinstance(v, dict) else v[l]
+            for k, v in tree.items()}
+
+
+def _default_positions(tokens: torch.Tensor) -> torch.Tensor:
+    b, s = tokens.shape
+    return torch.arange(s, dtype=torch.int32,
+                        device=tokens.device)[None].expand(b, s)
 
 
 class Model:
     """One architecture on one device.
 
-    ``attention`` is the decode-attention function every layer calls after
-    its cache write: B5's ``decode_attention`` (the default), or its plain
-    version ``decode_attention_plain`` to hold the kernel against it.
+    ``attention`` is the decode-attention function every attention layer
+    calls after its cache write: B5's ``decode_attention`` (the default),
+    or its plain version ``decode_attention_plain`` to hold the kernel
+    against it.
     """
 
     def __init__(self, cfg: ModelConfig, device=None,
                  attention: Callable = decode_attention):
-        if cfg.family != "dense":
-            raise NotImplementedError(_NOT_PORTED.format(cfg.family))
+        if cfg.family not in FAMILIES:
+            raise ValueError(f"unknown family {cfg.family!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.attention = attention
@@ -67,17 +105,41 @@ class Model:
         card."""
         cfg = self.cfg
         mk = Mk(generator, self.device)
-        n = cfg.n_layers
-        return {
-            "embed": init_embedding(mk, cfg),
-            "final_norm": init_rmsnorm(mk, cfg.d_model),
-            "blocks": {
-                "ln1": init_rmsnorm(mk, cfg.d_model, layers=n),
-                "attn": init_attention(mk, cfg, layers=n),
-                "ln2": init_rmsnorm(mk, cfg.d_model, layers=n),
-                "mlp": init_mlp(mk, cfg, layers=n),
-            },
-        }
+        n, d = cfg.n_layers, cfg.d_model
+        params = {"embed": init_embedding(mk, cfg),
+                  "final_norm": init_rmsnorm(mk, d)}
+        if cfg.family in _ATTN:
+            blocks = {"ln1": init_rmsnorm(mk, d, layers=n),
+                      "attn": init_attention(mk, cfg, layers=n),
+                      "ln2": init_rmsnorm(mk, d, layers=n)}
+            if cfg.family == "moe":
+                blocks["moe"] = init_moe(mk, cfg, layers=n)
+            else:
+                blocks["mlp"] = init_mlp(mk, cfg, layers=n)
+            params["blocks"] = blocks
+        elif cfg.family in ("ssm", "hybrid"):
+            params["blocks"] = {"ln": init_rmsnorm(mk, d, layers=n),
+                                "ssm": init_mamba2(mk, cfg, layers=n)}
+            if cfg.family == "hybrid":
+                params["shared"] = {"ln1": init_rmsnorm(mk, d),
+                                    "attn": init_attention(mk, cfg),
+                                    "ln2": init_rmsnorm(mk, d),
+                                    "mlp": init_mlp(mk, cfg)}
+        else:  # encdec
+            e = cfg.encoder_layers
+            params["encoder"] = {"ln1": init_rmsnorm(mk, d, layers=e),
+                                 "attn": init_attention(mk, cfg, layers=e),
+                                 "ln2": init_rmsnorm(mk, d, layers=e),
+                                 "mlp": init_mlp(mk, cfg, layers=e)}
+            params["blocks"] = {"ln1": init_rmsnorm(mk, d, layers=n),
+                                "self_attn": init_attention(mk, cfg, layers=n),
+                                "ln_x": init_rmsnorm(mk, d, layers=n),
+                                "cross_attn": init_attention(mk, cfg,
+                                                             layers=n),
+                                "ln2": init_rmsnorm(mk, d, layers=n),
+                                "mlp": init_mlp(mk, cfg, layers=n)}
+            params["enc_norm"] = init_rmsnorm(mk, d)
+        return params
 
     # ------------------------------------------------- layer windows
     def layer_windows(self) -> list:
@@ -94,57 +156,369 @@ class Model:
                 w.append(cfg.sliding_window)
         return w
 
+    def _has_shared_attn(self, l: int) -> bool:
+        """Whether hybrid layer ``l`` is followed by the shared block."""
+        return (l + 1) % self.cfg.attn_every == 0
+
+    # ------------------------------------------------------------ forward
+    def forward(self, params, batch: dict, *, remat: str = "none",
+                unroll: bool = False, return_hidden: bool = False):
+        """Full-sequence logits.  Returns (logits [B,S,V] f32, aux_loss), or
+        the final-normed hidden state in place of the logits when
+        ``return_hidden``."""
+        if remat not in _REMAT:
+            raise ValueError(remat)
+        cfg = self.cfg
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        if cfg.family == "encdec":
+            enc_out = self.encode(params, batch)
+            x, positions = self._embed_decoder(params, batch)
+        else:
+            x, positions = self._embed_inputs(params, batch)
+        tiles = self._tiles(positions)
+
+        if cfg.family in _ATTN:
+            windows = self.layer_windows()
+            for l in range(cfg.n_layers):
+                bp = _at(params["blocks"], l)
+                h = rmsnorm(x, bp["ln1"]["w"])
+                x = residual_add(x, attn_full(bp["attn"], h, cfg, positions,
+                                              windows[l], tiles=tiles))
+                h = rmsnorm(x, bp["ln2"]["w"])
+                if cfg.family == "moe":
+                    h, a = moe_apply(bp["moe"], h, cfg)
+                    aux = aux + a
+                else:
+                    h = mlp(bp["mlp"], h, cfg)
+                x = residual_add(x, h)
+        elif cfg.family in ("ssm", "hybrid"):
+            for l in range(cfg.n_layers):
+                bp = _at(params["blocks"], l)
+                h = rmsnorm(x, bp["ln"]["w"])
+                x = residual_add(x, mamba2_full(bp["ssm"], h, cfg))
+                if cfg.family == "hybrid" and self._has_shared_attn(l):
+                    x = self._shared_block(params["shared"], x, positions,
+                                           tiles)[0]
+        else:  # encdec
+            for l in range(cfg.n_layers):
+                x = self._dec_layer(_at(params["blocks"], l), x, positions,
+                                    tiles, enc_out)[0]
+
+        x = rmsnorm(x, params["final_norm"]["w"])
+        if return_hidden:
+            return x, aux
+        return unembed(params["embed"], x, cfg), aux
+
+    def _shared_block(self, shared, x, positions, tiles):
+        """The hybrid's shared attention + MLP block; returns (x, k, v)."""
+        cfg = self.cfg
+        h = rmsnorm(x, shared["ln1"]["w"])
+        out, k, v = attn_full(shared["attn"], h, cfg, positions, tiles=tiles,
+                              return_kv=True)
+        x = residual_add(x, out)
+        h = rmsnorm(x, shared["ln2"]["w"])
+        return residual_add(x, mlp(shared["mlp"], h, cfg)), k, v
+
+    def _dec_layer(self, bp, x, positions, tiles, enc_out):
+        """One decoder layer of the encoder-decoder; returns (x, self K,
+        self V, cross K, cross V)."""
+        cfg = self.cfg
+        h = rmsnorm(x, bp["ln1"]["w"])
+        out, k, v = attn_full(bp["self_attn"], h, cfg, positions,
+                              tiles=tiles, return_kv=True)
+        x = residual_add(x, out)
+        h = rmsnorm(x, bp["ln_x"]["w"])
+        ek, ev = project_kv(bp["cross_attn"], enc_out, cfg)
+        x = residual_add(x, attn_cross(bp["cross_attn"], h, ek, ev, cfg))
+        h = rmsnorm(x, bp["ln2"]["w"])
+        return residual_add(x, mlp(bp["mlp"], h, cfg)), k, v, ek, ev
+
+    # ------------------------------------------------------------ encoder
+    def encode(self, params, batch: dict):
+        """Whisper encoder over stubbed frame embeddings [B, S, d]."""
+        cfg = self.cfg
+        x = batch["frames"].to(torch.bfloat16)
+        b, s = x.shape[:2]
+        if cfg.pos == "learned":
+            x = x + params["embed"]["pos"][:s][None]
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=x.device)[None].expand(b, s)
+        for l in range(cfg.encoder_layers):
+            bp = _at(params["encoder"], l)
+            h = rmsnorm(x, bp["ln1"]["w"])
+            x = residual_add(x, attn_full(bp["attn"], h, cfg, positions,
+                                          causal=False))
+            h = rmsnorm(x, bp["ln2"]["w"])
+            x = residual_add(x, mlp(bp["mlp"], h, cfg))
+        return rmsnorm(x, params["enc_norm"]["w"])
+
     # ------------------------------------------------------------ caches
-    def init_cache(self, batch: int, max_len: int):
-        """The decode cache: one :class:`KVCache` per layer, window-sized on
-        sliding-window layers, and the shared position ``len`` (a Python
-        int here, where the reference keeps a device scalar)."""
+    def init_cache(self, batch: int, max_len: int, enc_len: int = 0):
+        """The decode cache: per layer a :class:`KVCache` (window-sized on
+        sliding-window layers), an ``SSMCache``, the hybrid's dict of both,
+        or the encoder-decoder's self cache and cross K/V; and the shared
+        position ``len`` (a Python int here, where the reference keeps a
+        device scalar)."""
+        cfg, dev = self.cfg, self.device
         caches = []
-        for w in self.layer_windows():
-            length = min(w, max_len) if w else max_len
-            caches.append(init_kv_cache(batch, length, self.cfg, self.device))
+        if cfg.family in _ATTN:
+            for w in self.layer_windows():
+                length = min(w, max_len) if w else max_len
+                caches.append(init_kv_cache(batch, length, cfg, dev))
+        elif cfg.family == "ssm":
+            caches = [init_ssm_cache(batch, cfg, dev)
+                      for _ in range(cfg.n_layers)]
+        elif cfg.family == "hybrid":
+            for l in range(cfg.n_layers):
+                entry = {"ssm": init_ssm_cache(batch, cfg, dev)}
+                if self._has_shared_attn(l):
+                    entry["attn"] = init_kv_cache(batch, max_len, cfg, dev)
+                caches.append(entry)
+        else:  # encdec
+            shape = (batch, enc_len, cfg.n_kv_heads, cfg.head_dim)
+            for _ in range(cfg.n_layers):
+                caches.append({
+                    "self": init_kv_cache(batch, max_len, cfg, dev),
+                    "cross_k": torch.zeros(shape, dtype=torch.bfloat16,
+                                           device=dev),
+                    "cross_v": torch.zeros(shape, dtype=torch.bfloat16,
+                                           device=dev),
+                })
         return {"layers": tuple(caches), "len": 0}
 
     # ------------------------------------------------------------ decode
+    @torch.inference_mode()
     def decode_step(self, params, cache, tokens: torch.Tensor):
         """One new token per sequence. tokens: [B, 1] -> (logits [B, V] f32,
-        cache).  Every row takes position ``cache['len']``; the layer caches
-        are written in place and the returned cache holds ``len + 1``."""
+        cache).  Every row takes position ``cache['len']``; attention caches
+        are written in place, and the returned cache holds ``len + 1``."""
         cfg = self.cfg
         pos = cache["len"]
         b = tokens.shape[0]
         positions = torch.full((b, 1), pos, dtype=torch.int32,
                                device=tokens.device)
+        if cfg.m_rope_sections:
+            positions = positions[None].expand(3, b, 1)
 
         x = embed(params["embed"], tokens, cfg)
-        blocks = params["blocks"]
+        if cfg.pos == "learned":
+            x = x + params["embed"]["pos"][pos][None, None]
+
+        attend = self.attention
         windows = self.layer_windows()
+        new_layers = []
         for l in range(cfg.n_layers):
-            h = rmsnorm(x, blocks["ln1"]["w"][l])
-            attn = {key: (val[l] if isinstance(val, torch.Tensor)
-                          else {"w": val["w"][l]})
-                    for key, val in blocks["attn"].items()}
-            h, _ = attn_decode(attn, h, cache["layers"][l], cfg, positions,
-                               windows[l], attend=self.attention)
-            x = residual_add(x, h)
-            h = rmsnorm(x, blocks["ln2"]["w"][l])
-            h = mlp({key: val[l] for key, val in blocks["mlp"].items()}, h,
-                    cfg)
-            x = residual_add(x, h)
+            bp = _at(params["blocks"], l)
+            lc = cache["layers"][l]
+            if cfg.family in _ATTN:
+                h = rmsnorm(x, bp["ln1"]["w"])
+                h, lc = attn_decode(bp["attn"], h, lc, cfg, positions,
+                                    windows[l], attend=attend)
+                x = residual_add(x, h)
+                h = rmsnorm(x, bp["ln2"]["w"])
+                if cfg.family == "moe":
+                    h, _ = moe_apply(bp["moe"], h, cfg)
+                else:
+                    h = mlp(bp["mlp"], h, cfg)
+                x = residual_add(x, h)
+            elif cfg.family == "ssm":
+                h = rmsnorm(x, bp["ln"]["w"])
+                h, lc = mamba2_decode(bp["ssm"], h, lc, cfg)
+                x = residual_add(x, h)
+            elif cfg.family == "hybrid":
+                h = rmsnorm(x, bp["ln"]["w"])
+                h, ssm_c = mamba2_decode(bp["ssm"], h, lc["ssm"], cfg)
+                x = residual_add(x, h)
+                lc = dict(lc, ssm=ssm_c)
+                if "attn" in lc:
+                    shared = params["shared"]
+                    h = rmsnorm(x, shared["ln1"]["w"])
+                    h, _ = attn_decode(shared["attn"], h, lc["attn"], cfg,
+                                       positions, attend=attend)
+                    x = residual_add(x, h)
+                    h = rmsnorm(x, shared["ln2"]["w"])
+                    x = residual_add(x, mlp(shared["mlp"], h, cfg))
+            else:  # encdec
+                h = rmsnorm(x, bp["ln1"]["w"])
+                h, _ = attn_decode(bp["self_attn"], h, lc["self"], cfg,
+                                   positions, attend=attend)
+                x = residual_add(x, h)
+                h = rmsnorm(x, bp["ln_x"]["w"])
+                x = residual_add(x, attn_cross(bp["cross_attn"], h,
+                                               lc["cross_k"], lc["cross_v"],
+                                               cfg))
+                h = rmsnorm(x, bp["ln2"]["w"])
+                x = residual_add(x, mlp(bp["mlp"], h, cfg))
+            new_layers.append(lc)
 
         x = rmsnorm(x, params["final_norm"]["w"])
         logits = unembed(params["embed"], x[:, 0], cfg)
-        return logits, {"layers": cache["layers"], "len": pos + 1}
+        return logits, {"layers": tuple(new_layers), "len": pos + 1}
 
-    def forward(self, *args, **kwargs):
-        raise NotImplementedError(
-            "Model.forward is not ported yet (ROADMAP §A A15, step 1: "
-            "forward/prefill with attn_full and models/flash.py)")
+    # ------------------------------------------------------------ prefill
+    @torch.inference_mode()
+    def prefill(self, params, batch: dict, unroll: bool = False,
+                max_len=None):
+        """Full-sequence pass returning (last-token logits, primed cache).
 
-    def prefill(self, *args, **kwargs):
-        raise NotImplementedError(
-            "Model.prefill is not ported yet (ROADMAP §A A15, step 1: "
-            "forward/prefill with attn_full and models/flash.py)")
+        ``max_len`` sizes the decode cache (default: exactly the prompt
+        length, a FULL cache whose next write rotates out position 0;
+        serving passes prompt + generation budget so slots are free).  Only
+        the last position is unembedded: serving never reads the others."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        max_len = max_len or s
+        if cfg.family in _ATTN:
+            return self._prefill_fused(params, batch, max_len)
+        if cfg.family in ("ssm", "hybrid"):
+            return self._prefill_fused_ssm(params, batch, max_len)
+        hidden, _ = self.forward(params, batch, return_hidden=True)
+        logits = unembed(params["embed"], hidden[:, -1], cfg)
+        cache = self.init_cache(
+            b, max_len, enc_len=batch.get("frames", tokens).shape[1])
+        return logits, self._prime_cache(params, batch, cache)
+
+    @staticmethod
+    def _cache_layout(k, v, pos, t_alloc: int, s: int) -> KVCache:
+        """Lay the (tail of the) prefilled K/V into a ``t_alloc``-slot
+        rotating cache keeping the invariant ``slot == pos % t_alloc`` that
+        decode relies on to evict the oldest entry.  Contiguous buffers in
+        every case: B5 and the in-place decode writes need them."""
+        if t_alloc == s:
+            return KVCache(k=k.contiguous(), v=v.contiguous(),
+                           pos=pos.contiguous())
+        b = k.shape[0]
+        keep = min(s, t_alloc)
+        k_t, v_t, p_t = k[:, s - keep:], v[:, s - keep:], pos[:, s - keep:]
+        slots = (p_t % t_alloc).long()
+        bidx = torch.arange(b, device=k.device)[:, None]
+        k_buf = torch.zeros((b, t_alloc) + tuple(k.shape[2:]), dtype=k.dtype,
+                            device=k.device)
+        v_buf = torch.zeros_like(k_buf)
+        p_buf = torch.full((b, t_alloc), -1, dtype=torch.int32,
+                           device=k.device)
+        k_buf[bidx, slots] = k_t
+        v_buf[bidx, slots] = v_t
+        p_buf[bidx, slots] = p_t.to(torch.int32)
+        return KVCache(k=k_buf, v=v_buf, pos=p_buf)
+
+    def _prefill_fused(self, params, batch: dict, max_len: int):
+        """dense/vlm/moe prefill: one pass computing the last logits AND the
+        cache.  Each layer's K/V is laid into its cache as the layer ends
+        (window layers keep only their last ``w`` positions, in rotating
+        slot order)."""
+        cfg = self.cfg
+        s = batch["tokens"].shape[1]
+        x, positions = self._embed_inputs(params, batch)
+        pos1d = positions[0] if cfg.m_rope_sections else positions
+        tiles = self._tiles(positions)
+        layers = []
+        for l, w in enumerate(self.layer_windows()):
+            bp = _at(params["blocks"], l)
+            h = rmsnorm(x, bp["ln1"]["w"])
+            out, k, v = attn_full(bp["attn"], h, cfg, positions, w,
+                                  tiles=tiles, return_kv=True)
+            x = residual_add(x, out)
+            h = rmsnorm(x, bp["ln2"]["w"])
+            if cfg.family == "moe":
+                hh, _ = moe_apply(bp["moe"], h, cfg)
+            else:
+                hh = mlp(bp["mlp"], h, cfg)
+            x = residual_add(x, hh)
+            layers.append(self._cache_layout(
+                k, v, pos1d, min(w, max_len) if w else max_len, s))
+        x = rmsnorm(x, params["final_norm"]["w"])
+        logits = unembed(params["embed"], x[:, -1], cfg)
+        return logits, {"layers": tuple(layers), "len": s}
+
+    def _prefill_fused_ssm(self, params, batch: dict, max_len: int):
+        """ssm/hybrid prefill: each layer's SSM state (and, for the hybrid,
+        the shared block's K/V) taken as the layer runs."""
+        cfg = self.cfg
+        s = batch["tokens"].shape[1]
+        x, positions = self._embed_inputs(params, batch)
+        pos1d = positions[0] if cfg.m_rope_sections else positions
+        tiles = self._tiles(positions)
+        layers = []
+        for l in range(cfg.n_layers):
+            bp = _at(params["blocks"], l)
+            h = rmsnorm(x, bp["ln"]["w"])
+            y, st = mamba2_full(bp["ssm"], h, cfg, return_state=True)
+            x = residual_add(x, y)
+            if cfg.family == "ssm":
+                layers.append(st)
+                continue
+            entry = {"ssm": st}
+            if self._has_shared_attn(l):
+                x, k, v = self._shared_block(params["shared"], x, positions,
+                                             tiles)
+                entry["attn"] = self._cache_layout(k, v, pos1d, max_len, s)
+            layers.append(entry)
+        x = rmsnorm(x, params["final_norm"]["w"])
+        logits = unembed(params["embed"], x[:, -1], cfg)
+        return logits, {"layers": tuple(layers), "len": s}
+
+    def _prime_cache(self, params, batch, cache):
+        """The encoder-decoder's cache: re-run the decoder stack to fill each
+        layer's self K/V (at ``slot == pos % T``) and its cross K/V, as the
+        reference's prefill does after its forward."""
+        cfg = self.cfg
+        enc_out = self.encode(params, batch)
+        x, positions = self._embed_decoder(params, batch)
+        b, s = positions.shape
+        tiles = self._tiles(positions)
+        layers = list(cache["layers"])
+        for l in range(cfg.n_layers):
+            x, k, v, ek, ev = self._dec_layer(_at(params["blocks"], l), x,
+                                              positions, tiles, enc_out)
+            sc = layers[l]["self"]
+            t = sc.pos.shape[1]
+            take = min(t, s)
+            slots = (positions[:, s - take:] % t).long()
+            bidx = torch.arange(b, device=x.device)[:, None]
+            sc.k[bidx, slots] = k[:, s - take:]
+            sc.v[bidx, slots] = v[:, s - take:]
+            sc.pos[bidx, slots] = positions[:, s - take:]
+            layers[l] = dict(layers[l], cross_k=ek, cross_v=ev)
+        return {"layers": tuple(layers), "len": s}
+
+    # ------------------------------------------------------------ helpers
+    def _tiles(self, positions):
+        """The live flash tiles of a forward's self-attention (None below
+        ``FLASH_MIN_SEQ``, where attention is dense)."""
+        pos1d = positions[0] if self.cfg.m_rope_sections else positions
+        s = pos1d.shape[1]
+        if s < FLASH_MIN_SEQ:
+            return None
+        return TileTable(pos1d, pos1d, pick_chunk(s, 512), pick_chunk(s, 1024))
+
+    def _embed_inputs(self, params, batch: dict):
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        if cfg.family == "encdec":
+            return self._embed_decoder(params, batch)
+        b, s = tokens.shape
+        x = embed(params["embed"], tokens, cfg)
+        if cfg.family == "vlm" and "vision_embeds" in batch:
+            ve = batch["vision_embeds"].to(x.dtype)
+            x = torch.cat([ve, x[:, ve.shape[1]:]], dim=1)
+        positions = batch.get("positions")
+        if positions is None:
+            positions = _default_positions(tokens)
+            if cfg.m_rope_sections:
+                positions = positions[None].expand(3, b, s)
+        if cfg.pos == "learned":
+            x = x + params["embed"]["pos"][:s][None]
+        return x, positions
+
+    def _embed_decoder(self, params, batch: dict):
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        x = embed(params["embed"], tokens, cfg)
+        if cfg.pos == "learned":
+            x = x + params["embed"]["pos"][:tokens.shape[1]][None]
+        return x, _default_positions(tokens)
 
 
 def build_model(cfg: ModelConfig, device=None,

@@ -4,7 +4,8 @@ card has no mesh).
 
 :class:`Mk` draws each parameter from one ``torch.Generator``: a
 fan-in-scaled normal drawn in f32 and cast to the parameter dtype (bf16 by
-default), or zeros.  Shapes, dtypes, scales and tree keys are the JAX
+default, f32 where a parameter asks for it, as the MoE router does), or
+zeros or ones.  Shapes, dtypes, scales and tree keys are the JAX
 tree's; the numbers are not, since ``torch`` and ``jax.random`` give
 different draws from one seed.  A test that needs both packages on the same
 weights carries the JAX tree across (``repro_torch.convert.model_params``).
@@ -39,13 +40,16 @@ class Mk:
         scale: Optional[float] = None,
         init: str = "normal",
         layers: Optional[int] = None,
+        dtype: Optional[torch.dtype] = None,
     ) -> torch.Tensor:
         full = ((layers,) if layers else ()) + tuple(shape)
-        if init == "zeros":
-            return torch.zeros(full, dtype=self.dtype, device=self.device)
+        dtype = dtype or self.dtype
+        if init in ("zeros", "ones"):
+            fill = torch.zeros if init == "zeros" else torch.ones
+            return fill(full, dtype=dtype, device=self.device)
         if scale is None:
             fan_in = shape[0] if len(shape) > 1 else shape[-1]
             scale = fan_in**-0.5
         v = torch.randn(full, generator=self.generator, dtype=torch.float32,
                         device=self.device)
-        return v.mul_(scale).to(self.dtype)
+        return v.mul_(scale).to(dtype)

@@ -531,6 +531,9 @@ def _decode_inputs(card, b, kv, g, hd, t, dtype, seed):
     (2, 1, 16, 256, 256, torch.bfloat16, 0),  # G=16: every mma row a head
     (2, 2, 4, 128, 512, torch.bfloat16, 0),  # command-r's head_dim
     (3, 1, 8, 256, 1000, torch.bfloat16, 0),  # bt=125: ragged chunks
+    (2, 32, 1, 80, 2112, torch.bfloat16, 0),  # zamba2: hd=80, KV=32, G=1
+    (2, 4, 16, 128, 1088, torch.bfloat16, 0),  # qwen3-moe: G=16, bt=68
+    (4, 8, 1, 64, 1564, torch.bfloat16, 0),  # whisper: KV=8, G=1, bt=92
 ])
 def test_decode_attn_kernel_matches_plain(card, b, kv, g, hd, t, dtype,
                                           window):
@@ -784,3 +787,147 @@ def test_analyzer_on_card(card, backend):
     assert torch.equal(a.values, b.values)
     assert int(a.supersteps) == int(b.supersteps)
     assert [int(x) for x in a.iostats] == [int(x) for x in b.iostats]
+
+
+# ------------------------------------------------ every LM family on card
+FAMILY_ARCHS = ["gemma-2b", "gemma3-4b", "qwen3-moe-235b-a22b",
+                "mamba2-370m", "zamba2-2.7b", "whisper-base", "qwen2-vl-72b"]
+
+
+def _attn_layers(cfg) -> int:
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    return cfg.n_layers
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_prefill_decode_on_card_equals_forward(card, arch, monkeypatch):
+    """``tests/test_serving_parity.py``'s contract on the card at smoke
+    size (B=2, S=24, max_len S + 8, moe at capacity factor 8): the decode
+    of token S after a prefill of S tokens against ``forward`` over S + 1
+    tokens (max |d| < 0.05 x max|logits| and the argmax equal on every
+    row; moe: the 90th percentile < 0.06 x max and half the argmaxes),
+    with B5 launched once a step on every attention layer.
+
+    A moe token whose k-th and (k+1)-th experts nearly tie can be routed
+    apart by the last bits the two paths differ in, which moves its logits
+    by a whole expert's output: ``tests/test_serving_parity.py`` allows
+    for it on "1-2 tokens", so moe's bound holds over the rows routed
+    alike in every layer, which must be at least half."""
+    import dataclasses
+
+    from repro_torch.models import moe
+
+    routes = []
+    route = moe._route
+
+    def logged(*args, **kw):
+        out = route(*args, **kw)
+        routes.append(out[1][-1].sort(dim=-1).values)
+        return out
+
+    monkeypatch.setattr(moe, "_route", logged)
+    cfg = get_smoke(arch)
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+    model = build_model(cfg, card)
+    params = model.init(torch.Generator(device=card).manual_seed(5))
+    gen = torch.Generator(device=card).manual_seed(0)
+    toks = torch.randint(1, cfg.vocab, (2, 25), generator=gen, device=card)
+    full, prompt = {"tokens": toks}, {"tokens": toks[:, :24]}
+    extra = {"encdec": ("frames", 24), "vlm": ("vision_embeds", 8)}
+    if cfg.family in extra:
+        key, n = extra[cfg.family]
+        full[key] = prompt[key] = (torch.randn(
+            (2, n, cfg.d_model), generator=gen, device=card) * 0.1).to(
+                torch.bfloat16)
+    with torch.inference_mode():
+        oracle = model.forward(params, full)[0][:, -1, :cfg.vocab]
+    _, cache = model.prefill(params, prompt, max_len=32)
+    tda.reset_launches()
+    got, cache = model.decode_step(params, cache, toks[:, 24:])
+    torch.cuda.synchronize()
+    assert tda.launches["decode_attention"] == _attn_layers(cfg)
+    got = got[:, :cfg.vocab]
+    scale = max(float(oracle.abs().max()), 1.0)
+    same = got.argmax(-1) == oracle.argmax(-1)
+    if cfg.family == "moe":
+        n = cfg.n_layers  # forward's routes, prefill's, then decode's
+        fwd = [r.reshape(2, 25, -1)[:, -1] for r in routes[:n]]
+        alike = torch.stack([(a == b).all(-1) for a, b in
+                             zip(fwd, routes[2 * n:])]).all(0)
+        assert 2 * int(alike.sum()) >= 2, routes
+        d = (got - oracle)[alike].abs()
+        assert float(torch.quantile(d.flatten(), 0.9)) < 0.06 * scale
+        assert float(same.float().mean()) >= 0.5
+    else:
+        d = (got - oracle).abs()
+        assert float(d.max()) < 0.05 * scale and bool(same.all())
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-2.7b",
+                                  "whisper-base", "qwen3-moe-235b-a22b",
+                                  "qwen2-vl-72b"])
+def test_serve_batch_on_card_every_family(card, arch):
+    """``serve_batch`` of every other family on the card at smoke size: B5
+    once a step on each attention layer (none on mamba2), and the CPU
+    run's schedule."""
+    tda.reset_launches()
+    res = serve_batch(arch, n_requests=4, max_batch=2, max_new=4,
+                      max_len=32, device=card)
+    assert (tda.launches["decode_attention"]
+            == _attn_layers(get_smoke(arch)) * res["decode_steps"])
+    cpu = serve_batch(arch, n_requests=4, max_batch=2, max_new=4,
+                      max_len=32, device="cpu")
+    assert res["decode_steps"] == cpu["decode_steps"]
+    assert res["tokens"] == cpu["tokens"] == 16
+
+
+def test_moe_ffn_repeats_bitwise_on_card(card):
+    """The MoE combine adds each token's expert outputs in a fixed order:
+    two runs on the card give the same bits (no atomics), and the routing
+    equals the CPU's."""
+    import dataclasses
+
+    from repro_torch.models import moe
+    from repro_torch.models.param import Mk
+
+    cfg = dataclasses.replace(get_smoke("qwen3-moe-235b-a22b"),
+                              n_experts=64, top_k=8, d_model=256)
+    p = moe.init_moe(Mk(torch.Generator().manual_seed(0), "cpu"), cfg)
+    x = torch.randn((4, 300, 256), generator=torch.Generator().manual_seed(1)
+                    ).to(torch.bfloat16)
+    pc = {k: v.to(card) for k, v in p.items()}
+    a, _ = moe.moe_ffn(pc, x.to(card), cfg)
+    b, _ = moe.moe_ffn(pc, x.to(card), cfg)
+    assert torch.equal(a, b)
+    cap = moe.moe_capacity(1200, cfg)
+    _, dc, _ = moe._route(x.reshape(1200, 256), p["router"], cfg, cap)
+    _, dg, _ = moe._route(x.to(card).reshape(1200, 256), pc["router"], cfg,
+                          cap)
+    for u, w in zip(dc[:4], dg[:4]):
+        assert torch.equal(u, w.cpu())
+
+
+def test_flash_attention_on_card_matches_cpu(card):
+    """The chunked attention on the card equals its CPU run within
+    ``atol=rtol=2e-5`` (f32 tiles, ``tests/test_flash.py``'s bound), with a
+    window and dead slots, and skips the same tiles."""
+    from repro_torch.models.flash import TileTable, flash_attention
+
+    g = torch.Generator().manual_seed(2)
+    q = torch.randn((2, 1040, 8, 64), generator=g)
+    k = torch.randn((2, 1040, 2, 64), generator=g)
+    v = torch.randn((2, 1040, 2, 64), generator=g)
+    pos = torch.arange(1040, dtype=torch.int32)[None].repeat(2, 1)
+    pos[1, :7] = -1
+    args = (300, True, 64**-0.5, 520, 520)
+    want = flash_attention(q, k, v, pos, pos, *args)
+    got = flash_attention(q.to(card), k.to(card), v.to(card), pos.to(card),
+                          pos.to(card), *args)
+    torch.testing.assert_close(got.cpu(), want, atol=2e-5, rtol=2e-5)
+    cpu = TileTable(pos, pos, 520, 520).live(300)
+    dev = TileTable(pos.to(card), pos.to(card), 520, 520).live(300)
+    assert (cpu == dev).all() and not cpu.all()

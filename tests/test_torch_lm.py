@@ -298,21 +298,6 @@ def test_make_decode_step_picks_the_argmax():
     assert cache["len"] == 1
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "mamba2-370m",
-                                  "zamba2-2.7b", "whisper-base",
-                                  "qwen2-vl-72b"])
-def test_other_families_are_not_ported_yet(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(tcfg.get_smoke(arch), device="cpu")
-
-
-def test_forward_and_prefill_are_not_ported_yet():
-    model = build_model(tcfg.get_smoke("gemma-2b"), device="cpu")
-    for fn in (model.forward, model.prefill):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn({}, {})
-
-
 # ------------------------------------------------------------ serving
 def test_serve_batch_matches_the_reference():
     """Seed 0, as ``serve.py``; the port serves the reference's own
