@@ -73,29 +73,52 @@ Phases, each of which raises (and so exits non-zero) on failure:
                  decode step against its byte bound; the chunked attention
                  of one layer against one SDPA call at six prefill shapes.
 
+  7. lm_train  — the training path (``repro_torch.launch.steps``,
+                 ``optim``, ``data``, ``launch.train``), which launches
+                 none of B1-B5: (a) gemma-2b at its published width and
+                 depth, weights seeded on the card, batches
+                 ``TokenStream(vocab=256000, seq_len=1024,
+                 global_batch=2)``: ``make_train_step`` with
+                 ``remat="none"`` and again ``"full"`` from the same
+                 state, one warm-up and 3 timed steps each (loss and
+                 grad norm finite, parameters moved, the two policies'
+                 first steps within 1e-5), ms a step (CUDA events)
+                 against the FLOP bound, tokens/s, peak GB, the idle
+                 share over one step (torch.profiler); one layer's chunked
+                 attention backward (B=2, S=1,024, H=8, KV=1, hd=256, bf16)
+                 against autograd through the dense f32 softmax (within
+                 0.02 x max) and its ms against the forward's and one
+                 SDPA forward + backward; (b) one ``microbatches=2`` step
+                 of each family's smoke configuration (loss finite,
+                 parameters moved; the moe step twice, bit-equal);
+                 (c) ``train_loop('gemma-2b', steps=300, ckpt_every=50,
+                 inject_failures=True)`` on the card under the git-ignored
+                 ``build/``: loss_last10 < loss_first10, 1 restart, >= 1
+                 straggler event.
+
   The graph slices (views freed of the LM's weights):
 
-  7. graph   — ``rmat(16, edge_factor=16, seed=1)``: n=65,536, m=955,396;
+  8. graph   — ``rmat(16, edge_factor=16, seed=1)``: n=65,536, m=955,396;
                its 128x128 f32 tile view (239,398 tiles, ~15.7 GB) lives on
                the card, with the row payload B1 reads and the tile-major
                payload B2 reads (955,396 entries of 12 B each, built from
                the tiles on the card): logs the payloads' build time and
                bytes.
-  8. main    — after one warm-up run per backend and residency on rmat(10),
+  9. main    — after one warm-up run per backend and residency on rmat(10),
                the slice-1 path through ``repro_torch.Graph``:
                ``pagerank()`` push and pull and ``bfs(0)``/``bfs(hub)`` on the
                backends scan, compact, blocked and blocked_compact, plus
                ``bfs([0, 1, 2, 3])`` on blocked.  Kernel launch counts are
                zeroed just before and read just after; B1 and B2 must have
                run.
-  9. check   — BFS levels equal across backends and equal a numpy BFS of the
+  10. check   — BFS levels equal across backends and equal a numpy BFS of the
                host CSR; K-lane BFS equals K single-source numpy BFS runs;
                PageRank agrees across backends (atol 1e-6, rtol 1e-5) and
                with a numpy power iteration within the push/pull error bound
                (L1 <= tol / (1 - damping)); BFS IOStats agree field for field
                between backends sharing a layout and in the layout-free
                fields (messages, supersteps) across all four.
-  10. wcc     — ``Graph.run(WCC)`` (min-label propagation, the MIN_PLUS
+  11. wcc     — ``Graph.run(WCC)`` (min-label propagation, the MIN_PLUS
                program of ``examples/custom_program.py``) on
                ``rmat(16, edge_factor=16, seed=1, symmetrize=True)``
                (n=65,536, m=1,820,044; its min_plus tile view holds 257,273
@@ -104,22 +127,22 @@ Phases, each of which raises (and so exits non-zero) on failure:
                residency, with
                the counts zeroed just before and read just after: B3 and B4
                must have run.  Labels equal across backends and equal a
-               numpy union-find labelling; IOStats as in phase 9.
-  11. batched — the batched (n, Q) driver on the main view, device
+               numpy union-find labelling; IOStats as in phase 10.
+  12. batched — the batched (n, Q) driver on the main view, device
                residency, all four backends, with the counts zeroed just
                before and read just after (B1 and B2 must have run; the lane
                widths the kernels saw are logged): ``bfs(S)`` for the 32
                vertices of largest out-degree (ties to the lower id), each
                lane equal to numpy BFS, ``query_supersteps`` equal to the
                solo ``bfs(s)`` runs on blocked, ``iostats.queries == 32``,
-               IOStats as in phase 9; ``run(BFSProgram(), seeds=S,
+               IOStats as in phase 10; ``run(BFSProgram(), seeds=S,
                batch=32)`` equal to it; ``pagerank(reset=S[:16])`` and a
                float (n, 4) reset matrix from ``--seed``, each column within
                atol=1e-6, rtol=1e-5 of its width-one run and within
                tol / (1 - damping) in L1 of a numpy personalized power
                iteration.  Logs the wall per query against the solo walls
                and how many columns are bit-equal to their solo runs.
-  12. algs    — on ``rmat(16, symmetrize=True)`` (its plus_times forward and
+  13. algs    — on ``rmat(16, symmetrize=True)`` (its plus_times forward and
                reverse tile views), counts zeroed before and read after:
                ``coreness()`` dense/p2p/hybrid on scan and blocked, equal to
                numpy peeling; ``betweenness(S32)`` 'multi' on scan, blocked
@@ -130,7 +153,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
                replay of its sweeps; ``triangles(policy=blocked)`` on
                ``rmat(14, symmetrize=True)`` (a 1.07 GB dense product) equal
                to the numpy ladder.
-  13. host    — host residency (edges in host RAM, streamed per superstep)
+  14. host    — host residency (edges in host RAM, streamed per superstep)
                against device residency in this process:
                (a) ``rmat(20, edge_factor=16, seed=1)`` (n=1,048,576) on scan
                    and compact: ``pagerank()`` push and pull (pull capped
@@ -158,7 +181,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
                bytes per second beside the pinned host-to-device rate of a
                plain 1 GB copy.  Host launches of B2/B4 are counted apart
                from the main paths'.
-  14. batched_host — ``bfs`` of 8 sources (``default_rng(7)`` over the
+  15. batched_host — ``bfs`` of 8 sources (``default_rng(7)`` over the
                vertices with an out-edge, as ``benchmarks/
                bench_multisource.py`` draws them) under host residency on
                rmat(20) (scan) and the rmat(14, symmetrize) tile store
@@ -166,7 +189,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
                host_bytes and retries equal device residency's, and
                ``host_bytes`` a query at least 4x below the 8 solo host
                runs' mean (the benchmark's gate; the factor is logged).
-  15. kernels — both payloads scattered back equal the dense tiles of the
+  16. kernels — both payloads scattered back equal the dense tiles of the
                full-size main and wcc views (a chunk of tiles at a time, on
                the card); B1-B4 held against their plain torch versions on
                the card (K=1 and K=4; full and n/8 frontiers; the 'dest'
@@ -179,7 +202,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
                versions, NaN for NaN (ROADMAP §C P12).  B1/B2 also at
                K=32, 192 and 256 (two lane groups) on both views and
                frontiers.
-  16. time    — each kernel at K=1 beside its bound, its plain version and a
+  17. time    — each kernel at K=1 beside its bound, its plain version and a
                library call over the same live edges (``torch.sparse.mm``
                for B1/B2, ``scatter_reduce_(..., 'amin')`` for B3/B4), and
                one call's device time in a CUDA graph and by kernel
@@ -192,7 +215,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
                y); the dense tile bound of the earlier design is
                logged beside it, as is the dense plain version's time.
                B1 and B2 again at K=32 (``k32_*`` keys of the kernels line).
-  17. recovery — kill and resume on the card (``repro_torch.core.recovery``).
+  18. recovery — kill and resume on the card (``repro_torch.core.recovery``).
                First the sum scatter's fixed order (ROADMAP §C P17): scan
                and compact ``pagerank()`` on the main view with the
                fixed-order add and with the ``index_add_`` it replaced, in
@@ -215,7 +238,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
                the host replays streamed again, and the walls of blocked
                PageRank push (main view) and host (a) scan PageRank push at
                ``every_k`` 1 and 8 and without checkpoints.
-  18. analysis — the contract checker (``repro_torch.analysis``) on the
+  19. analysis — the contract checker (``repro_torch.analysis``) on the
                card, over the views the script already holds, counts zeroed
                before and read after (B1-B4 must all have run): the
                zero-findings gate of ``python -m
@@ -237,11 +260,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
                wall and ``run()`` against ``run(analyze=True)`` (cached and
                not) for blocked PageRank push on the main view and host
                (b)'s blocked_compact WCC, whose results must be bit-equal.
-  19. profile — device time and idle share of blocked PageRank, blocked BFS,
+  20. profile — device time and idle share of blocked PageRank, blocked BFS,
                blocked WCC, blocked_compact PageRank and WCC, host scan
                PageRank (10 supersteps), host blocked_compact WCC, and
                blocked batched BFS (Q=32) and personalized PageRank (Q=16).
-  20. chaos   — with the parent's views freed, a ``DurableWorkQueue`` of 12
+  21. chaos   — with the parent's views freed, a ``DurableWorkQueue`` of 12
                tasks (the batched BFS of 2 sources, over the 8 top-degree
                vertices of host (b)'s graph, on scan, compact and blocked)
                served by 3 worker processes spawned on the card, two
@@ -261,6 +284,7 @@ device, and when the repository's ``src/`` is not beside it.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -2606,6 +2630,9 @@ def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
             yield from _leaves(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _leaves(v)
     else:
         yield tree
 
@@ -3172,6 +3199,392 @@ def phase_lm_families(torch, dev="cuda", runs=FAMILY_RUNS,
     return launched, rows
 
 
+# ------------------------------------------------------------ training
+TRAIN_B, TRAIN_S = 2, 1024  # TokenStream(global_batch=2, seq_len=1024)
+TRAIN_TIMED = 3  # timed steps after one warm-up step, per remat policy
+TRAIN_REMATS = ("none", "full")
+# "none" and "full" replay the same ops, so their first steps should agree
+# to the bit; the gate allows f32 reassociation in a recomputed reduction.
+TRAIN_RTOL = 1e-5
+# the flash backward (bf16 gradients) against the dense f32 softmax's
+FLASH_BWD_BOUND = 0.02
+FLASH_REPS = 20  # timed calls of one layer's attention, after 2 warm-ups
+# unembed's card route (layers._LogitsF32) against the f32 upcast product:
+# the logits up to f32 accumulation order; its backward rounds the logit
+# gradient, then each product, to bf16 (each at most 2**-8 an entry)
+LOGITS_BOUND, LOGIT_GRAD_BOUND = 1e-5, 2.0**-7
+TRAIN_FAMILIES = (("gemma-2b", "dense"), ("qwen2-vl-72b", "vlm"),
+                  ("qwen3-moe-235b-a22b", "moe"), ("mamba2-370m", "ssm"),
+                  ("zamba2-2.7b", "hybrid"), ("whisper-base", "encdec"))
+TRAIN_LOOP = dict(steps=300, ckpt_every=50, inject_failures=True)
+
+
+def train_bound(model, params, b: int, s: int):
+    """(bound_ms, flops) of one train step: 6 x the non-embedding
+    parameters x tokens, 6 x d x V x tokens for the tied unembedding, and
+    12 x heads x head_dim x the live (query, key) pairs of every layer
+    (forward 4, backward 8), over the bf16 tensor-core peak."""
+    cfg = model.cfg
+    n = sum(leaf.numel() for name, sub in params.items() if name != "embed"
+            for leaf in _leaves(sub))
+    tokens = b * s
+    flops = 6.0 * n * tokens + 6.0 * cfg.d_model * cfg.vocab_padded * tokens
+    flops += (12.0 * b * cfg.n_heads * cfg.head_dim
+              * sum(live_pairs(s, w) for w in model.layer_windows()))
+    return flops / BF16_FLOPS * 1e3, flops, n
+
+
+def flash_layer_check(cfg, dev, torch) -> dict:
+    """At one gemma-2b layer's shape (B=2, S=1,024, H=8, KV=1, hd=256,
+    bf16): the chunked attention's dq, dk, dv against autograd through the
+    dense masked softmax in f32 on the same values (each within
+    FLASH_BWD_BOUND x its largest entry), and the backward's ms against the
+    forward's and one SDPA forward + backward's."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.flash import (NEG_INF, TileTable,
+                                          flash_attention, pick_chunk)
+
+    b, s, h, kv, hd = TRAIN_B, TRAIN_S, cfg.n_heads, cfg.n_kv_heads, \
+        cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(11)
+    q, k, v, dout = (torch.randn(shape, generator=gen, device=dev)
+                     .to(torch.bfloat16) for shape in
+                     ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd),
+                      (b, s, h, hd)))
+    pos = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
+    cq, ck = pick_chunk(s, 512), pick_chunk(s, 1024)
+    live = TileTable(pos, pos, cq, ck).live(0, True)
+    scale = hd**-0.5
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = flash_attention(*leaves, pos, pos, 0, True, scale, cq, ck,
+                          live=live)
+    got = torch.autograd.grad(out, leaves, dout, retain_graph=True)
+    ref = [t.float().requires_grad_() for t in (q, k, v)]
+    g = h // kv
+    sc = torch.einsum("bqkgh,btkh->bkgqt", ref[0].reshape(b, s, kv, g, hd),
+                      ref[1]) * scale
+    valid = pos[:, None, :] <= pos[:, :, None]
+    sc = sc.masked_fill(~valid[:, None, None], NEG_INF)
+    o = torch.einsum("bkgqt,btkh->bqkgh", torch.softmax(sc, -1), ref[2])
+    want = torch.autograd.grad(o.reshape(b, s, h, hd), ref, dout.float())
+    errs = {}
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        err = float((a.float() - w).abs().max()) / float(w.abs().max())
+        errs[name] = err
+        if not (a.dtype == torch.bfloat16 and err < FLASH_BWD_BOUND):
+            raise AssertionError(f"lm_train flash backward {name}: "
+                                 f"|d| / max = {err:.3g} ({a.dtype})")
+    del sc, o, want, ref
+
+    def forward():
+        with torch.no_grad():
+            return flash_attention(q, k, v, pos, pos, 0, True, scale, cq, ck,
+                                   live=live)
+
+    def backward():
+        return torch.autograd.grad(out, leaves, dout, retain_graph=True)
+
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+
+    def sdpa():
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                           enable_gqa=True)
+        return torch.autograd.grad(o, (qt, kt, vt), dout.transpose(1, 2))
+
+    row = dict(fwd_ms=cuda_ms(forward, reps=FLASH_REPS, warmup=2),
+               bwd_ms=cuda_ms(backward, reps=FLASH_REPS, warmup=2),
+               sdpa_fwd_bwd_ms=cuda_ms(sdpa, reps=FLASH_REPS, warmup=2),
+               rel_err=errs)
+    log(f"lm_train flash layer B={b} S={s} H={h} KV={kv} hd={hd} bf16: "
+        f"dq/dk/dv against the dense f32 softmax "
+        + ", ".join(f"{n}={e:.3g}" for n, e in errs.items())
+        + f" (bound {FLASH_BWD_BOUND}); forward {row['fwd_ms']:.3f} ms, "
+        f"backward {row['bwd_ms']:.3f} ms "
+        f"({row['bwd_ms'] / row['fwd_ms']:.2f}x), one SDPA forward + "
+        f"backward {row['sdpa_fwd_bwd_ms']:.3f} ms")
+    return row
+
+
+def logits_check(cfg, dev, torch) -> dict:
+    """At gemma-2b's tied unembedding (B=2 x S=1,024 rows against the
+    256,000 x 2,048 bf16 table): ``unembed``'s card route
+    (``layers._LogitsF32``) and its gradient against autograd through the
+    CPU route's f32 upcast product on the same values, as relative L2
+    distances (LOGITS_BOUND for the logits, LOGIT_GRAD_BOUND for dx and
+    the table's gradient)."""
+    from repro_torch.models.layers import unembed
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("lm_train logits: TF32 products are on")
+    d, vocab = cfg.d_model, cfg.vocab_padded
+    gen = torch.Generator(device=dev).manual_seed(5)
+    table = (torch.randn((vocab, d), generator=gen, device=dev)
+             * d**-0.5).bfloat16()
+    x = torch.randn((TRAIN_B, TRAIN_S, d), generator=gen,
+                    device=dev).bfloat16()
+    dlogits = torch.randn((TRAIN_B, TRAIN_S, vocab), generator=gen,
+                          device=dev)
+    xp, tp = x.clone().requires_grad_(), table.clone().requires_grad_()
+    got = unembed({"table": tp}, xp, cfg)
+    dx, dt = torch.autograd.grad(got, (xp, tp), dlogits)
+    xr, tr = x.float().requires_grad_(), table.float().requires_grad_()
+    want = xr @ tr.T
+    dx_want, dt_want = torch.autograd.grad(want, (xr, tr), dlogits)
+
+    def rel(a, b):
+        a, b = a.detach().float(), b.detach().float()
+        return float(torch.linalg.vector_norm(a - b)
+                     / torch.linalg.vector_norm(b))
+
+    errs = dict(logits=rel(got, want), dx=rel(dx, dx_want),
+                dtable=rel(dt, dt_want))
+    ok = (got.dtype == torch.float32 and dx.dtype == dt.dtype
+          == torch.bfloat16 and errs["logits"] < LOGITS_BOUND
+          and errs["dx"] < LOGIT_GRAD_BOUND
+          and errs["dtable"] < LOGIT_GRAD_BOUND)
+    log(f"lm_train logits (_LogitsF32) against the f32 upcast product, "
+        f"relative L2: " + ", ".join(f"{n}={e:.3g}" for n, e in errs.items())
+        + f" (bounds {LOGITS_BOUND}, {LOGIT_GRAD_BOUND:.3g})")
+    if not ok:
+        raise AssertionError(f"lm_train logits: {errs}")
+    return errs
+
+
+def train_full_width(torch, dev, cfg) -> dict:
+    """(a): gemma-2b at its published width and depth, seeded weights, one
+    warm-up and TRAIN_TIMED timed steps under each remat policy from the
+    same initial state."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+
+    t0 = time.perf_counter()
+    model = build_model(cfg, dev)
+    params0 = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    w_bytes = sum(p.numel() * p.element_size() for p in _leaves(params0))
+    stream = TokenStream(vocab=cfg.vocab, seq_len=TRAIN_S,
+                         global_batch=TRAIN_B)
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in stream.batch(i).items()
+                if k in ("tokens", "labels")}
+               for i in range(1 + TRAIN_TIMED)]
+    bound_ms, flops, n_params = train_bound(model, params0, TRAIN_B, TRAIN_S)
+    log(f"lm_train {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+        f"{w_bytes / 1e9:.3f} GB of bf16 weights ({n_params / 1e9:.3f}e9 "
+        f"non-embedding parameters) initialised in "
+        f"{time.perf_counter() - t0:.1f} s; batches TokenStream(vocab="
+        f"{cfg.vocab}, seq_len={TRAIN_S}, global_batch={TRAIN_B}); step "
+        f"bound {flops:.4g} FLOP = {bound_ms:.2f} ms at {BF16_FLOPS:.3g}/s")
+    out = {"bound_ms": bound_ms, "flops": flops}
+    first = {}
+    for remat in TRAIN_REMATS:
+        params = _clone_tree(params0, torch)
+        opt = adamw_init(params)
+        step = make_train_step(model, TrainConfig(remat=remat), donate=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        params, opt, m = step(params, opt, batches[0])
+        first[remat] = (float(m["loss"]), float(m["grad_norm"]))
+        if not all(math.isfinite(x) for x in first[remat]):
+            raise AssertionError(f"lm_train {remat}: loss/grad_norm "
+                                 f"{first[remat]}")
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        losses = []
+        for b in batches[1:]:
+            params, opt, m = step(params, opt, b)
+            losses.append(m["loss"])
+        stop.record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / TRAIN_TIMED
+        ms = start.elapsed_time(stop) / TRAIN_TIMED
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        losses = [float(x) for x in losses]
+        moved = sum(not torch.equal(a, b) for a, b in
+                    zip(_leaves(params), _leaves(params0)))
+        if not (all(math.isfinite(x) for x in losses) and moved):
+            raise AssertionError(f"lm_train {remat}: losses {losses}, "
+                                 f"{moved} leaves moved")
+        row = dict(ms=ms, wall_ms=wall, tokens_per_s=TRAIN_B * TRAIN_S / ms
+                   * 1e3, peak_gb=peak, first_loss=first[remat][0],
+                   first_grad_norm=first[remat][1], losses=losses,
+                   leaves_moved=moved, share_of_bound=bound_ms / ms)
+        if remat == "none":
+            prof = phase_profile(((f"lm_train/{cfg.name}/step",
+                                   lambda: step(params, opt, batches[1])),),
+                                 torch)
+            p = next(iter(prof.values()))
+            row["idle_share"] = 1 - p["device_ms"] / p["wall_ms"]
+            row["profile"] = p
+            row["split"] = step_split(model, params, opt, batches[1], torch)
+        if "split" in row:
+            sp = row["split"]
+            log(f"lm_train {cfg.name} step split: forward "
+                f"{sp['forward_ms']:.2f} ms, AdamW {sp['adamw_ms']:.2f} ms, "
+                f"backward (the rest) "
+                f"{ms - sp['forward_ms'] - sp['adamw_ms']:.2f} ms")
+        log(f"lm_train {cfg.name} remat={remat}: {ms:.2f} ms a step "
+            f"(events; wall {wall:.2f} ms) against the {bound_ms:.2f} ms "
+            f"bound ({bound_ms / ms:.3f} of it), "
+            f"{row['tokens_per_s']:.0f} tokens/s, peak {peak:.2f} GB; first "
+            f"step loss {first[remat][0]:.6f} grad_norm "
+            f"{first[remat][1]:.6f}; timed losses {losses}; {moved} leaves "
+            f"moved")
+        out[remat] = row
+        del params, opt, step, m
+        gc_cuda(torch)
+    (la, ga), (lb, gb) = first["none"], first["full"]
+    if not (abs(la - lb) <= TRAIN_RTOL * abs(la)
+            and abs(ga - gb) <= TRAIN_RTOL * abs(ga)):
+        raise AssertionError(f"lm_train: remat none {first['none']} and full "
+                             f"{first['full']} differ")
+    out["remat_bit_equal"] = first["none"] == first["full"]
+    log(f"lm_train remat none and full: loss and grad_norm within "
+        f"{TRAIN_RTOL} (bit-equal: {out['remat_bit_equal']})")
+    out["flash"] = flash_layer_check(cfg, dev, torch)
+    gc_cuda(torch)
+    out["logits"] = logits_check(cfg, dev, torch)
+    del params0
+    gc_cuda(torch)
+    return out
+
+
+def step_split(model, params, opt, batch, torch) -> dict:
+    """Where a step's time goes (CUDA events): the loss's forward alone, and
+    the in-place AdamW update alone on a gradient tree of the parameters'
+    shapes; the backward is the rest of the step."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.launch.steps import cross_entropy
+    from repro_torch.optim import adamw_update
+
+    def forward():
+        with torch.no_grad():
+            logits, _ = model.forward(params, batch)
+            return cross_entropy(logits, batch["labels"])
+
+    grads = _clone_tree(params, torch)
+    split = dict(
+        forward_ms=cuda_ms(forward, reps=3, warmup=1),
+        adamw_ms=cuda_ms(lambda: adamw_update(grads, opt, params,
+                                              TrainConfig(), inplace=True),
+                         reps=3, warmup=1))
+    del grads
+    return split
+
+
+def _clone_tree(tree, torch):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v, torch) for k, v in tree.items()}
+    return tree.clone()
+
+
+def gc_cuda(torch) -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def family_train_batch(cfg, b, s, dev, torch, seed) -> dict:
+    """TokenStream tokens and labels (b rows of s), with whisper's stub
+    frames and qwen2-vl's stub vision embeddings drawn on the card."""
+    from repro_torch.data import TokenStream
+
+    host = TokenStream(vocab=cfg.vocab, seq_len=s, global_batch=b,
+                       seed=seed).batch(0)
+    batch = {k: torch.from_numpy(host[k]).to(dev) for k in ("tokens",
+                                                            "labels")}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    stub = {"encdec": ("frames", s), "vlm": ("vision_embeds", 8)}
+    if cfg.family in stub:
+        key, n = stub[cfg.family]
+        batch[key] = (torch.randn((b, n, cfg.d_model), generator=gen,
+                                  device=dev) * 0.1).to(torch.bfloat16)
+    return batch
+
+
+def train_families(torch, dev) -> dict:
+    """(b): one train step of each family at its smoke configuration with
+    microbatches=2; the moe step twice from one state, bit-equal."""
+    from repro_torch.configs import TrainConfig, get_smoke
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+
+    rows = {}
+    for arch, family in TRAIN_FAMILIES:
+        cfg = get_smoke(arch)
+        model = build_model(cfg, dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        batch = family_train_batch(cfg, 4, 64, dev, torch, seed=1)
+        step = make_train_step(model, TrainConfig(microbatches=2))
+        t0 = time.perf_counter()
+        p1, o1, m1 = step(params, adamw_init(params), batch)
+        loss = float(m1["loss"])
+        ms = (time.perf_counter() - t0) * 1e3
+        moved = sum(not torch.equal(a, b) for a, b in
+                    zip(_leaves(p1), _leaves(params)))
+        if not (math.isfinite(loss) and moved):
+            raise AssertionError(f"lm_train {arch}: loss {loss}, {moved} "
+                                 "leaves moved")
+        row = dict(family=family, loss=loss, grad_norm=float(m1["grad_norm"]),
+                   leaves_moved=moved, first_step_wall_ms=ms)
+        if family == "moe":
+            p2, o2, m2 = step(params, adamw_init(params), batch)
+            same = (torch.equal(m1["loss"], m2["loss"])
+                    and all(torch.equal(a, b) for a, b in
+                            zip(_leaves((p1, o1.m, o1.v)),
+                                _leaves((p2, o2.m, o2.v)))))
+            if not same:
+                raise AssertionError("lm_train moe: two steps from one "
+                                     "state differ")
+            row["repeat_bit_equal"] = True
+        rows[arch] = row
+        log(f"lm_train {arch} ({family}, smoke, microbatches=2): "
+            f"{json.dumps(row)}")
+    return rows
+
+
+def train_loop_run(torch, dev) -> dict:
+    """(c): ``train_loop`` at the smoke configuration on the card with a
+    crash and a straggling step injected, into a temporary directory; the
+    reference's gate (loss falls), 1 restart, >= 1 straggler event."""
+    import tempfile
+
+    from repro_torch.launch.train import train_loop
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        res = train_loop(LM_ARCH, ckpt_dir=d, device=dev, **TRAIN_LOOP)
+    if not (res["loss_last10"] < res["loss_first10"]
+            and res["restarts"] == 1 and res["straggler_events"] >= 1):
+        raise AssertionError(f"lm_train train_loop: {res}")
+    log(f"lm_train train_loop({LM_ARCH}, {TRAIN_LOOP}): {json.dumps(res)}")
+    return res
+
+
+def phase_lm_train(torch, dev="cuda", full_cfg=None) -> dict:
+    """The training path: (a) gemma-2b at full width, (b) every family's
+    smoke step, (c) ``train_loop`` with failures.  Launches none of B1-B5."""
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    cfg = full_cfg or get_config(LM_ARCH)
+    rows = {"full": train_full_width(torch, dev, cfg),
+            "families": train_families(torch, dev),
+            "train_loop": train_loop_run(torch, dev)}
+    rows["seconds"] = time.perf_counter() - t_phase
+    log(f"lm_train took {rows['seconds']:.1f} s")
+    return rows
+
+
 def phase_lm_profile(model, params, torch, steps=PROFILE_STEPS,
                      batch=4, max_len=1024):
     """Device time and idle share over ``steps`` decode steps of the
@@ -3265,6 +3678,7 @@ def main(argv=None) -> int:
     del model, params
     torch.cuda.empty_cache()
     fam_launches, fam_rows = phase_lm_families(torch)
+    train_rows = phase_lm_train(torch)
 
     t0 = time.perf_counter()
     g = rmat(16, edge_factor=16, seed=1)
@@ -3369,6 +3783,7 @@ def main(argv=None) -> int:
         "idle_share": 1 - lm_profile["device_ms"] / lm_profile["wall_ms"],
         "b5_decode_32k": {k: lm_times[k] for k in ("b_full", "b_half")}}))
     log("lm_families: " + json.dumps(fam_rows))
+    log("lm_train: " + json.dumps(train_rows))
     main_ms = {f"{b}/{r}": round(v, 3) for (b, r), v in wall.items()}
     log(f"main path wall ms: {json.dumps(main_ms)}")
     log(f"wcc wall ms: {json.dumps({b: round(v, 3) for b, v in wcc_wall.items()})}")

@@ -8,7 +8,8 @@ CUDA device).  Feeding
 both packages byte-identical edge stores this way lets a test hold the
 port's engine against the reference on the same inputs, and check that the
 port's own tilers reproduce them.  :func:`model_params` does the same for
-a language model's parameter tree.  Nothing here imports ``repro``,
+a language model's parameter tree, and :func:`opt_state` for its AdamW
+state.  Nothing here imports ``repro``,
 ``jax`` or ``ml_dtypes``: the objects are read by attribute.
 """
 from __future__ import annotations
@@ -19,8 +20,10 @@ import torch
 from ._device import resolve_device
 from .core.sem import EdgeChunkStore, SemGraph
 from .kernels.spmv.ops import BlockedGraph, blocked_graph
+from .optim import OptState
 
-__all__ = ["blocked_view", "edge_store", "model_params", "sem_graph"]
+__all__ = ["blocked_view", "edge_store", "model_params", "opt_state",
+           "sem_graph"]
 
 
 def _arr(a, device):
@@ -98,3 +101,17 @@ def model_params(np_tree, device=None):
         return _leaf(node, device)
 
     return walk(np_tree)
+
+
+def opt_state(np_opt, device=None):
+    """The port's :class:`~repro_torch.optim.OptState` from the JAX
+    package's, read leaf by leaf as numpy arrays (``jax.tree.map(np.asarray,
+    opt)``, read by attribute): the f32 moments ``m`` and ``v`` as
+    :func:`model_params` carries a tree, ``step`` a 0-d int32 tensor."""
+    device = resolve_device(device)
+    return OptState(
+        m=model_params(np_opt.m, device),
+        v=model_params(np_opt.v, device),
+        step=torch.tensor(int(np.asarray(np_opt.step)), dtype=torch.int32,
+                          device=device),
+    )

@@ -1,1 +1,2 @@
-"""Launchers of the port: ``steps.make_decode_step`` and ``serve``."""
+"""Launchers of the port: the step builders (``steps``), the training
+driver (``train``) and the serving driver (``serve``)."""

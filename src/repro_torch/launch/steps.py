@@ -1,17 +1,126 @@
 """Step functions: the torch twin of the JAX package's
-``repro/launch/steps.py``.  ``make_prefill_step`` and ``make_decode_step``
-are ported; ``make_train_step`` comes with the training slice (ROADMAP §A
-A15.2).  The reference jit-compiles these steps; the port runs them
-eagerly, under ``torch.inference_mode()`` (``Model.prefill`` and
-``Model.decode_step`` enter it).
+``repro/launch/steps.py`` — the train step (with microbatching and int8
+gradient compression), prefill and decode.
+
+The reference jit-compiles these steps; the port runs them eagerly.
+``make_prefill_step`` and ``make_decode_step`` run under
+``torch.inference_mode()`` (``Model.prefill`` and ``Model.decode_step``
+enter it); the train step differentiates ``Model.forward`` with
+``torch.autograd.grad``.
 """
 from __future__ import annotations
 
 import torch
 
+from ..checkpoint.store import _flatten, _unflatten
+from ..configs.base import TrainConfig
 from ..models.model import Model
+from ..optim import OptState, adamw_update, compress, decompress
 
-__all__ = ["make_decode_step", "make_prefill_step"]
+__all__ = ["cross_entropy", "make_decode_step", "make_prefill_step",
+           "make_train_step"]
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token CE. logits [B,S,V] (f32), labels [B,S] integer.
+
+    The reference contracts a one-hot of the labels against the logits (a
+    gather over a vocab-sharded dim would replicate them); on one card a
+    gather of each label's logit gives the same value."""
+    logits = logits.float()
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+    label_logit = torch.take_along_dim(logits, labels[..., None].long(),
+                                       dim=-1)[..., 0]
+    return torch.mean(lse - label_logit)
+
+
+def _leaf(p: torch.Tensor) -> torch.Tensor:
+    """A fresh autograd leaf on ``p``'s storage (a copy when ``p`` was made
+    under ``torch.inference_mode()``, which autograd cannot record)."""
+    p = p.clone() if p.is_inference() else p.detach()
+    return p.requires_grad_()
+
+
+def make_train_step(
+    model: Model,
+    tc: TrainConfig,
+    aux_weight: float = 0.01,
+    unroll: bool = False,
+    param_shardings=None,
+    *,
+    donate: bool = False,
+):
+    """(params, opt, batch) -> (params, opt, metrics).
+
+    ``tc.microbatches > 1`` accumulates the gradients of batch chunks in f32
+    (the activation-memory lever) and divides by their count;
+    ``tc.grad_compress`` applies int8 error-feedback quantization to the
+    gradient before the optimizer, with the error from
+    ``batch["_grad_error"]`` (zeros without it).  ``metrics`` holds
+    ``loss`` (``ce + aux_weight * aux``), ``ce``, ``grad_norm`` and ``lr``
+    as 0-d tensors.  ``param_shardings`` is the reference's layout hint and
+    has no meaning on one card.  ``donate=True`` updates ``params`` and
+    ``opt`` in place, as the reference's jitted step donates them
+    (``donate_argnums=(0, 1)``); the caller must not read the old values.
+    """
+
+    def loss_fn(params, batch):
+        logits, aux = model.forward(params, batch, remat=tc.remat,
+                                    unroll=unroll)
+        ce = cross_entropy(logits, batch["labels"])
+        return ce + aux_weight * aux, ce
+
+    def grads_of(params, batch):
+        flat, _ = _flatten(params)
+        leaves = [_leaf(p) for p in flat]
+        with torch.enable_grad():
+            loss, ce = loss_fn(_unflatten(params, leaves), batch)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
+        return _unflatten(params, grads), loss.detach(), ce.detach()
+
+    def train_step(params, opt: OptState, batch):
+        inputs = {k: v for k, v in batch.items() if k != "_grad_error"}
+        if tc.microbatches > 1:
+            k = tc.microbatches
+            chunks = {name: x.chunk(k) for name, x in inputs.items()}
+            gsum = lsum = csum = None
+            for i in range(k):
+                g, l, c = grads_of(params, {n: x[i] for n, x in
+                                            chunks.items()})
+                flat, _ = _flatten(g)
+                if gsum is None:
+                    gsum = [t.float() for t in flat]
+                    lsum, csum = l, c
+                else:
+                    for acc, t in zip(gsum, flat):
+                        acc.add_(t.float())
+                    lsum, csum = lsum + l, csum + c
+                del g, flat
+            grads = _unflatten(params, [t / k for t in gsum])
+            loss, ce = lsum / k, csum / k
+        else:
+            grads, loss, ce = grads_of(params, inputs)
+
+        if tc.grad_compress:
+            err = batch.get("_grad_error")
+            if err is None:
+                flat, _ = _flatten(grads)
+                err = _unflatten(grads, [torch.zeros(g.shape,
+                                                     dtype=torch.float32,
+                                                     device=g.device)
+                                         for g in flat])
+            q, scales, _ = compress(grads, err)
+            grads = decompress(q, scales)
+
+        with torch.no_grad():
+            params, opt, om = adamw_update(grads, opt, params, tc,
+                                           inplace=donate)
+        metrics = {"loss": loss, "ce": ce, **om}
+        return params, opt, metrics
+
+    return train_step
 
 
 def make_prefill_step(model: Model, unroll: bool = False):

@@ -22,9 +22,22 @@ computed one key chunk at a time over every run of consecutive live query
 chunks at once (within a memory budget), in ascending key-chunk order for
 every query row, which is the order of the reference's scan.
 
-Only the forward is here.  The reference's backward (``_flash_bwd``, a
-``custom_vjp``) becomes a ``torch.autograd.Function`` with the training
-slice of the port (ROADMAP §A A15.2); the serving path needs no gradient.
+The backward is the reference's ``_flash_bwd`` (a ``custom_vjp``), here
+a ``torch.autograd.Function`` (:class:`FlashAttention`): the forward saves
+``(q, k, v, qpos, kpos, out, lse)`` and the live-tile table it used, and
+the backward recomputes each live tile's probabilities ``p = exp(s -
+lse)`` from them, with ``delta = rowsum(dout * out)`` and ``ds = p (dp -
+delta) scale``, all in f32.  The reference runs two passes over the tiles,
+``dq`` (outer query chunks, inner key chunks ascending) and ``dk``/``dv``
+(outer key chunks, inner query chunks ascending).  Here one walk over the
+key chunks in ascending order, and within each over the runs of live query
+rows in ascending order, does both: each ``dq`` row still adds its key
+chunks in ascending order and each key chunk's ``dk``/``dv`` its query
+rows in ascending order, and each live tile is recomputed once instead of
+twice.  It skips exactly the tiles the forward skips, and its tiles are
+batched under the forward's memory budget (``_TILE_ELEMS``).  ``dq``,
+``dk`` and ``dv`` are cast to their inputs' dtypes at the end; positions,
+window, chunk sizes and ``mesh`` get no gradient.
 """
 from __future__ import annotations
 
@@ -33,7 +46,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["NEG_INF", "TileTable", "flash_attention", "pick_chunk"]
+__all__ = ["NEG_INF", "FlashAttention", "TileTable", "flash_attention",
+           "pick_chunk"]
 
 NEG_INF = -2.0e38
 _INT32_MAX = 2**31 - 1
@@ -131,23 +145,24 @@ def _runs(chunks: np.ndarray):
     return list(zip(starts.tolist(), ends.tolist()))
 
 
+def _group_rows(b: int, h: int, ck: int, cq: int) -> int:
+    """Query rows a batch of score tiles covers within ``_TILE_ELEMS``."""
+    return max(cq, _TILE_ELEMS // max(b * h * ck, 1) // cq * cq)
+
+
 def _fwd_impl(q, k, v, qpos, kpos, window: int, *, causal: bool,
-              scale: float, cq: int, ck: int,
-              live: Optional[np.ndarray] = None):
-    """Returns (out [B, Sq, H, hd] in q's dtype, lse [B, KV, G, Sq] f32)."""
+              scale: float, cq: int, ck: int, live: np.ndarray):
+    """Returns (out [B, Sq, H, hd] in q's dtype, lse [B, KV, G, Sq] f32)
+    over the ``live`` tiles."""
     b, sq, h, hd = q.shape
     t, kv = k.shape[1], k.shape[2]
     g = h // kv
-    if sq % cq or t % ck:
-        raise ValueError(f"chunks ({cq}, {ck}) do not tile ({sq}, {t})")
-    if live is None:
-        live = TileTable(qpos, kpos, cq, ck).live(window, causal)
     q5 = q.reshape(b, sq, kv, g, hd)
     f32 = dict(dtype=torch.float32, device=q.device)
     m = torch.full((b, kv, g, sq), NEG_INF, **f32)
     l = torch.zeros((b, kv, g, sq), **f32)
     acc = torch.zeros((b, kv, g, sq, hd), **f32)
-    group = max(cq, _TILE_ELEMS // max(b * h * ck, 1) // cq * cq)
+    group = _group_rows(b, h, ck, cq)
     for j in range(t // ck):
         col = slice(j * ck, (j + 1) * ck)
         k_blk, v_blk, kp = k[:, col].float(), v[:, col].float(), kpos[:, col]
@@ -172,6 +187,71 @@ def _fwd_impl(q, k, v, qpos, kpos, window: int, *, causal: bool,
     return out.to(q.dtype), lse
 
 
+def _bwd_impl(q, k, v, qpos, kpos, out, lse, dout, window: int, *,
+              causal: bool, scale: float, cq: int, ck: int,
+              live: np.ndarray):
+    """(dq, dk, dv) of :func:`_fwd_impl`'s output, from its saved output and
+    log-sum-exp (the reference's ``_flash_bwd``)."""
+    b, sq, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    q5 = q.reshape(b, sq, kv, g, hd)
+    do5 = dout.reshape(b, sq, kv, g, hd).float()
+    o5 = out.reshape(b, sq, kv, g, hd).float()
+    delta = torch.einsum("bskgh,bskgh->bkgs", do5, o5)  # [b, kv, g, sq]
+    del o5
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dq = torch.zeros((b, sq, kv, g, hd), **f32)
+    dk = torch.zeros((b, t, kv, hd), **f32)
+    dv = torch.zeros((b, t, kv, hd), **f32)
+    group = _group_rows(b, h, ck, cq)
+    for j in range(t // ck):
+        col = slice(j * ck, (j + 1) * ck)
+        k_blk, v_blk, kp = k[:, col].float(), v[:, col].float(), kpos[:, col]
+        for first, end in _runs(np.flatnonzero(live[:, j])):
+            for r0 in range(first * cq, end * cq, group):
+                rows = slice(r0, min(end * cq, r0 + group))
+                q_blk = q5[:, rows].float()
+                s = _attend(q_blk, k_blk, qpos[:, rows], kp, window, causal,
+                            scale)
+                p = torch.exp(s - lse[..., rows, None])  # [b,kv,g,rows,ck]
+                del s
+                do_blk = do5[:, rows]
+                dp = torch.einsum("bqkgh,btkh->bkgqt", do_blk, v_blk)
+                ds = p * (dp - delta[..., rows, None]) * scale
+                del dp
+                dq[:, rows] += torch.einsum("bkgqt,btkh->bqkgh", ds, k_blk)
+                dv[:, col] += torch.einsum("bkgqt,bqkgh->btkh", p, do_blk)
+                dk[:, col] += torch.einsum("bkgqt,bqkgh->btkh", ds, q_blk)
+    return (dq.reshape(b, sq, h, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+class FlashAttention(torch.autograd.Function):
+    """The chunked attention with the reference's FlashAttention backward
+    (``flash_attention``'s ``custom_vjp``): ``apply(q, k, v, qpos, kpos,
+    window, causal, scale, cq, ck, live)`` with ``live`` the
+    :meth:`TileTable.live` table both directions walk."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, qpos, kpos, window, causal, scale, cq, ck,
+                live):
+        out, lse = _fwd_impl(q, k, v, qpos, kpos, window, causal=causal,
+                             scale=scale, cq=cq, ck=ck, live=live)
+        ctx.save_for_backward(q, k, v, qpos, kpos, out, lse)
+        ctx.args = (window, causal, scale, cq, ck, live)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, qpos, kpos, out, lse = ctx.saved_tensors
+        window, causal, scale, cq, ck, live = ctx.args
+        dq, dk, dv = _bwd_impl(q, k, v, qpos, kpos, out, lse, dout, window,
+                               causal=causal, scale=scale, cq=cq, ck=ck,
+                               live=live)
+        return dq, dk, dv, None, None, None, None, None, None, None, None
+
+
 def flash_attention(q, k, v, qpos, kpos, window, causal: bool, scale: float,
                     cq: int, ck: int, mesh=None, *,
                     live: Optional[np.ndarray] = None) -> torch.Tensor:
@@ -179,8 +259,14 @@ def flash_attention(q, k, v, qpos, kpos, window, causal: bool, scale: float,
     kpos [B,T] (-1 = dead slot); window: int (0 = none).  ``mesh`` is the
     reference's sharding hint and has no meaning on one card.  ``live``
     (from :meth:`TileTable.live`) is the table of tiles to compute; without
-    it the call reads the positions' chunk extrema itself.
+    it the call reads the positions' chunk extrema itself.  Differentiable
+    in ``q``, ``k`` and ``v`` (:class:`FlashAttention`).
     Returns [B, Sq, H, hd] in q.dtype."""
-    out, _ = _fwd_impl(q, k, v, qpos, kpos, int(window), causal=causal,
-                       scale=scale, cq=cq, ck=ck, live=live)
-    return out
+    window = int(window)
+    if q.shape[1] % cq or k.shape[1] % ck:
+        raise ValueError(f"chunks ({cq}, {ck}) do not tile "
+                         f"({q.shape[1]}, {k.shape[1]})")
+    if live is None:
+        live = TileTable(qpos, kpos, cq, ck).live(window, causal)
+    return FlashAttention.apply(q, k, v, qpos, kpos, window, causal, scale,
+                                cq, ck, live)

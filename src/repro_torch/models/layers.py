@@ -109,20 +109,45 @@ def embed(p, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return x
 
 
+class _LogitsF32(torch.autograd.Function):
+    """``torch.mm(x, w, out_dtype=torch.float32)`` with a gradient (the
+    card's ``mm`` with an output dtype has none).  The backward rounds the
+    f32 logit gradient to the operands' bf16 and accumulates both products
+    in f32 on the tensor cores; the CPU route's upcast product keeps it in
+    f32 (ROADMAP §C P26)."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return torch.mm(x2, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        g = g.to(x2.dtype)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.mm(g, w.T, out_dtype=torch.float32).to(x2.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.mm(x2.T, g, out_dtype=torch.float32).to(w.dtype)
+        return dx, dw
+
+
 def unembed(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """f32 logits [..., V] of a bf16 product with the tied table (or the
     untied ``head``), never rounded to bf16.
 
     On the card ``torch.mm(..., out_dtype=torch.float32)`` accumulates in
     f32 and writes f32 from the bf16 operands, as the reference's
-    ``preferred_element_type``.  The CPU build has no such ``mm``: there
-    both operands are upcast, which gives the same exact f32 products.
+    ``preferred_element_type`` (:class:`_LogitsF32` gives it a gradient).
+    The CPU build has no such ``mm``: there both operands are upcast,
+    which gives the same exact f32 products.
     """
     table = p["table"].T if cfg.tie_embeddings else p["head"]
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x2.device.type == "cuda":
-        logits = torch.mm(x2, table, out_dtype=torch.float32)
+        logits = _LogitsF32.apply(x2, table)
     else:
         logits = x2.float() @ table.float()
     logits = logits.reshape(*lead, -1)

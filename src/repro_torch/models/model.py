@@ -22,16 +22,27 @@ layer parameters are stacked along a leading layer axis under ``blocks``
 (and ``encoder``), as the JAX package stacks them for its layer scan.  The
 layers run as a Python loop: the reference's ``lax.scan`` and its
 ``lax.cond`` on the hybrid's shared block become a loop over the static
-layer index, so ``unroll`` changes nothing, and ``remat`` (activation
-recomputation) matters only to training memory.  The reference's mesh
+layer index, so ``unroll`` changes nothing.  ``remat`` (activation
+recomputation) wraps each layer body of ``forward`` as the reference's
+``_maybe_remat`` wraps its scan body: ``"full"`` in
+``torch.utils.checkpoint.checkpoint``, ``"dots"`` with a selective policy
+that keeps the weight products; it changes no value, only training memory
+(the encoder is not wrapped, as in the reference).  The reference's mesh
 hooks (``set_mesh``, ``_constrain*``) have no meaning on one card.
-``prefill`` and ``decode_step`` run under ``torch.inference_mode()``.
+``forward`` is differentiable (the training path); ``prefill`` and
+``decode_step`` run under ``torch.inference_mode()``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from .._device import resolve_device
 from ..configs.base import ModelConfig
@@ -72,6 +83,45 @@ def _at(tree, l: int):
     """Layer ``l`` of a stacked parameter tree."""
     return {k: _at(v, l) if isinstance(v, dict) else v[l]
             for k, v in tree.items()}
+
+
+def _layers(tree, n: int) -> list:
+    """The ``n`` per-layer trees of a stacked parameter tree, as views of
+    one ``unbind`` a leaf: its gradient is one stacked tensor, where
+    ``_at``'s ``v[l]`` would add up ``n`` zero-filled ones."""
+    if not isinstance(tree, dict):
+        return tree.unbind(0)
+    per = {k: _layers(v, n) for k, v in tree.items()}
+    return [{k: v[l] for k, v in per.items()} for l in range(n)]
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Keep the 2-D weight products, recompute the rest: the reference's
+    ``checkpoint_dots_with_no_batch_dims`` (a ``[B, S, d] @ [d, f]``
+    product reaches aten as one ``mm`` over the flattened rows; the
+    attention's batched products are ``bmm`` and are recomputed)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+              torch.ops.aten.mm.dtype):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(body: Callable, remat: str) -> Callable:
+    """``body`` under activation recomputation: ``"full"`` saves only its
+    inputs, ``"dots"`` also its weight products (:func:`_dots_policy`).
+    Outside autograd there is nothing to save, and the body runs as it
+    is."""
+    if remat == "none" or not torch.is_grad_enabled():
+        return body
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+
+    def run(*args):
+        return checkpoint(body, *args, use_reentrant=False, **kw)
+
+    return run
 
 
 def _default_positions(tokens: torch.Tensor) -> torch.Tensor:
@@ -176,33 +226,48 @@ class Model:
         else:
             x, positions = self._embed_inputs(params, batch)
         tiles = self._tiles(positions)
+        blocks = _layers(params["blocks"], cfg.n_layers)
 
         if cfg.family in _ATTN:
             windows = self.layer_windows()
-            for l in range(cfg.n_layers):
-                bp = _at(params["blocks"], l)
+
+            def layer(x, aux, bp, window):
                 h = rmsnorm(x, bp["ln1"]["w"])
                 x = residual_add(x, attn_full(bp["attn"], h, cfg, positions,
-                                              windows[l], tiles=tiles))
+                                              window, tiles=tiles))
                 h = rmsnorm(x, bp["ln2"]["w"])
                 if cfg.family == "moe":
                     h, a = moe_apply(bp["moe"], h, cfg)
                     aux = aux + a
                 else:
                     h = mlp(bp["mlp"], h, cfg)
-                x = residual_add(x, h)
+                return residual_add(x, h), aux
+
+            layer = _maybe_remat(layer, remat)
+            for bp, window in zip(blocks, windows):
+                x, aux = layer(x, aux, bp, window)
         elif cfg.family in ("ssm", "hybrid"):
-            for l in range(cfg.n_layers):
-                bp = _at(params["blocks"], l)
+            def ssm_layer(x, bp):
                 h = rmsnorm(x, bp["ln"]["w"])
-                x = residual_add(x, mamba2_full(bp["ssm"], h, cfg))
+                return residual_add(x, mamba2_full(bp["ssm"], h, cfg))
+
+            def shared_block(x):
+                return self._shared_block(params["shared"], x, positions,
+                                          tiles)[0]
+
+            ssm_layer = _maybe_remat(ssm_layer, remat)
+            shared_block = _maybe_remat(shared_block, remat)
+            for l, bp in enumerate(blocks):
+                x = ssm_layer(x, bp)
                 if cfg.family == "hybrid" and self._has_shared_attn(l):
-                    x = self._shared_block(params["shared"], x, positions,
-                                           tiles)[0]
+                    x = shared_block(x)
         else:  # encdec
-            for l in range(cfg.n_layers):
-                x = self._dec_layer(_at(params["blocks"], l), x, positions,
-                                    tiles, enc_out)[0]
+            def dec_layer(x, bp):
+                return self._dec_layer(bp, x, positions, tiles, enc_out)[0]
+
+            dec_layer = _maybe_remat(dec_layer, remat)
+            for bp in blocks:
+                x = dec_layer(x, bp)
 
         x = rmsnorm(x, params["final_norm"]["w"])
         if return_hidden:
@@ -243,8 +308,7 @@ class Model:
             x = x + params["embed"]["pos"][:s][None]
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
-        for l in range(cfg.encoder_layers):
-            bp = _at(params["encoder"], l)
+        for bp in _layers(params["encoder"], cfg.encoder_layers):
             h = rmsnorm(x, bp["ln1"]["w"])
             x = residual_add(x, attn_full(bp["attn"], h, cfg, positions,
                                           causal=False))

@@ -25,7 +25,9 @@ their solo runs), an asynchronous checkpoint copies the state before the
 next superstep writes it, and a killed run resumes to the same bits.  The
 contract checker on a CUDA view flags a host read as R2, finds nothing in
 a clean WCC whose recorded superstep launches B3/B4, and leaves
-``run(analyze=True)`` bit-equal to ``run()``.
+``run(analyze=True)`` bit-equal to ``run()``.  The chunked attention's
+backward is held against autograd through the dense f32 softmax, and a
+one-layer gemma-2b train step runs twice from one state.
 """
 from typing import NamedTuple
 
@@ -931,3 +933,180 @@ def test_flash_attention_on_card_matches_cpu(card):
     cpu = TileTable(pos, pos, 520, 520).live(300)
     dev = TileTable(pos.to(card), pos.to(card), 520, 520).live(300)
     assert (cpu == dev).all() and not cpu.all()
+
+
+def test_flash_backward_on_card_matches_plain(card):
+    """The chunked attention's backward on the card (bf16, gemma-2b's head
+    layout at S=1,040 with a window and dead slots) against autograd
+    through the dense masked softmax in f32 on the same bf16 values: each
+    gradient within 0.02 x its largest entry (bf16 results)."""
+    from repro_torch.models.flash import flash_attention
+    from torch_flash_common import dense_plain
+
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(shape, generator=g).to(card, torch.bfloat16)
+               for shape in ((2, 1040, 8, 256), (2, 1040, 1, 256),
+                             (2, 1040, 1, 256)))
+    qpos = torch.arange(1040, dtype=torch.int32)[None].repeat(2, 1)
+    kpos = qpos.clone()
+    kpos[1, 500:507] = -1  # dead slots; every query keeps a live key
+    qpos, kpos = qpos.to(card), kpos.to(card)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = flash_attention(*leaves, qpos, kpos, 300, True, 256**-0.5, 520,
+                          520)
+    dout = torch.randn(out.shape, generator=g).to(card, torch.bfloat16)
+    got = torch.autograd.grad(out, leaves, dout)
+    ref = [t.float().requires_grad_() for t in (q, k, v)]
+    o = dense_plain(*ref, qpos, kpos, 300, True, 256**-0.5)
+    want = torch.autograd.grad(o, ref, dout.float())
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        assert float((a.float() - b).abs().max()) < 0.02 * float(
+            b.abs().max())
+
+
+def _rel_l2(got, want) -> float:
+    got, want = got.detach().float(), want.detach().float()
+    return float(torch.linalg.vector_norm(got - want)
+                 / torch.linalg.vector_norm(want))
+
+
+# The bf16-rounded logit gradient of ``layers._LogitsF32``: its backward
+# rounds the f32 logit gradient, and then each product, to bf16, each a
+# relative error of at most 2**-8 an entry (about 2**-7 / sqrt(12) RMS).
+LOGIT_GRAD_BOUND = 2.0**-7
+
+
+def test_logits_f32_backward_on_card_matches_upcast(card):
+    """``layers._LogitsF32``, the card's route of ``unembed``, at gemma-2b's
+    tied unembedding (B=2 x S=1,024 rows of d=2,048 against the 256,000 x
+    2,048 bf16 table), against autograd through the CPU route's f32 upcast
+    product on the same values: the logits within 1e-5 relative L2 (f32
+    accumulation order only), dx and the table's gradient in bf16 within
+    LOGIT_GRAD_BOUND relative L2 each."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import unembed
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = get_config("gemma-2b")
+    d, vocab = cfg.d_model, cfg.vocab_padded
+    gen = torch.Generator(device=card).manual_seed(5)
+    table = (torch.randn((vocab, d), generator=gen, device=card)
+             * d**-0.5).bfloat16()
+    x = torch.randn((2, 1024, d), generator=gen, device=card).bfloat16()
+    dlogits = torch.randn((2, 1024, vocab), generator=gen, device=card)
+    xp, tp = x.clone().requires_grad_(), table.clone().requires_grad_()
+    got = unembed({"table": tp}, xp, cfg)
+    dx, dt = torch.autograd.grad(got, (xp, tp), dlogits)
+    assert got.dtype == torch.float32
+    assert dx.dtype == dt.dtype == torch.bfloat16
+    xr, tr = x.float().requires_grad_(), table.float().requires_grad_()
+    want = xr @ tr.T
+    assert _rel_l2(got, want) < 1e-5
+    dx_want, dt_want = torch.autograd.grad(want, (xr, tr), dlogits)
+    for a, b in ((dx, dx_want), (dt, dt_want)):
+        assert _rel_l2(a, b) < LOGIT_GRAD_BOUND
+
+
+def test_gemma_layer_train_step_on_card(card):
+    """One train step of a one-layer gemma-2b at its published width on the
+    card (S=1,024: the chunked attention's forward and backward), run
+    twice from the same state: finite loss, parameters moved, and the two
+    runs within 1e-6 of each other's loss and gradient norm (whether they
+    are bit-equal is printed)."""
+    import dataclasses
+
+    from repro_torch.checkpoint.store import _flatten
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw_init
+
+    cfg = dataclasses.replace(get_config("gemma-2b"), n_layers=1)
+    model = build_model(cfg, card)
+    params = model.init(torch.Generator(device=card).manual_seed(0))
+    gen = torch.Generator(device=card).manual_seed(1)
+    batch = {key: torch.randint(0, cfg.vocab, (2, 1024), generator=gen,
+                                device=card) for key in ("tokens", "labels")}
+    step = make_train_step(model, TrainConfig())
+    runs = [step(params, adamw_init(params), batch) for _ in range(2)]
+    (p1, o1, m1), (p2, o2, m2) = runs
+    assert torch.isfinite(m1["loss"]) and torch.isfinite(m1["grad_norm"])
+    assert any(not torch.equal(a, b) for a, b in
+               zip(_flatten(p1)[0], _flatten(params)[0]))
+    for key in ("loss", "grad_norm"):
+        torch.testing.assert_close(m1[key], m2[key], atol=0, rtol=1e-6)
+    same = all(torch.equal(a, b) for a, b in
+               zip(_flatten((p1, o1.m))[0], _flatten((p2, o2.m))[0]))
+    print(f"gemma-2b layer train step bit-equal across two runs: {same}")
+
+
+def _leaf_names(tree, prefix: str = "") -> list:
+    """The paths of ``tree``'s leaves, in ``_flatten``'s (sorted) order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in
+                _leaf_names(tree[k], f"{prefix}/{k}")]
+    return [prefix]
+
+
+def test_gemma_layer_train_step_on_card_matches_cpu(card, monkeypatch):
+    """One train step of a one-layer gemma-2b at its published width (B=2,
+    S=1,024) on the card against the port's CPU route from the same weights
+    and optimiser state; the CPU route is held against the reference's
+    step by ``tests/test_torch_train_step.py``.
+
+    Bounds: that file's dense ones (loss within 1e-3 relative; grad_norm
+    within 2e-2; every leaf of ``m`` within 0.02 relative L2) widened only
+    by the measured cost of the card's bf16-rounded logit gradient: the
+    distance of the card's step from the card's step through the CPU
+    route's f32 upcast product.  That cost is itself held within
+    LOGIT_GRAD_BOUND a leaf (a wrong scale, transpose or a zeroed gradient
+    moves a leaf by O(1)); both distances are printed a leaf."""
+    import dataclasses
+
+    from repro_torch.checkpoint.store import _flatten, _unflatten
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import layers
+    from repro_torch.optim import adamw_init
+
+    cfg = dataclasses.replace(get_config("gemma-2b"), n_layers=1)
+    params = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    batch = {key: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 1024)))
+             for key in ("tokens", "labels")}
+
+    def step(device):
+        flat, _ = _flatten(params)
+        tree = _unflatten(params, [p.to(device) for p in flat])
+        on = {k: v.to(device) for k, v in batch.items()}
+        return make_train_step(build_model(cfg, device), TrainConfig())(
+            tree, adamw_init(tree), on)
+
+    cpu = step("cpu")
+    card_run = step(card)
+    monkeypatch.setattr(layers._LogitsF32, "apply",
+                        staticmethod(lambda x2, w: x2.float() @ w.float()))
+    upcast = step(card)
+    for key, rtol in (("loss", 1e-3), ("ce", 1e-3)):
+        assert abs(float(card_run[2][key]) - float(cpu[2][key])) <= \
+            rtol * abs(float(cpu[2][key])), key
+    gn_cost = abs(float(card_run[2]["grad_norm"])
+                  - float(upcast[2]["grad_norm"]))
+    print("loss card / CPU:", float(card_run[2]["loss"]),
+          float(cpu[2]["loss"]), "grad_norm card / upcast / CPU:",
+          *(float(r[2]["grad_norm"]) for r in (card_run, upcast, cpu)))
+    assert abs(float(card_run[2]["grad_norm"]) - float(cpu[2]["grad_norm"])) \
+        <= 2e-2 * abs(float(cpu[2]["grad_norm"])) + gn_cost
+    names = _leaf_names(params)
+    rows = [(name, _rel_l2(got, plain), _rel_l2(got.cpu(), want),
+             _rel_l2(plain.cpu(), want))
+            for name, got, want, plain in zip(names,
+                                              _flatten(card_run[1].m)[0],
+                                              _flatten(cpu[1].m)[0],
+                                              _flatten(upcast[1].m)[0])]
+    for name, cost, dist, plain_dist in rows:
+        print(f"m{name}: bf16 logit gradient's cost {cost:.4g}, card to CPU "
+              f"{dist:.4g} (through the upcast product {plain_dist:.4g})")
+    for name, cost, dist, _ in rows:
+        assert cost < LOGIT_GRAD_BOUND, name
+        assert dist < 0.02 + cost, name

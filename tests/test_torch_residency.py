@@ -17,12 +17,14 @@ reference.
     IOStats equal except ``host_bytes`` and ``retries``.
   * Guards, session caching, ``memory_report`` and the retry ladder.
 
+The whole runs of the four paths and PageRank pull on the symmetrised graph
+are in ``tests/test_torch_residency_runs.py``; the shared set-up is
+``tests/torch_residency_common.py``.
+
 Nothing in ``jax`` or ``repro`` is patched here.  Sizes are small
 (``rmat(8)``, 32x32 tiles, 256-edge chunks): the reference's Pallas
 kernels run in interpret mode.
 """
-from typing import NamedTuple
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -32,104 +34,16 @@ import repro
 from repro.core import engine as reng
 from repro.core import residency as rres
 from repro.core import semiring as rsr
-from repro.graph.generators import rmat
 
 import repro_torch
 from repro_torch.core import engine as teng
 from repro_torch.core import residency as tres
 from repro_torch.core import semiring as tsr
 from repro_torch.core.sem import device_graph as t_device_graph
-
-BACKENDS = ("scan", "compact", "blocked", "blocked_compact")
-SEMIRINGS = ("plus_times", "min_plus", "or_and")
-PR_TOL = dict(atol=1e-6, rtol=1e-5)
-KW = dict(chunk_size=256, bd=32, bs=32)
-# counters that depend on residency, not on the traversal
-RESIDENCY_FIELDS = ("host_bytes", "retries", "queries")
-
-
-class WCCState(NamedTuple):
-    labels: torch.Tensor
-    active: torch.Tensor
-
-
-class WCCProgram(repro_torch.VertexProgram):
-    """Weakly connected components by min-label propagation
-    (``examples/custom_program.py``, written against the port's API)."""
-
-    semiring = tsr.MIN_PLUS
-
-    def init(self, sg, seeds):
-        return WCCState(
-            labels=torch.arange(sg.n, dtype=torch.float32, device=sg.device),
-            active=torch.ones(sg.n, dtype=torch.bool, device=sg.device))
-
-    def frontier(self, sg, s):
-        return repro_torch.Frontier(x=s.labels, active=s.active)
-
-    def apply(self, sg, s, gathered):
-        labels = torch.minimum(s.labels, gathered)
-        changed = labels < s.labels
-        return WCCState(labels, changed), changed
-
-    def finalize(self, sg, s):
-        return s.labels.to(torch.int32)
-
-
-class RefWCCState(NamedTuple):
-    labels: jnp.ndarray
-    active: jnp.ndarray
-
-
-class RefWCCProgram(repro.VertexProgram):
-    """The same program against the reference's API."""
-
-    semiring = rsr.MIN_PLUS
-
-    def init(self, sg, seeds):
-        return RefWCCState(labels=jnp.arange(sg.n, dtype=jnp.float32),
-                           active=jnp.ones(sg.n, bool))
-
-    def frontier(self, sg, s):
-        return repro.Frontier(x=s.labels, active=s.active)
-
-    def apply(self, sg, s, gathered):
-        labels = jnp.minimum(s.labels, gathered)
-        changed = labels < s.labels
-        return RefWCCState(labels, changed), changed
-
-    def finalize(self, sg, s):
-        return s.labels.astype(jnp.int32)
-
-
-def _sr(mod, name):
-    return {"plus_times": mod.PLUS_TIMES, "min_plus": mod.MIN_PLUS,
-            "or_and": mod.OR_AND}[name]
-
-
-def _io_equal(got, want, skip=("queries",)):
-    for name, a, b in zip(got._fields, got, want):
-        if name not in skip:
-            assert int(a) == int(b), f"IOStats.{name}: {int(a)} != {int(b)}"
-
-
-def _values_equal(got, want, approx=False):
-    got = got.cpu().numpy()
-    want = np.asarray(want)
-    if approx:
-        np.testing.assert_allclose(got, want, **PR_TOL)
-    else:
-        np.testing.assert_array_equal(got, want)
-
-
-@pytest.fixture(scope="module")
-def graph():
-    return rmat(8, edge_factor=8, seed=1)
-
-
-@pytest.fixture(scope="module")
-def sym_graph():
-    return rmat(8, edge_factor=8, seed=1, symmetrize=True)
+from torch_residency_common import (  # noqa: F401 (graph, sym_graph: fixtures)
+    BACKENDS, KW, PR_TOL, RESIDENCY_FIELDS, RUNS, SEMIRINGS, RefWCCProgram,
+    WCCProgram, _check_run, _io_equal, _sessions, _sr, _values_equal, graph,
+    sym_graph)
 
 
 def _superstep_inputs(n, sr_name, seed, lanes=None):
@@ -223,62 +137,6 @@ def test_host_traverse_p2p_arm(graph):
 
 
 # ------------------------------------------------------------ whole runs
-def _sessions(g):
-    return (repro.Graph(g, **KW), repro_torch.Graph(g, device="cpu", **KW),
-            repro_torch.Graph(g, device="cpu", **KW))
-
-
-RUNS = {
-    "pr_push": (lambda G, pol: G.pagerank(tol=1e-4, policy=pol), True),
-    "pr_pull": (lambda G, pol: G.pagerank(mode="pull", tol=1e-4,
-                                          policy=pol), True),
-    "bfs": (lambda G, pol: G.bfs(0, policy=pol), False),
-    "bfs_auto": (lambda G, pol: G.bfs(0, policy=pol.with_(direction="auto")),
-                 False),
-}
-
-
-def _check_run(ref_res, dev_res, host_res, approx):
-    for other in (ref_res, dev_res):
-        _values_equal(host_res.values, other.values, approx=approx)
-        assert int(host_res.supersteps) == int(other.supersteps)
-        _io_equal(host_res.iostats, other.iostats, skip=RESIDENCY_FIELDS)
-    assert int(host_res.iostats.host_bytes) > 0
-    assert int(dev_res.iostats.host_bytes) == 0
-
-
-@pytest.mark.parametrize("run", sorted(RUNS))
-@pytest.mark.parametrize("backend", BACKENDS)
-def test_runs_match_device(graph, backend, run):
-    ref, dev, host = _sessions(graph)
-    call, approx = RUNS[run]
-    pol = dict(backend=backend)
-    _check_run(call(ref, repro.ExecutionPolicy(**pol)),
-               call(dev, repro_torch.ExecutionPolicy(**pol)),
-               call(host, repro_torch.ExecutionPolicy(residency="host",
-                                                      **pol)),
-               approx)
-
-
-@pytest.mark.parametrize("backend", BACKENDS)
-def test_pagerank_pull_host_equals_port_device(sym_graph, backend):
-    """On the symmetrised graph the port's scan/compact PageRank pull takes
-    one superstep more than the reference (ranks within 1.1e-7: f32
-    rounding moves a vertex across the threshold ``tol / n``; ROADMAP §C
-    P5).  Host residency equals the port's device residency bit for bit
-    there too, and the reference's values within the tolerance."""
-    ref, dev, host = _sessions(sym_graph)
-    call, _ = RUNS["pr_pull"]
-    want = call(ref, repro.ExecutionPolicy(backend=backend))
-    got_dev = call(dev, repro_torch.ExecutionPolicy(backend=backend))
-    got = call(host, repro_torch.ExecutionPolicy(backend=backend,
-                                                 residency="host"))
-    assert torch.equal(got.values, got_dev.values)
-    assert int(got.supersteps) == int(got_dev.supersteps)
-    _io_equal(got.iostats, got_dev.iostats, skip=RESIDENCY_FIELDS)
-    _values_equal(got.values, want.values, approx=True)
-
-
 @pytest.mark.parametrize("stream_buffer", [1, 16])
 @pytest.mark.parametrize("backend", BACKENDS)
 def test_wcc_matches_device(sym_graph, backend, stream_buffer):
