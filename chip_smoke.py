@@ -8,7 +8,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
   1. build     — compile ``src/repro_torch/csrc/spmv.cu`` (kernels B1-B4)
                  and ``decode_attn.cu`` (B5) for sm_90a, one nvcc each,
                  started together (into the git-ignored ``build/kernels/``);
-                 logs ptxas's registers and spills.
+                 logs ptxas's registers and spills, and fails if ptxas
+                 spills in any of B1-B4's passes (every lane width).
 
   The LM slice runs first, while the card holds nothing else:
 
@@ -200,8 +201,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
                launches of each must give the same bits.  Then, on an x
                holding +inf, -inf and NaN, all four against their plain
                versions, NaN for NaN (ROADMAP §C P12).  B1/B2 also at
-               K=32, 192 and 256 (two lane groups) on both views and
-               frontiers.
+               K=4, 32, 192 and 256 (two lane groups) on both views and
+               frontiers, every column ``torch.equal`` to the K=1 call on
+               that column.
   17. time    — each kernel at K=1 beside its bound, its plain version and a
                library call over the same live edges (``torch.sparse.mm``
                for B1/B2, ``scatter_reduce_(..., 'amin')`` for B3/B4), and
@@ -214,7 +216,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
                list and pointers a live tile, the x blocks of live tiles,
                y); the dense tile bound of the earlier design is
                logged beside it, as is the dense plain version's time.
-               B1 and B2 again at K=32 (``k32_*`` keys of the kernels line).
+               B1 and B2 again at K=4, 16 and 32 (the widths of the
+               batched paths as columns retire; ``k4_*``, ``k16_*`` and
+               ``k32_*`` keys of the kernels line), each with its bound and
+               ``torch.sparse.mm`` at that K.
   18. recovery — kill and resume on the card (``repro_torch.core.recovery``).
                First the sum scatter's fixed order (ROADMAP §C P17): scan
                and compact ``pagerank()`` on the main view with the
@@ -263,7 +268,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
   20. profile — device time and idle share of blocked PageRank, blocked BFS,
                blocked WCC, blocked_compact PageRank and WCC, host scan
                PageRank (10 supersteps), host blocked_compact WCC, and
-               blocked batched BFS (Q=32) and personalized PageRank (Q=16).
+               blocked batched BFS (Q=32) and personalized PageRank (Q=16);
+               batched BFS's largest kernel is named by the ``repro_torch``
+               lines that launched it (``with_stack=True``).
   21. chaos   — with the parent's views freed, a ``DurableWorkQueue`` of 12
                tasks (the batched BFS of 2 sources, over the 8 top-degree
                vertices of host (b)'s graph, on scan, compact and blocked)
@@ -928,8 +935,8 @@ Q_RESET = 4  # columns of the seeded reset matrix
 Q_HOST = 8  # host queries: benchmarks/bench_multisource.py's Q and gate
 HOST_GATE = 4.0  # host_bytes a query must drop at least this much at Q=8
 BC_RTOL = 1e-4
-K_WIDE = (32, 192, 256)  # B1/B2 lanes checked beside K=1 and 4; 256 splits
-K_TIME = 32  # B1/B2 lanes timed beside K=1
+K_WIDE = (4, 32, 192, 256)  # B1/B2 lanes checked beside K=1; 256 splits
+K_TIME = (4, 16, 32)  # B1/B2 lanes timed beside K=1: Q=32 as columns retire
 
 
 def top_degree(g, k: int):
@@ -2084,8 +2091,9 @@ def phase_kernels(G, W, torch):
 def check_wide(order, bg, errs, torch) -> None:
     """B1/B2 at the batched paths' lane counts (``K_WIDE``; past 192 lanes
     the wrappers launch lane groups) on full and n/8 frontiers: within
-    atol=rtol=1e-5 of both plain versions, two launches bit-equal, and
-    one launch a group of at most 192 lanes."""
+    atol=rtol=1e-5 of both plain versions, two launches bit-equal, one
+    launch a group of at most 192 lanes, and every column ``torch.equal``
+    to the K=1 call on that column."""
     from repro_torch.kernels.spmv import kernel as K
 
     n = bg.n
@@ -2107,6 +2115,15 @@ def check_wide(order, bg, errs, torch) -> None:
                     and torch.equal(y2, K.spmv_blocked_compact(bg, *args,
                                                                x_blocks))):
                 raise AssertionError(f"k={k}: two launches differ")
+            for q in range(k):  # each column against its K=1 call
+                xq = x_blocks[..., q:q + 1].contiguous()
+                if not (torch.equal(y1[..., q:q + 1],
+                                    K.spmv_blocked(bg, act, xq))
+                        and torch.equal(y2[..., q:q + 1],
+                                        K.spmv_blocked_compact(bg, *args,
+                                                               xq))):
+                    raise AssertionError(f"k={k} {order} {fname}: column {q}"
+                                         " differs from its K=1 call")
             e1 = max(max_err(y1, K.blocked_spmv_plain(bg, act, x_blocks),
                              False, torch),
                      max_err(y1, K.blocked_spmv_plain_rows(bg, act, x_blocks),
@@ -2121,7 +2138,7 @@ def check_wide(order, bg, errs, torch) -> None:
             log(f"kernel check plus_times {order:7s} k={k} {fname:6s} "
                 f"live={int(act.sum())}/{bg.num_tiles} full err={e1:.3g} "
                 f"compact err={e2:.3g} ({groups} lane group(s); two launches "
-                "of each equal)")
+                f"of each equal; all {k} columns equal their K=1 calls)")
 
 
 def check_non_finite(enc, bg, errs, torch) -> None:
@@ -2344,23 +2361,29 @@ def kernel_calls(full_schedule: bool, bg, act, x_blocks, k: int):
 
 
 def time_wide(name, graph, bg, frontier, frontier_np, torch) -> dict:
-    """B1 or B2 at ``K_TIME`` lanes on the same view and frontier: the
-    event-loop and CUDA-graph device times, the bound at K lanes, the
-    plain version's time and ``torch.sparse.mm`` with an (n, K) x."""
-    k = K_TIME
-    x_blocks, act = kernel_inputs(bg, frontier, k, torch, seed=k)
-    run, plain, (bound_ms, bound_by), _ = kernel_calls(
-        KERNELS[name][1], bg, act, x_blocks, k)
-    lib = library_call(name, graph, frontier_np, x_blocks, torch)
-    out = dict(k32_ms=cuda_ms(run, reps=20), k32_device_ms=device_ms(run, torch),
-               k32_bound_ms=bound_ms, k32_bound_by=bound_by,
-               k32_plain_ms=cuda_ms(plain, reps=3, warmup=1),
-               k32_library_ms=cuda_ms(lib, reps=20),
-               k32_library_device_ms=device_ms(lib, torch))
-    log(f"time {name} k={k}: " + json.dumps(
-        {key: (round(v, 5) if isinstance(v, float) else v)
-         for key, v in out.items()})
-        + f"; device ms a call by kernel {kernel_parts(run, torch)}")
+    """B1 or B2 at each of ``K_TIME`` lanes on the same view and frontier:
+    the event-loop and CUDA-graph device times, the bound at K lanes, the
+    plain version's time and ``torch.sparse.mm`` with an (n, K) x, as keys
+    ``k{K}_*``, and the device ms a call of each kernel launched."""
+    out = {}
+    for k in K_TIME:
+        x_blocks, act = kernel_inputs(bg, frontier, k, torch, seed=k)
+        run, plain, (bound_ms, bound_by), _ = kernel_calls(
+            KERNELS[name][1], bg, act, x_blocks, k)
+        lib = library_call(name, graph, frontier_np, x_blocks, torch)
+        row = {f"k{k}_ms": cuda_ms(run, reps=20),
+               f"k{k}_device_ms": device_ms(run, torch),
+               f"k{k}_bound_ms": bound_ms, f"k{k}_bound_by": bound_by,
+               f"k{k}_plain_ms": cuda_ms(plain, reps=3, warmup=1),
+               f"k{k}_library_ms": cuda_ms(lib, reps=20),
+               f"k{k}_library_device_ms": device_ms(lib, torch)}
+        out.update(row)
+        log(f"time {name} k={k}: " + json.dumps(
+            {key: (round(v, 5) if isinstance(v, float) else v)
+             for key, v in row.items()})
+            + f"; device ms / library device ms "
+            f"{row[f'k{k}_device_ms'] / row[f'k{k}_library_device_ms']:.3f}"
+            f"; device ms a call by kernel {kernel_parts(run, torch)}")
     return out
 
 
@@ -2427,6 +2450,65 @@ def phase_profile(runs, torch) -> dict:
             e.key[:60]: round(e.self_device_time_total / 1e3, 3) for e in top})
         log(f"profile {name}: wall_ms={wall_ms:.1f} device_ms={device_ms:.1f} "
             f"idle_share={1 - device_ms / wall_ms:.3f} top={out[name]['top']}")
+    return out
+
+
+def name_top_kernel(label, call, torch) -> dict:
+    """The CUDA kernel that takes the most device time in one ``call`` and
+    the ``repro_torch`` lines that launch it: torch.profiler gives the
+    kernel and the aten op that launched it (the card's profile records no
+    Python frames), then one more ``call`` with that op's Tensor method
+    wrapped records the innermost three ``repro_torch`` frames of each of
+    its calls.  Returns ``{"kernel", "op", "device_ms", "share",
+    "call_device_ms", "lines": {frames: calls}}``."""
+    import traceback
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    total = sum(e.self_device_time_total for e in kernels)
+    top = max(kernels, key=lambda e: e.self_device_time_total)
+    ops: dict = {}
+    for fe in prof.events():
+        us = sum(k.duration for k in getattr(fe, "kernels", ())
+                 if k.name == top.key)
+        if us:
+            ops[fe.name] = ops.get(fe.name, 0.0) + us
+    op = max(ops, key=ops.get) if ops else "?"
+    method = op.split("::")[-1]
+    lines: dict = {}
+    orig = getattr(torch.Tensor, method, None)
+    if orig is not None:
+        def wrapped(*args, **kwargs):
+            frames = [f for f in traceback.extract_stack()[:-1]
+                      if "repro_torch" in f.filename][::-1][:3]
+            key = " <- ".join(f"{f.filename.split('src/', 1)[-1]}:"
+                              f"{f.lineno} {f.name}" for f in frames) or "?"
+            lines[key] = lines.get(key, 0) + 1
+            return orig(*args, **kwargs)
+
+        setattr(torch.Tensor, method, wrapped)
+        try:
+            call()
+            torch.cuda.synchronize()
+        finally:
+            setattr(torch.Tensor, method, orig)
+    out = dict(kernel=top.key, op=op,
+               device_ms=top.self_device_time_total / 1e3,
+               share=top.self_device_time_total / total,
+               call_device_ms=total / 1e3, lines=lines)
+    log(f"profile {label}: top kernel {out['kernel'][:90]} "
+        f"{out['device_ms']:.3f} of {out['call_device_ms']:.3f} device ms "
+        f"({out['share']:.3f}), launched by {op} from (calls) "
+        f"{json.dumps(lines)}")
     return out
 
 
@@ -3209,10 +3291,11 @@ TRAIN_RTOL = 1e-5
 # the flash backward (bf16 gradients) against the dense f32 softmax's
 FLASH_BWD_BOUND = 0.02
 FLASH_REPS = 20  # timed calls of one layer's attention, after 2 warm-ups
-# unembed's card route (layers._LogitsF32) against the f32 upcast product:
-# the logits up to f32 accumulation order; its backward rounds the logit
-# gradient, then each product, to bf16 (each at most 2**-8 an entry)
-LOGITS_BOUND, LOGIT_GRAD_BOUND = 1e-5, 2.0**-7
+# unembed's card route (layers._LogitsF32) against the upcast product: the
+# logits, and the backward's two f32 products (the f32 logit gradient
+# against the bf16 operands) before their one rounding to bf16, up to f32
+# accumulation order
+LOGITS_BOUND = LOGIT_GRAD_BOUND = 1e-5
 TRAIN_FAMILIES = (("gemma-2b", "dense"), ("qwen2-vl-72b", "vlm"),
                   ("qwen3-moe-235b-a22b", "moe"), ("mamba2-370m", "ssm"),
                   ("zamba2-2.7b", "hybrid"), ("whisper-base", "encdec"))
@@ -3310,11 +3393,16 @@ def flash_layer_check(cfg, dev, torch) -> dict:
 def logits_check(cfg, dev, torch) -> dict:
     """At gemma-2b's tied unembedding (B=2 x S=1,024 rows against the
     256,000 x 2,048 bf16 table): ``unembed``'s card route
-    (``layers._LogitsF32``) and its gradient against autograd through the
-    CPU route's f32 upcast product on the same values, as relative L2
-    distances (LOGITS_BOUND for the logits, LOGIT_GRAD_BOUND for dx and
-    the table's gradient)."""
-    from repro_torch.models.layers import unembed
+    (``layers._LogitsF32``) and its gradient against the upcast product on
+    the same values, as relative L2 distances.  The logits against the f32
+    upcast product (autograd's reference) within LOGITS_BOUND; the
+    backward's f32 products (``layers._mm_f32``, the logit gradient kept
+    in f32 as the reference keeps it) within LOGIT_GRAD_BOUND of the upcast
+    product taken in float64, since cuBLAS's f32 product sums dx's 256,000
+    terms with an error of its own (~9e-6, logged); their distance to the
+    f32 upcast product is logged beside.  The bf16 gradients autograd
+    returns must be those products rounded once."""
+    from repro_torch.models.layers import _mm_f32, unembed
 
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("lm_train logits: TF32 products are on")
@@ -3329,24 +3417,43 @@ def logits_check(cfg, dev, torch) -> dict:
     xp, tp = x.clone().requires_grad_(), table.clone().requires_grad_()
     got = unembed({"table": tp}, xp, cfg)
     dx, dt = torch.autograd.grad(got, (xp, tp), dlogits)
+    g2, x2 = dlogits.reshape(-1, vocab), x.reshape(-1, d)
+    dx32 = _mm_f32(g2, table).reshape(dx.shape)
+    dt32 = _mm_f32(x2.T, g2).T
     xr, tr = x.float().requires_grad_(), table.float().requires_grad_()
     want = xr @ tr.T
     dx_want, dt_want = torch.autograd.grad(want, (xr, tr), dlogits)
+    del xr, tr
 
     def rel(a, b):
-        a, b = a.detach().float(), b.detach().float()
+        a, b = a.detach().double(), b.detach().double()
         return float(torch.linalg.vector_norm(a - b)
                      / torch.linalg.vector_norm(b))
 
-    errs = dict(logits=rel(got, want), dx=rel(dx, dx_want),
-                dtable=rel(dt, dt_want))
+    errs = dict(logits=rel(got, want))
+    del want
+    g64 = g2.double()
+    dx64 = (g64 @ table.double()).reshape(dx.shape)
+    errs.update(dx=rel(dx32, dx64), dx_to_f32=rel(dx32, dx_want),
+                dx_f32_to_f64=rel(dx_want, dx64), dx_bf16=rel(dx, dx_want))
+    del dx64
+    dt64 = (x2.double().T @ g64).T
+    del g64
+    errs.update(dtable=rel(dt32, dt64), dtable_to_f32=rel(dt32, dt_want),
+                dtable_f32_to_f64=rel(dt_want, dt64),
+                dtable_bf16=rel(dt, dt_want))
+    rounded = (torch.equal(dx, dx32.bfloat16())
+               and torch.equal(dt, dt32.bfloat16()))
     ok = (got.dtype == torch.float32 and dx.dtype == dt.dtype
           == torch.bfloat16 and errs["logits"] < LOGITS_BOUND
           and errs["dx"] < LOGIT_GRAD_BOUND
-          and errs["dtable"] < LOGIT_GRAD_BOUND)
-    log(f"lm_train logits (_LogitsF32) against the f32 upcast product, "
-        f"relative L2: " + ", ".join(f"{n}={e:.3g}" for n, e in errs.items())
-        + f" (bounds {LOGITS_BOUND}, {LOGIT_GRAD_BOUND:.3g})")
+          and errs["dtable"] < LOGIT_GRAD_BOUND and rounded)
+    log(f"lm_train logits (_LogitsF32), relative L2: "
+        + ", ".join(f"{n}={e:.3g}" for n, e in errs.items())
+        + f" (bounds {LOGITS_BOUND} on logits against the f32 upcast "
+        f"product, {LOGIT_GRAD_BOUND} on dx and dtable against the float64 "
+        f"one; the bf16 gradients equal the f32 products rounded once: "
+        f"{rounded})")
     if not ok:
         raise AssertionError(f"lm_train logits: {errs}")
     return errs
@@ -3669,6 +3776,12 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"ptxas {lib.name.split('_')[0][3:]}: {line.strip()}")
     check_no_spill(libs[1], "decode_attn_ring")
+    # B1-B4's passes by mangled name (every lane width), but the one-lane
+    # B2/B4 pair kept as PR 15 wrote it (compact_windows1, _blocks1)
+    for kernel in ("13spmv_segmentsI", "18spmv_segments_wideI",
+                   "16combine_segmentsI", "12poison_tilesI",
+                   "15compact_windowsI", "14compact_blocksI"):
+        check_no_spill(libs[0], kernel)
 
     # The LM slice first, while the card holds nothing else.
     lm_err = phase_lm_kernel(torch)
@@ -3733,6 +3846,8 @@ def main(argv=None) -> int:
         ("blocked/ppr_q16", lambda: G.pagerank(
             reset=top_degree(g, Q_PPR).tolist(), policy=blocked)),
     ), torch)
+    name_top_kernel("blocked/bfs_q32", lambda: G.bfs(
+        top_degree(g, Q_MAIN).tolist(), policy=blocked), torch)
 
     # The chaos gate's workers build their own views: free the parent's.
     del G, W, Ha, Hb, results
@@ -3761,9 +3876,9 @@ def main(argv=None) -> int:
          "bound_ms": times[name]["bound_ms"],
          "bound_by": times[name]["bound_by"],
          "library_ms": times[name]["library_ms"],
-         **{k: v for k, v in times[name].items()
-            if k in ("k32_ms", "k32_device_ms", "k32_bound_ms",
-                     "k32_library_ms")}}
+         **{f"k{k}_{key}": times[name][f"k{k}_{key}"]
+            for k in K_TIME if f"k{k}_ms" in times[name]
+            for key in ("ms", "device_ms", "bound_ms", "library_ms")}}
         for name in KERNELS
     ]
     serve_t = lm_times["a"]

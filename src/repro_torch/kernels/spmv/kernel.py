@@ -20,20 +20,30 @@ entry, and never its dense tiles:
   * :func:`spmv_blocked` (B1, B3 on min_plus tiles) — every tile of the
     schedule, over the view's *row payload* (``BlockedGraph.row_ptr``,
     ``ent_tile``/``ent_src``/``ent_w`` and the segment table
-    ``seg_ptr``/``row_seg``): a 16-lane group a segment of a destination
+    ``seg_ptr``/``row_seg``): segments of at most 128 of a destination
     row's entries, entries of tiles inactive under the frontier skipped,
-    then the segments of each row combined in order.  Its plain version
-    is :func:`blocked_spmv_plain_rows`.
+    then the segments of each row combined in order.  At K=1 a 16-lane
+    group takes a segment; at K > 1 a group of up to 32 threads takes it,
+    loads each entry once, shares it by shuffles and runs the lanes across
+    its threads (thread t: lanes t, t + 32, ...), each lane keeping the
+    K=1 pass's 16 partials and tree, so a column's bits equal the K=1
+    call's on that column.  Its plain version is
+    :func:`blocked_spmv_plain_rows`.
   * :func:`spmv_blocked_compact` (B2, B4 on min_plus tiles) — only the
     live tiles ``perm[:nact]`` of the compacted schedule, over the
     *tile-major payload* (``tile_ptr``, ``tent_row``/``tent_src``/
     ``tent_w``): the live list grouped by destination block (a stable sort
     on the device under a curve order; 'dest' already is), cut into
-    windows of 32 live tiles, each window's entries folded row by row in
-    shared memory, and the blocks spread over several windows combined in
-    window order.  It also takes a :class:`TileBatch`, the batch-local
-    payload that host residency stages per batch.  The wrapper does not
-    synchronise with the device.  Its plain version is
+    windows of 32 live tiles, each row's entries folded in list order,
+    and the blocks spread over several windows combined in window order.
+    At K=1 a thread a row folds its window's staged values; at K > 1 a
+    window stages its entries once and sorts them by row, and then, a
+    block of rows at a time, all its threads gather the entries' values
+    (float4 chunks of x's row where K % 4 == 0, else words) and a thread
+    a (row, chunk) folds its row's entries, so a lane's bits do not
+    depend on K.  It also takes a :class:`TileBatch`, the
+    batch-local payload that host residency stages per batch.  The
+    wrapper does not synchronise with the device.  Its plain version is
     :func:`blocked_spmv_plain_compact_rows`.
 
 Both follow the reference on an ``x`` holding +-inf or NaN: the dense
@@ -79,7 +89,13 @@ __all__ = [
     "spmv_blocked_compact",
 ]
 
-_MAX_K = 192  # lanes one launch takes; more are split into lane groups
+# Lanes one launch takes; more are split into lane groups.  B1/B3's pass
+# at K > 1 holds 16 partials a lane in registers, a thread takes every 32nd
+# lane, and it is compiled for up to 6 lanes a thread (96 partial
+# registers, no spill: ``chip_smoke.py`` checks ptxas's report), so 192.
+# B2/B4 hold one float4 a thread whatever K is (more lanes take more
+# passes); they take the same groups, which also bound their scratch.
+_MAX_K = 192
 _PLAIN_CHUNK = 512  # tiles per batched product in the plain versions
 _WINDOW = 32  # live tiles a B2/B4 window (kWin in csrc/spmv.cu)
 
@@ -146,7 +162,7 @@ def _library():
         lib = ctypes.CDLL(str(build_library()))
         p, i = ctypes.c_void_p, ctypes.c_int
         for fn in ("spmv_rows", "spmv_rows_min_plus"):
-            getattr(lib, fn).argtypes = [p] * 15 + [i] * 7 + [p]
+            getattr(lib, fn).argtypes = [p] * 16 + [i] * 7 + [p]
             getattr(lib, fn).restype = i
         for fn in ("spmv_compact", "spmv_compact_min_plus"):
             getattr(lib, fn).argtypes = [p] * 11 + [i] * 6 + [p]
@@ -223,7 +239,9 @@ def _lane_groups(launch, bg, x_blocks: torch.Tensor) -> torch.Tensor:
     """``launch(x)`` over ``x_blocks`` in groups of at most ``_MAX_K``
     lanes, one launch a group on the current stream, each group's result
     copied into its own columns of y.  A lane's arithmetic does not depend
-    on the others, so a lane's bits do not depend on its group."""
+    on the others or on K (B1/B3 keep the K=1 pass's 16 partials and tree
+    in every lane; B2/B4 fold a row's entries in one order), so a lane's
+    bits equal a K=1 call's on that column, whatever its group."""
     k = x_blocks.shape[-1]
     if k <= _MAX_K:
         return launch(x_blocks)
@@ -242,13 +260,15 @@ def _launch_rows(bg, act: torch.Tensor, x_blocks: torch.Tensor
     dev = x_blocks.device
     n_rows = bg.row_ptr.numel() - 1
     n_segs = bg.seg_ptr.numel() - 1
-    # y, the segment partials and the int32 poisoning counts in one
-    # allocation (both 4-byte types).
-    out = torch.empty((n_rows + n_segs + bg.n_src_blocks) * k,
-                      dtype=torch.float32, device=dev)
+    # y, the segment partials and the int32 poisoning counts (a source
+    # block's per lane, then whether it has any) in one allocation (both
+    # 4-byte types).
+    out = torch.empty((n_rows + n_segs + bg.n_src_blocks) * k
+                      + bg.n_src_blocks, dtype=torch.float32, device=dev)
     base = out.data_ptr()
-    _call(name, x_blocks.data_ptr(), base, base + n_rows * k * 4,
-          base + (n_rows + n_segs) * k * 4, bg.row_seg.data_ptr(),
+    pois = base + (n_rows + n_segs) * k * 4
+    _call(name, x_blocks.data_ptr(), base, base + n_rows * k * 4, pois,
+          pois + bg.n_src_blocks * k * 4, bg.row_seg.data_ptr(),
           bg.seg_ptr.data_ptr(), bg.ent_tile.data_ptr(),
           bg.ent_src.data_ptr(), bg.ent_w.data_ptr(), act.data_ptr(),
           bg.dbid.data_ptr(), bg.sbid.data_ptr(), bg.tile_ptr.data_ptr(),
@@ -286,7 +306,7 @@ def _launch_compact(bg, lst, ldb, nact: int, x_blocks: torch.Tensor
     dev = x_blocks.device
     n_y = bg.n_dst_blocks * bg.bd * k
     n_part = 2 * (-(-nact // _WINDOW)) * bg.bd * k
-    n_int = bg.n_src_blocks * k + 2 * bg.n_dst_blocks
+    n_int = bg.n_src_blocks * (k + 1) + 2 * bg.n_dst_blocks
     # y, the window partials and the int32 scratch in one allocation.
     out = torch.empty(n_y + n_part + n_int, dtype=torch.float32, device=dev)
     base = out.data_ptr()

@@ -109,12 +109,50 @@ def embed(p, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return x
 
 
+def _split_bf16(g: torch.Tensor) -> tuple:
+    """f32 ``g`` as three bf16 parts ``hi + mid + lo``: each part rounds
+    what the parts before it left, so together they hold g's 24 bits."""
+    hi = g.bfloat16()
+    rest = g - hi.float()
+    mid = rest.bfloat16()
+    return hi, mid, (rest - mid.float()).bfloat16()
+
+
+# Reduction length of one tensor-core product in ``_mm_f32``: the tensor
+# cores add each block of products into the f32 sum with a truncation, so
+# their error grows with the length (3e-4 relative L2 over gemma-2b's
+# 256,000-long vocabulary on an H100, 2e-6 over 2,048).
+_K_CHUNK = 2048
+
+
+def _mm_f32(a, b) -> torch.Tensor:
+    """f32 ``a @ b`` of an f32 operand and a bf16 one: the f32 side split
+    into three bf16 parts (:func:`_split_bf16`, stacked along its other
+    dimension), each part's product with the bf16 side accumulated in f32
+    on the tensor cores over chunks of ``_K_CHUNK`` of the reduction, the
+    chunks summed in f32 and then the three parts (smallest first).  The
+    bf16 x bf16 products are exact, so this is the f32 product up to
+    accumulation order."""
+    split_a = a.dtype == torch.float32
+    if split_a:
+        a = torch.cat(_split_bf16(a), dim=0)
+    else:
+        b = torch.cat(_split_bf16(b), dim=1)
+    out = None
+    for k0 in range(0, a.shape[1], _K_CHUNK):
+        part = torch.mm(a[:, k0:k0 + _K_CHUNK], b[k0:k0 + _K_CHUNK],
+                        out_dtype=torch.float32)
+        out = part if out is None else out.add_(part)
+    hi, mid, lo = out.chunk(3, dim=0 if split_a else 1)
+    return hi + (mid + lo)
+
+
 class _LogitsF32(torch.autograd.Function):
     """``torch.mm(x, w, out_dtype=torch.float32)`` with a gradient (the
-    card's ``mm`` with an output dtype has none).  The backward rounds the
-    f32 logit gradient to the operands' bf16 and accumulates both products
-    in f32 on the tensor cores; the CPU route's upcast product keeps it in
-    f32 (ROADMAP §C P26)."""
+    card's ``mm`` with an output dtype has none).  As the reference's
+    gradient of its f32-output einsum, the backward keeps the f32 logit
+    gradient in f32 against the bf16 operands (:func:`_mm_f32`) and rounds
+    only the two products to the operands' bf16 (ROADMAP §C P26)."""
 
     @staticmethod
     def forward(ctx, x2, w):
@@ -124,12 +162,11 @@ class _LogitsF32(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x2, w = ctx.saved_tensors
-        g = g.to(x2.dtype)
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = torch.mm(g, w.T, out_dtype=torch.float32).to(x2.dtype)
+            dx = _mm_f32(g, w.T).to(x2.dtype)
         if ctx.needs_input_grad[1]:
-            dw = torch.mm(x2.T, g, out_dtype=torch.float32).to(w.dtype)
+            dw = _mm_f32(x2.T, g).to(w.dtype)
         return dx, dw
 
 
