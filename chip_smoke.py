@@ -96,6 +96,31 @@ Phases, each of which raises (and so exits non-zero) on failure:
                  inject_failures=True)`` on the card under the git-ignored
                  ``build/``: loss_last10 < loss_first10, 1 restart, >= 1
                  straggler event.
+  7b. lm_mesh  — the multi-card layer on a one-rank NCCL mesh
+                 (``make_local_mesh(1, 1)``, its ``file://`` store under
+                 the git-ignored ``build/mesh/``; the group is destroyed at
+                 the end): (a) qwen3-moe-235b-a22b at 4 of 94 layers
+                 (capacity factor 8, seeded weights) with
+                 ``model.set_mesh(mesh)``: prefill at B=2, S=1,024 and 8
+                 decode steps through B5, every logit bit-equal to the same
+                 model's without a mesh (B5 counted: 4 x 8); then
+                 ``moe_ffn_ep`` on layer 0's experts at the prefill and the
+                 decode shape, y and aux bit-equal to ``moe_ffn``, both
+                 timed; (b) gemma-2b at full width, B=2, S=1,024, batches
+                 from ``sharded_batches(stream, mesh, batch_pspec(2,
+                 mesh))``: ``make_train_step(param_shardings=plan)``'s
+                 first step (loss, grad norm, every updated parameter)
+                 bit-equal to the step without a plan from the same state,
+                 ms a step; (c) ``compressed_psum`` over 'data' on that
+                 batch's gradient tree: mean and error bit-equal to
+                 ``decompress(compress(g, e))``, ms and the int8 bytes;
+                 (d) ``state_specs`` and ``cache_specs`` (decode_32k) of
+                 the ten registry configurations on the meta device,
+                 ``memory_allocated`` unchanged, with one rank's parameter,
+                 optimizer and cache bytes under the (16, 16) plan
+                 (computed, not measured); (e) ``roofline.model_flops``
+                 beside this script's ``prefill_bound``/``train_bound``
+                 FLOP counts for lm_families' and lm_train's shapes.
 
   The graph slices (views freed of the LM's weights):
 
@@ -284,7 +309,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
 Prints the card's ``name, power.limit``, a ``{"kernels": [...]}`` line
 (B1-B5; B1/B2's launches are the main, batched, algorithm, host batched,
 recovery and analysis paths', B3/B4's the WCC, recovery and analysis
-paths', B5's the lm_serve and lm_families paths') and, last, ``{"ok": true, "device": {...}}``.  ``--seed`` seeds
+paths', B5's the lm_serve, lm_families and lm_mesh paths') and, last, ``{"ok": true, "device": {...}}``.  ``--seed`` seeds
 the batched phase's reset matrix (default 0).  Exits non-zero without a CUDA
 device, and when the repository's ``src/`` is not beside it.
 """
@@ -3692,6 +3717,292 @@ def phase_lm_train(torch, dev="cuda", full_cfg=None) -> dict:
     return rows
 
 
+MESH_B, MESH_S, MESH_STEPS = 2, 1024, 8  # (a): prefill B x S, decode steps
+MESH_TIMED = 2  # (b): timed planned steps after the compared one
+MESH_REPS = 5  # (a), (c): timed calls after the warm-ups
+MESH_STORE = ROOT / "build" / "mesh" / "lm_mesh_store"  # git-ignored
+MESH_ARCH = "qwen3-moe-235b-a22b"
+MESH_DEPTH = 4  # of 94 layers, as lm_families cuts it
+
+
+def mesh_moe(mesh, torch, dev, cfg, smi) -> dict:
+    """(a): the moe serving path with ``set_mesh`` against the same model
+    without one, bit for bit, and ``moe_ffn_ep`` against ``moe_ffn`` on one
+    layer's experts at the prefill and the decode shape."""
+    from repro_torch.kernels import decode_attn as tda
+    from repro_torch.models import build_model
+    from repro_torch.models.moe import moe_ffn, moe_ffn_ep
+
+    t0 = time.perf_counter()
+    plain = build_model(cfg, dev)
+    meshed = build_model(cfg, dev).set_mesh(mesh)
+    params = plain.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"lm_mesh (a) {cfg.name}: {cfg.n_layers} layers, initialised in "
+        f"{time.perf_counter() - t0:.1f} s")
+    batch = family_batch(cfg, MESH_B, MESH_S, dev, torch, seed=MESH_S)
+    prompt = dict(batch, tokens=batch["tokens"][:, :MESH_S])
+    gen = torch.Generator(device=dev).manual_seed(MESH_S + 1)
+    toks = torch.cat([batch["tokens"][:, MESH_S:], torch.randint(
+        1, cfg.vocab, (MESH_B, MESH_STEPS - 1), generator=gen, device=dev)],
+        1)
+    runs, launches = {}, 0
+    for name, model in (("plain", plain), ("mesh", meshed)):
+        logits, cache = model.prefill(params, prompt,
+                                      max_len=MESH_S + MESH_STEPS)
+        out = [logits]
+        if name == "mesh":
+            tda.reset_launches()
+        for i in range(MESH_STEPS):
+            logits, cache = model.decode_step(params, cache, toks[:, i:i + 1])
+            out.append(logits)
+        torch.cuda.synchronize()
+        if name == "mesh":
+            launches = tda.launches[B5]
+        runs[name] = out
+        del cache
+    if not all(torch.equal(a, b) for a, b in zip(runs["plain"],
+                                                 runs["mesh"])):
+        raise AssertionError("lm_mesh (a): logits with a one-rank mesh set "
+                             "differ from the logits without one")
+    want = attn_layers(cfg) * MESH_STEPS
+    if launches != want:
+        raise AssertionError(f"lm_mesh (a): B5 ran {launches} times, not "
+                             f"{want}")
+    log(f"lm_mesh (a) prefill B={MESH_B} S={MESH_S} + {MESH_STEPS} decode "
+        f"steps with set_mesh: logits bit-equal to the model's without a "
+        f"mesh at all {MESH_STEPS + 1} steps; B5 launched {launches} times")
+    row = {"logits_bit_equal": True, "b5_launches": launches}
+    p = {k: v[0] for k, v in params["blocks"]["moe"].items()}
+    for label, s in (("prefill", MESH_S), ("decode", 1)):
+        x = torch.randn((MESH_B, s, cfg.d_model), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        with torch.inference_mode():
+            y0, a0 = moe_ffn(p, x, cfg)
+            y1, a1 = moe_ffn_ep(p, x, cfg, mesh)
+            if not (torch.equal(y0, y1) and torch.equal(a0, a1)):
+                raise AssertionError(f"lm_mesh (a) moe_ffn_ep at {label}: "
+                                     "y or aux differ from moe_ffn")
+            ms_ep = cuda_ms(lambda: moe_ffn_ep(p, x, cfg, mesh), MESH_REPS)
+            ms = cuda_ms(lambda: moe_ffn(p, x, cfg), MESH_REPS)
+        row[label] = {"tokens": MESH_B * s, "moe_ffn_ep_ms": ms_ep,
+                      "moe_ffn_ms": ms}
+        log(f"lm_mesh (a) moe_ffn_ep at the {label} shape ({MESH_B} x {s} "
+            f"tokens, layer 0's {cfg.n_experts} experts): y and aux "
+            f"bit-equal to moe_ffn; {ms_ep:.3f} ms against moe_ffn's "
+            f"{ms:.3f} ms (CUDA events, {MESH_REPS} calls; {smi})")
+    del plain, meshed, params, runs
+    gc_cuda(torch)
+    return row
+
+
+def mesh_train(mesh, torch, dev, cfg, smi) -> dict:
+    """(b) the data-parallel step with a plan against the step without one,
+    from one state and one batch of ``sharded_batches`` over the mesh; (c)
+    ``compressed_psum`` over 'data' on that batch's gradient tree against
+    ``decompress(compress(g, e))``."""
+    from repro_torch.checkpoint.store import _flatten, _unflatten
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data import TokenStream, sharded_batches
+    from repro_torch.distributed.sharding import batch_pspec, param_shardings
+    from repro_torch.launch.steps import cross_entropy, make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import (adamw_init, compress, compressed_psum,
+                                   decompress, init_error)
+
+    model = build_model(cfg, dev)
+    params0 = model.init(torch.Generator(device=dev).manual_seed(0))
+    plan = param_shardings(model.logical_axes(), params0, mesh)
+    stream = TokenStream(vocab=cfg.vocab, seq_len=TRAIN_S,
+                         global_batch=TRAIN_B)
+    spec = batch_pspec(TRAIN_B, mesh)
+    batches = sharded_batches(stream, mesh, spec)
+    first = next(batches)
+    tc = TrainConfig()
+    params, opt, m_a = make_train_step(model, tc, donate=True)(
+        _clone_tree(params0, torch), adamw_init(params0), first)
+    want = dict(m_a, params=params)
+    del params, opt
+    gc_cuda(torch)
+    step = make_train_step(model, tc, param_shardings=plan, donate=True)
+    params = _clone_tree(params0, torch)
+    opt = adamw_init(params)
+    params, opt, m_b = step(params, opt, first)
+    for key in ("loss", "grad_norm"):
+        if not torch.equal(m_a[key], m_b[key]):
+            raise AssertionError(f"lm_mesh (b): {key} {float(m_b[key])} "
+                                 f"with the plan, {float(m_a[key])} without")
+    if not all(torch.equal(a, b) for a, b in zip(_leaves(want["params"]),
+                                                  _leaves(params))):
+        raise AssertionError("lm_mesh (b): updated parameters differ from "
+                             "the step's without a plan")
+    del want
+    gc_cuda(torch)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    timed = [next(batches) for _ in range(MESH_TIMED)]
+    torch.cuda.synchronize()
+    start.record()
+    for b in timed:
+        params, opt, m = step(params, opt, b)
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / MESH_TIMED
+    row = {"spec": str(tuple(spec)), "loss": float(m_b["loss"]),
+           "grad_norm": float(m_b["grad_norm"]), "ms_per_step": ms,
+           "losses": [float(m["loss"])]}
+    log(f"lm_mesh (b) {cfg.name} B={TRAIN_B} S={TRAIN_S}, sharded_batches "
+        f"spec {row['spec']}: the planned step's loss "
+        f"{row['loss']:.6f}, grad norm {row['grad_norm']:.6f} and updated "
+        f"parameters bit-equal to the step without a plan; {ms:.2f} ms a "
+        f"step (CUDA events, {MESH_TIMED} steps; {smi})")
+    del params, opt, step, m
+    gc_cuda(torch)
+
+    # (c) the gradient tree of the first batch at the initial state
+    flat, _ = _flatten(params0)
+    leaves = [p.detach().requires_grad_() for p in flat]
+    with torch.enable_grad():
+        logits, aux = model.forward(_unflatten(params0, leaves), first)
+        loss = cross_entropy(logits, first["labels"]) + 0.01 * aux
+        grads = torch.autograd.grad(loss, leaves)
+    grads = _unflatten(params0, list(grads))
+    del logits, aux, loss, leaves, params0
+    gc_cuda(torch)
+    err = init_error(grads)
+    mean, new_err = compressed_psum(grads, err, "data", mesh=mesh)
+    for g, e, mn, ne in zip(_leaves(grads), _leaves(err), _leaves(mean),
+                            _leaves(new_err)):
+        q, sc, e2 = compress({"g": g}, {"g": e})
+        if not (torch.equal(mn, decompress(q, sc)["g"])
+                and torch.equal(ne, e2["g"])):
+            raise AssertionError("lm_mesh (c): compressed_psum differs from "
+                                 "decompress(compress(g, e))")
+    del mean, new_err, g, e, mn, ne, q, sc, e2
+    gc_cuda(torch)
+    torch.cuda.reset_peak_memory_stats()
+    psum_ms = cuda_ms(lambda: compressed_psum(grads, err, "data", mesh=mesh),
+                      MESH_TIMED, warmup=1)
+    payload = sum(g.numel() for g in _leaves(grads))
+    row["compressed_psum"] = {"ms": psum_ms, "int8_bytes": payload,
+                              "peak_gb": torch.cuda.max_memory_allocated()
+                              / 1e9,
+                              "int32_allreduce_bytes": 4 * payload,
+                              "leaves": len(list(_leaves(grads)))}
+    log(f"lm_mesh (c) compressed_psum over 'data' on the gradient tree "
+        f"({row['compressed_psum']['leaves']} leaves): mean and error "
+        f"bit-equal to decompress(compress(g, e)); {psum_ms:.3f} ms "
+        f"(CUDA events, {MESH_TIMED} calls; {smi}); int8 payload {payload} "
+        f"bytes, summed as int32 ({4 * payload} bytes an all-reduce)")
+    del grads, err
+    gc_cuda(torch)
+    return row
+
+
+def mesh_specs(torch, dev) -> dict:
+    """(d) every registry configuration's state and decode_32k cache on the
+    meta device, and one rank's bytes of each under the (16, 16) plan."""
+    from repro_torch.configs import SHAPES, get_config, list_archs
+    from repro_torch.distributed.sharding import (
+        MeshShape, _shard_bytes, cache_pspecs, param_pspecs)
+    from repro_torch.launch.specs import cache_specs, state_specs
+    from repro_torch.models import build_model
+
+    pod = MeshShape((16, 16), ("data", "model"))
+    shape = SHAPES["decode_32k"]
+    before = torch.cuda.memory_allocated()
+    rows = {}
+    for arch in list_archs():
+        model = build_model(get_config(arch), dev)
+        params, opt, axes = state_specs(model)
+        cache = cache_specs(model, shape)
+        specs = param_pspecs(axes, params, pod)
+        rows[arch] = {
+            "params_bytes": sum(t.numel() * t.element_size()
+                                for t in _leaves(params)),
+            "params_bytes_per_rank": _shard_bytes(params, specs, pod),
+            "opt_bytes_per_rank": _shard_bytes(opt.m, specs, pod)
+            + _shard_bytes(opt.v, specs, pod),
+            "decode_32k_cache_bytes_per_rank": _shard_bytes(
+                cache, cache_pspecs(cache, pod, shape.global_batch), pod)}
+    after = torch.cuda.memory_allocated()
+    if after != before:
+        raise AssertionError(f"lm_mesh (d): the specs moved the card's "
+                             f"allocation from {before} to {after} bytes")
+    log("lm_mesh (d) state_specs and cache_specs(decode_32k) of the "
+        f"{len(rows)} registry configurations on the meta device, "
+        f"memory_allocated unchanged ({after} bytes); bytes one rank holds "
+        "under the (16, 16) plan, computed from the plan (not measured): "
+        + json.dumps(rows))
+    return rows
+
+
+def mesh_roofline(torch, runs=FAMILY_RUNS) -> dict:
+    """(e) ``roofline.model_flops`` beside this script's own FLOP counts for
+    the shapes lm_families and lm_train run."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import roofline
+    from repro_torch.models import build_model
+
+    rows = {}
+    cells = [(arch, depth, b, s, "prefill")
+             for arch, depth, b, lengths in runs for s in lengths]
+    cells.append((LM_ARCH, None, TRAIN_B, TRAIN_S, "train"))
+    for arch, depth, b, s, kind in cells:
+        cfg = (family_config(arch, depth) if kind == "prefill"
+               else get_config(arch))
+        model = build_model(cfg, "meta")
+        params = model.init(torch.Generator())
+        shape = ShapeConfig(f"{kind}_{s}", s, b, kind)
+        mf = roofline.model_flops(arch, shape.name, cfg=cfg, shape=shape)
+        own = (prefill_bound(model, params, b, s)[1] if kind == "prefill"
+               else train_bound(model, params, b, s)[1])
+        rows[f"{arch}/{kind}/B{b}xS{s}"] = {
+            "model_flops": mf, "chip_smoke_flops": own, "ratio": mf / own}
+    log("lm_mesh (e) roofline.model_flops against this script's bounds "
+        "(prefill_bound, train_bound), which stay as they are: model_flops "
+        "counts 2 (train: 6) x every parameter a token uses, the embedding "
+        "table included, at every position (so the unembedding of all S "
+        "positions), and s^2/2 causal pairs a full layer; prefill_bound "
+        "counts the non-embedding parameters, the last position's "
+        "unembedding and s(s+1)/2 live pairs, train_bound 6 x d x V a "
+        "token for the unembedding and s(s+1)/2 pairs: " + json.dumps(rows))
+    return rows
+
+
+def phase_lm_mesh(torch, smi, dev="cuda", moe_cfg=None,
+                  train_cfg=None) -> tuple:
+    """The multi-card layer on a one-rank NCCL mesh (``make_local_mesh(1,
+    1)``, its ``file://`` store under ``build/``): (a) qwen3-moe's serving
+    path with ``set_mesh`` and ``moe_ffn_ep``, (b) the data-parallel train
+    step with a plan, (c) ``compressed_psum``, (d) the meta-device specs,
+    (e) roofline FLOP counts.  The group is destroyed at the end, whatever
+    happens.  Returns (B5 launches of (a)'s meshed decode, rows)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+
+    t_phase = time.perf_counter()
+    moe_cfg = moe_cfg or family_config(MESH_ARCH, MESH_DEPTH)
+    train_cfg = train_cfg or get_config(LM_ARCH)
+    mesh = make_local_mesh(1, 1, device=dev, init_file=str(MESH_STORE))
+    try:
+        log(f"lm_mesh: a one-rank {dist.get_backend()} group, mesh "
+            f"{tuple(mesh.mesh.shape)} {mesh.mesh_dim_names} on {smi}")
+        rows = {"moe": mesh_moe(mesh, torch, dev, moe_cfg, smi),
+                "train": mesh_train(mesh, torch, dev, train_cfg, smi),
+                "specs": mesh_specs(torch, dev),
+                "roofline": mesh_roofline(torch)}
+    finally:
+        dist.destroy_process_group()
+        MESH_STORE.unlink(missing_ok=True)
+    rows["seconds"] = time.perf_counter() - t_phase
+    log(f"lm_mesh took {rows['seconds']:.1f} s")
+    return rows["moe"]["b5_launches"], rows
+
+
 def phase_lm_profile(model, params, torch, steps=PROFILE_STEPS,
                      batch=4, max_len=1024):
     """Device time and idle share over ``steps`` decode steps of the
@@ -3792,6 +4103,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     fam_launches, fam_rows = phase_lm_families(torch)
     train_rows = phase_lm_train(torch)
+    mesh_launches, mesh_rows = phase_lm_mesh(torch, smi)
 
     t0 = time.perf_counter()
     g = rmat(16, edge_factor=16, seed=1)
@@ -3886,7 +4198,7 @@ def main(argv=None) -> int:
         {"name": B5, "route": "cuda",
          "source": "src/repro_torch/csrc/decode_attn.cu",
          "replaces": "src/repro/kernels/decode_attn/kernel.py:44",
-         "launches": lm["launches"] + fam_launches,
+         "launches": lm["launches"] + fam_launches + mesh_launches,
          "max_abs_err": max([lm_err] + [r["err"] for r in lm_times.values()]),
          "ms": serve_t["ms"], "plain_ms": serve_t["plain_ms"],
          "bound_ms": serve_t["bound_ms"], "bound_by": serve_t["bound_by"],
@@ -3899,6 +4211,7 @@ def main(argv=None) -> int:
         "b5_decode_32k": {k: lm_times[k] for k in ("b_full", "b_half")}}))
     log("lm_families: " + json.dumps(fam_rows))
     log("lm_train: " + json.dumps(train_rows))
+    log("lm_mesh: " + json.dumps(mesh_rows))
     main_ms = {f"{b}/{r}": round(v, 3) for (b, r), v in wall.items()}
     log(f"main path wall ms: {json.dumps(main_ms)}")
     log(f"wcc wall ms: {json.dumps({b: round(v, 3) for b, v in wcc_wall.items()})}")

@@ -97,45 +97,47 @@ def _flatten(tree: Any) -> tuple[list, str]:
     """``(leaves, treedef string)``: the leaves in ``jax.tree_util``'s
     order and ``str(treedef)`` as JAX prints it."""
     leaves: list = []
+    return leaves, f"PyTreeDef({_walk_flat(tree, leaves)})"
 
-    def walk(t) -> str:
-        if t is None:
-            return "None"
-        if _is_namedtuple(t):
-            kids = ", ".join(walk(c) for c in t)
-            return f"CustomNode(namedtuple[{type(t).__name__}], [{kids}])"
-        if isinstance(t, tuple):
-            kids = [walk(c) for c in t]
-            return "(" + kids[0] + ",)" if len(kids) == 1 \
-                else "(" + ", ".join(kids) + ")"
-        if isinstance(t, list):
-            return "[" + ", ".join(walk(c) for c in t) + "]"
-        if isinstance(t, dict):
-            return "{" + ", ".join(f"{k!r}: {walk(t[k])}"
-                                   for k in sorted(t)) + "}"
-        leaves.append(t)
-        return "*"
 
-    return leaves, f"PyTreeDef({walk(tree)})"
+# The walks are module-level functions: a recursive closure is a reference
+# cycle that keeps its leaves (whole parameter or gradient trees) alive
+# until Python's cyclic collector runs.
+def _walk_flat(t, leaves: list) -> str:
+    if t is None:
+        return "None"
+    if _is_namedtuple(t):
+        kids = ", ".join(_walk_flat(c, leaves) for c in t)
+        return f"CustomNode(namedtuple[{type(t).__name__}], [{kids}])"
+    if isinstance(t, tuple):
+        kids = [_walk_flat(c, leaves) for c in t]
+        return "(" + kids[0] + ",)" if len(kids) == 1 \
+            else "(" + ", ".join(kids) + ")"
+    if isinstance(t, list):
+        return "[" + ", ".join(_walk_flat(c, leaves) for c in t) + "]"
+    if isinstance(t, dict):
+        return "{" + ", ".join(f"{k!r}: {_walk_flat(t[k], leaves)}"
+                               for k in sorted(t)) + "}"
+    leaves.append(t)
+    return "*"
 
 
 def _unflatten(tree: Any, leaves: list) -> Any:
     """``tree``'s structure with its leaves replaced, in flatten order."""
-    it = iter(leaves)
+    return _walk_unflat(tree, iter(leaves))
 
-    def walk(t):
-        if t is None:
-            return None
-        if _is_namedtuple(t):
-            return type(t)(*(walk(c) for c in t))
-        if isinstance(t, (tuple, list)):
-            return type(t)(walk(c) for c in t)
-        if isinstance(t, dict):
-            out = {k: walk(t[k]) for k in sorted(t)}
-            return {k: out[k] for k in t}
-        return next(it)
 
-    return walk(tree)
+def _walk_unflat(t, it):
+    if t is None:
+        return None
+    if _is_namedtuple(t):
+        return type(t)(*(_walk_unflat(c, it) for c in t))
+    if isinstance(t, (tuple, list)):
+        return type(t)(_walk_unflat(c, it) for c in t)
+    if isinstance(t, dict):
+        out = {k: _walk_unflat(t[k], it) for k in sorted(t)}
+        return {k: out[k] for k in t}
+    return next(it)
 
 
 # --------------------------------------------------------------------------

@@ -8,9 +8,10 @@ packing are the reference's numpy code, so every batch is byte-identical).
   * **Packing** — variable-length synthetic "documents" are packed into
     fixed ``seq_len`` rows; positions restart at document boundaries so the
     attention masks (``models/flash.py`` keys on positions) respect packing.
-  * **Device batches** — ``sharded_batches`` puts each batch on one device.
-    The reference lays batches out over a mesh; one card has none, and a
-    mesh is refused until the multi-card slice (ROADMAP §A A15.4).
+  * **Sharding** — ``sharded_batches`` puts each batch on one device, or,
+    over a mesh, gives each rank the block of every batch that the
+    reference's ``NamedSharding(mesh, batch_spec)`` puts on the device at
+    the same mesh coordinates.
 
 The generator is a mixture of Zipf-distributed unigrams with a short
 Markov flavor — enough structure that cross-entropy visibly drops within a
@@ -131,17 +132,26 @@ def sharded_batches(
     device=None,
 ) -> Iterator[dict]:
     """Each batch of ``stream`` from ``start_step`` on as tensors on
-    ``device`` (default: the CUDA device) — with the stateless stream this
-    is exact replay-free resumption.  ``mesh`` and ``batch_spec`` are the
-    reference's sharding arguments: a mesh raises, since laying a batch
-    out over several cards waits for ROADMAP §A A15.4."""
+    ``device`` — with the stateless stream this is exact replay-free
+    resumption.  Without a mesh, the whole batch on ``device`` (default:
+    the CUDA device).  With a ``DeviceMesh`` and ``batch_spec`` (a
+    ``PartitionSpec`` of the batch's leading dims, as ``batch_pspec``
+    makes), this rank's block of every array, on the mesh's device type
+    (``device`` may name another)."""
+    from ..distributed.sharding import _block
+
     if mesh is not None:
-        raise NotImplementedError(
-            "sharded_batches over a mesh is the multi-card slice "
-            "(ROADMAP §A A15.4); pass mesh=None on one device")
+        if device is None:
+            device = mesh.device_type
+            if device == "cuda":
+                device = torch.device("cuda", torch.cuda.current_device())
+        spec = tuple(batch_spec) if batch_spec is not None else ()
     device = resolve_device(device)
     step = start_step
     while True:
         host = stream.batch(step)
-        yield {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+        out = {k: torch.from_numpy(v) for k, v in host.items()}
+        if mesh is not None:
+            out = {k: _block(v, mesh, spec) for k, v in out.items()}
+        yield {k: v.contiguous().to(device) for k, v in out.items()}
         step += 1

@@ -1,2 +1,4 @@
 """Launchers of the port: the step builders (``steps``), the training
-driver (``train``) and the serving driver (``serve``)."""
+driver (``train``), the serving driver (``serve``), mesh construction
+(``mesh``), allocation-free specs (``specs``) and roofline terms
+(``roofline``)."""

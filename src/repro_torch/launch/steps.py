@@ -10,11 +10,15 @@ enter it); the train step differentiates ``Model.forward`` with
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from ..checkpoint.store import _flatten, _unflatten
 from ..configs.base import TrainConfig
+from ..distributed.sharding import _all_reduce, _axis_size, data_axes
 from ..models.model import Model
+from ..models.shard_ctx import shard_scope
 from ..optim import OptState, adamw_update, compress, decompress
 
 __all__ = ["cross_entropy", "make_decode_step", "make_prefill_step",
@@ -58,15 +62,27 @@ def make_train_step(
     gradient before the optimizer, with the error from
     ``batch["_grad_error"]`` (zeros without it).  ``metrics`` holds
     ``loss`` (``ce + aux_weight * aux``), ``ce``, ``grad_norm`` and ``lr``
-    as 0-d tensors.  ``param_shardings`` is the reference's layout hint and
-    has no meaning on one card.  ``donate=True`` updates ``params`` and
-    ``opt`` in place, as the reference's jitted step donates them
+    as 0-d tensors.  ``donate=True`` updates ``params`` and ``opt`` in
+    place, as the reference's jitted step donates them
     (``donate_argnums=(0, 1)``); the caller must not read the old values.
+
+    ``param_shardings`` (``distributed.sharding.param_shardings``' tree, the
+    plan) makes the step data-parallel over the plan mesh's data axes: the
+    batch is this rank's block of the global batch (``sharded_batches``
+    with a spec that shards it over those axes), the forward runs in that
+    mesh's scope, and the gradient, ``loss`` and ``ce`` are averaged over
+    the data axes with an f32 all-reduce — the reduction XLA makes
+    implicitly in the reference's one program.  Compression and AdamW
+    then run on the averaged gradient as without a plan; parameters and
+    optimizer state stay replicated.
     """
+    mesh = _plan_mesh(param_shardings)
 
     def loss_fn(params, batch):
-        logits, aux = model.forward(params, batch, remat=tc.remat,
-                                    unroll=unroll)
+        with (contextlib.nullcontext() if mesh is None
+              else shard_scope(mesh, batch_axes=data_axes(mesh))):
+            logits, aux = model.forward(params, batch, remat=tc.remat,
+                                        unroll=unroll)
         ce = cross_entropy(logits, batch["labels"])
         return ce + aux_weight * aux, ce
 
@@ -102,6 +118,8 @@ def make_train_step(
             loss, ce = lsum / k, csum / k
         else:
             grads, loss, ce = grads_of(params, inputs)
+        if mesh is not None:
+            grads, loss, ce = _data_mean((grads, loss, ce), mesh)
 
         if tc.grad_compress:
             err = batch.get("_grad_error")
@@ -121,6 +139,29 @@ def make_train_step(
         return params, opt, metrics
 
     return train_step
+
+
+def _plan_mesh(plan):
+    """The mesh of a plan tree's first leaf (None without a plan)."""
+    if plan is None:
+        return None
+    while isinstance(plan, dict):
+        plan = next(iter(plan.values()))
+    return plan.mesh
+
+
+def _data_mean(tree, mesh):
+    """Every tensor of ``tree`` in f32, averaged over the mesh's data axes
+    (one ``SUM`` all-reduce a tensor and dim, then a division by the
+    count)."""
+    import torch.distributed as dist
+
+    names = data_axes(mesh)
+    n = _axis_size(mesh, names)
+    flat, _ = _flatten(tree)
+    out = [_all_reduce(t.clone() if t.dtype == torch.float32 else t.float(),
+                       mesh, names, dist.ReduceOp.SUM).div_(n) for t in flat]
+    return _unflatten(tree, out)
 
 
 def make_prefill_step(model: Model, unroll: bool = False):

@@ -13,7 +13,8 @@ dense ``_sdpa`` below ``FLASH_MIN_SEQ`` query rows and the chunked
 ``flash_attention`` (``models/flash.py``) from there on, as the reference
 does; ``attn_cross`` and ``project_kv`` are the encoder-decoder's cross
 attention.  Neither is a TPU kernel in the reference: their counterparts
-are plain torch.
+are plain torch.  The reference's layout pins (``shard_ctx``) sit where it
+has them; they change no value.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from ..kernels.decode_attn import decode_attention
 from .flash import NEG_INF, TileTable, flash_attention, pick_chunk
 from .layers import apply_rope, rmsnorm
 from .param import Mk
+from .shard_ctx import constrain, constrain_heads, current_mesh
 
 __all__ = ["FLASH_MIN_SEQ", "KVCache", "attn_cross", "attn_decode",
            "attn_full", "init_attention", "init_kv_cache", "project_kv"]
@@ -38,14 +40,16 @@ FLASH_MIN_SEQ = 1024
 def init_attention(mk: Mk, cfg: ModelConfig, layers: Optional[int] = None):
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     p = {
-        "wq": mk.param((d, h, hd), layers=layers),
-        "wk": mk.param((d, kv, hd), layers=layers),
-        "wv": mk.param((d, kv, hd), layers=layers),
-        "wo": mk.param((h, hd, d), layers=layers),
+        "wq": mk.param((d, h, hd), ("embed", "heads", None), layers=layers),
+        "wk": mk.param((d, kv, hd), ("embed", "kv", None), layers=layers),
+        "wv": mk.param((d, kv, hd), ("embed", "kv", None), layers=layers),
+        "wo": mk.param((h, hd, d), ("heads", None, "embed"), layers=layers),
     }
     if cfg.qk_norm:
-        p["q_norm"] = {"w": mk.param((hd,), init="zeros", layers=layers)}
-        p["k_norm"] = {"w": mk.param((hd,), init="zeros", layers=layers)}
+        p["q_norm"] = {"w": mk.param((hd,), (None,), init="zeros",
+                                       layers=layers)}
+        p["k_norm"] = {"w": mk.param((hd,), (None,), init="zeros",
+                                       layers=layers)}
     return p
 
 
@@ -88,7 +92,8 @@ def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig, positions):
         sec = cfg.m_rope_sections
         q = apply_rope(q, positions, cfg.rope_theta, sec)
         k = apply_rope(k, positions, cfg.rope_theta, sec)
-    return q, k, v
+    # the reference's layout: one seq-gather a layer (shard_ctx)
+    return constrain_heads(q, k, v)
 
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
@@ -123,7 +128,7 @@ def _attention(q, k, v, pos1d, window: int, causal: bool, tiles):
         if tiles is None or (tiles.cq, tiles.ck) != (cq, ck):
             tiles = TileTable(pos1d, pos1d, cq, ck)
         return flash_attention(q, k, v, pos1d, pos1d, window, causal,
-                               q.shape[-1]**-0.5, cq, ck,
+                               q.shape[-1]**-0.5, cq, ck, current_mesh(),
                                live=tiles.live(window, causal))
     qp = pos1d[..., :, None]
     kp = pos1d[..., None, :]
@@ -146,8 +151,9 @@ def attn_full(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
     lays into the decode cache."""
     pos1d = positions[0] if cfg.m_rope_sections else positions
     q, k, v = _project_qkv(p, x, cfg, positions)
-    out = _out_proj(_attention(q, k, v, pos1d, int(window), causal, tiles),
-                    p["wo"])
+    out = _attention(q, k, v, pos1d, int(window), causal, tiles)
+    out, _, _ = constrain_heads(out, out, out)
+    out = _out_proj(out, p["wo"])
     return (out, k, v) if return_kv else out
 
 
@@ -187,8 +193,12 @@ def attn_decode(
     cache.k.index_put_((bidx, slot), k_new[:, 0])
     cache.v.index_put_((bidx, slot), v_new[:, 0])
     cache.pos.index_put_((bidx, slot), pos1d)
+    # the reference's decode layout: head_dim x 'model'
+    q = constrain(q, "dp", None, None, "model")
+    k = constrain(cache.k, "dp", None, None, "model")
+    v = constrain(cache.v, "dp", None, None, "model")
 
-    out = attend(q, cache.k, cache.v, cache.pos, pos1d, window=window)
+    out = attend(q, k, v, cache.pos, pos1d, window=window)
     h, hd = cfg.n_heads, cfg.head_dim
     out = out.to(x.dtype).reshape(b, 1, h * hd)
     out = out @ p["wo"].reshape(h * hd, -1)
@@ -200,6 +210,7 @@ def attn_cross(p, x: torch.Tensor, enc_k: torch.Tensor, enc_v: torch.Tensor,
     """Cross-attention over precomputed encoder K/V (whisper decoder): no
     mask, the chunked path once either side reaches ``FLASH_MIN_SEQ``."""
     q = _proj(x, p["wq"])
+    q, _, _ = constrain_heads(q, q, q)
     b, s = x.shape[:2]
     t = enc_k.shape[1]
     if s >= FLASH_MIN_SEQ or t >= FLASH_MIN_SEQ:
@@ -208,7 +219,7 @@ def attn_cross(p, x: torch.Tensor, enc_k: torch.Tensor, enc_v: torch.Tensor,
         pos_k = torch.arange(t, **ar)[None].expand(b, t)
         out = flash_attention(q, enc_k, enc_v, pos_q, pos_k, 0, False,
                               cfg.head_dim**-0.5, pick_chunk(s, 512),
-                              pick_chunk(t, 1024))
+                              pick_chunk(t, 1024), current_mesh())
     else:
         mask = torch.ones((s, t), dtype=torch.bool, device=x.device)
         out = _sdpa(q, enc_k, enc_v, mask)
@@ -217,4 +228,6 @@ def attn_cross(p, x: torch.Tensor, enc_k: torch.Tensor, enc_v: torch.Tensor,
 
 def project_kv(p, x_enc: torch.Tensor, cfg: ModelConfig):
     """Encoder-side K/V for cross attention (computed once per request)."""
-    return _proj(x_enc, p["wk"]), _proj(x_enc, p["wv"])
+    k = _proj(x_enc, p["wk"])
+    _, k, v = constrain_heads(k, k, _proj(x_enc, p["wv"]))
+    return k, v

@@ -230,34 +230,40 @@ def _bwd_impl(q, k, v, qpos, kpos, out, lse, dout, window: int, *,
 class FlashAttention(torch.autograd.Function):
     """The chunked attention with the reference's FlashAttention backward
     (``flash_attention``'s ``custom_vjp``): ``apply(q, k, v, qpos, kpos,
-    window, causal, scale, cq, ck, live)`` with ``live`` the
+    window, causal, scale, cq, ck, live, mesh)`` with ``live`` the
     :meth:`TileTable.live` table both directions walk."""
 
     @staticmethod
     def forward(ctx, q, k, v, qpos, kpos, window, causal, scale, cq, ck,
-                live):
+                live, mesh=None):
         out, lse = _fwd_impl(q, k, v, qpos, kpos, window, causal=causal,
                              scale=scale, cq=cq, ck=ck, live=live)
         ctx.save_for_backward(q, k, v, qpos, kpos, out, lse)
-        ctx.args = (window, causal, scale, cq, ck, live)
+        ctx.args = (window, causal, scale, cq, ck, live, mesh)
         return out
 
     @staticmethod
     def backward(ctx, dout):
+        from .shard_ctx import constrain_m
+
         q, k, v, qpos, kpos, out, lse = ctx.saved_tensors
-        window, causal, scale, cq, ck, live = ctx.args
+        window, causal, scale, cq, ck, live, mesh = ctx.args
+        # the reference pins the full-sequence operands seq-replicated
+        q, dout, out, k, v = (constrain_m(mesh, t, "dp", None, "model", None)
+                              for t in (q, dout, out, k, v))
         dq, dk, dv = _bwd_impl(q, k, v, qpos, kpos, out, lse, dout, window,
                                causal=causal, scale=scale, cq=cq, ck=ck,
                                live=live)
-        return dq, dk, dv, None, None, None, None, None, None, None, None
+        return (dq, dk, dv) + (None,) * 9
 
 
 def flash_attention(q, k, v, qpos, kpos, window, causal: bool, scale: float,
                     cq: int, ck: int, mesh=None, *,
                     live: Optional[np.ndarray] = None) -> torch.Tensor:
     """Chunked attention.  q [B,Sq,H,hd]; k/v [B,T,KV,hd]; qpos [B,Sq];
-    kpos [B,T] (-1 = dead slot); window: int (0 = none).  ``mesh`` is the
-    reference's sharding hint and has no meaning on one card.  ``live``
+    kpos [B,T] (-1 = dead slot); window: int (0 = none).  ``mesh`` pins
+    the backward's full-sequence operands to the reference's layouts
+    (``shard_ctx.constrain_m``; no value changes).  ``live``
     (from :meth:`TileTable.live`) is the table of tiles to compute; without
     it the call reads the positions' chunk extrema itself.  Differentiable
     in ``q``, ``k`` and ``v`` (:class:`FlashAttention`).
@@ -269,4 +275,4 @@ def flash_attention(q, k, v, qpos, kpos, window, causal: bool, scale: float,
     if live is None:
         live = TileTable(qpos, kpos, cq, ck).live(window, causal)
     return FlashAttention.apply(q, k, v, qpos, kpos, window, causal, scale,
-                                cq, ck, live)
+                                cq, ck, live, mesh)

@@ -1,8 +1,8 @@
 """Shared neural-net building blocks: the torch twin of the JAX package's
 ``repro/models/layers.py`` (plain functions on tensors, bf16 by default).
 
-The reference's ``shard_ctx.constrain`` calls are left out: with no mesh
-they do nothing.  Parameters are nested dicts of tensors with the JAX
+The reference's ``shard_ctx.constrain`` layout pins sit where it has them;
+they change no value.  Parameters are nested dicts of tensors with the JAX
 tree's keys, shapes and layouts: the untied head and learned positions
 where a configuration asks for them, the ungated MLP (whisper) and M-RoPE
 sections (qwen2-vl) beside the dense family's pieces.
@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from .param import Mk
+from .shard_ctx import constrain
 
 __all__ = [
     "apply_rope",
@@ -54,17 +55,17 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
 
 def init_rmsnorm(mk: Mk, d: int, layers: Optional[int] = None):
     # Stored as (scale - 1) like gemma/llama so zeros-init is identity.
-    return {"w": mk.param((d,), init="zeros", layers=layers)}
+    return {"w": mk.param((d,), ("embed",), init="zeros", layers=layers)}
 
 
 def init_mlp(mk: Mk, cfg: ModelConfig, layers: Optional[int] = None):
     d, ff = cfg.d_model, cfg.d_ff
     p = {
-        "up": mk.param((d, ff), layers=layers),
-        "down": mk.param((ff, d), layers=layers),
+        "up": mk.param((d, ff), ("embed", "ffn"), layers=layers),
+        "down": mk.param((ff, d), ("ffn", "embed"), layers=layers),
     }
     if cfg.gated_mlp:
-        p["gate"] = mk.param((d, ff), layers=layers)
+        p["gate"] = mk.param((d, ff), ("embed", "ffn"), layers=layers)
     return p
 
 
@@ -79,9 +80,14 @@ def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
 def mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Gated MLP (GeGLU or SwiGLU), or the plain two-layer one
     (``gated_mlp=False``)."""
-    up = x @ p["up"]
+    def pin(h):  # the hidden ff-sharded x model, seq full
+        return constrain(h, "dp", None, "model") if h.dim() == 3 else h
+
+    if x.dim() == 3:
+        x = constrain(x, "dp", None, None)
+    up = pin(x @ p["up"])
     if cfg.gated_mlp:
-        h = _act(x @ p["gate"], cfg.act) * up
+        h = _act(pin(x @ p["gate"]), cfg.act) * up
     else:
         h = _act(up, cfg.act)
     return h @ p["down"]
@@ -90,13 +96,14 @@ def mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def init_embedding(mk: Mk, cfg: ModelConfig):
     # d^-0.5 table init keeps tied-unembed logits O(1) at init (archs with
     # embed_scale multiply inputs back up by sqrt(d), gemma-style).
-    p = {"table": mk.param((cfg.vocab_padded, cfg.d_model),
+    p = {"table": mk.param((cfg.vocab_padded, cfg.d_model), ("vocab", "embed"),
                            scale=cfg.d_model**-0.5)}
     if not cfg.tie_embeddings:
         p["head"] = mk.param((cfg.d_model, cfg.vocab_padded),
-                             scale=cfg.d_model**-0.5)
+                             ("embed", "vocab"), scale=cfg.d_model**-0.5)
     if cfg.pos == "learned":
-        p["pos"] = mk.param((cfg.max_pos, cfg.d_model), scale=0.02)
+        p["pos"] = mk.param((cfg.max_pos, cfg.d_model), (None, "embed"),
+                            scale=0.02)
     return p
 
 

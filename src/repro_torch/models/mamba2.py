@@ -27,14 +27,17 @@ def init_mamba2(mk: Mk, cfg: ModelConfig, layers: Optional[int] = None):
     d, di, n, nh = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     conv_ch = di + 2 * n
     return {
-        "in_proj": mk.param((d, 2 * di + 2 * n + nh), layers=layers),
-        "conv_w": mk.param((cfg.ssm_conv, conv_ch), scale=0.5, layers=layers),
-        "conv_b": mk.param((conv_ch,), init="zeros", layers=layers),
-        "A_log": mk.param((nh,), init="ones", layers=layers),
-        "D": mk.param((nh,), init="ones", layers=layers),
-        "dt_bias": mk.param((nh,), init="zeros", layers=layers),
-        "norm_w": mk.param((di,), init="zeros", layers=layers),
-        "out_proj": mk.param((di, d), layers=layers),
+        "in_proj": mk.param((d, 2 * di + 2 * n + nh), ("embed", "inner"),
+                            layers=layers),  # x, z, B, C, dt,
+        "conv_w": mk.param((cfg.ssm_conv, conv_ch), (None, "inner"), scale=0.5,
+                           layers=layers),
+        "conv_b": mk.param((conv_ch,), ("inner",), init="zeros",
+                           layers=layers),
+        "A_log": mk.param((nh,), (None,), init="ones", layers=layers),
+        "D": mk.param((nh,), (None,), init="ones", layers=layers),
+        "dt_bias": mk.param((nh,), (None,), init="zeros", layers=layers),
+        "norm_w": mk.param((di,), ("inner",), init="zeros", layers=layers),
+        "out_proj": mk.param((di, d), ("inner", "embed"), layers=layers),
     }
 
 

@@ -27,13 +27,23 @@ recomputation) wraps each layer body of ``forward`` as the reference's
 ``_maybe_remat`` wraps its scan body: ``"full"`` in
 ``torch.utils.checkpoint.checkpoint``, ``"dots"`` with a selective policy
 that keeps the weight products; it changes no value, only training memory
-(the encoder is not wrapped, as in the reference).  The reference's mesh
-hooks (``set_mesh``, ``_constrain*``) have no meaning on one card.
+(the encoder is not wrapped, as in the reference).
 ``forward`` is differentiable (the training path); ``prefill`` and
 ``decode_step`` run under ``torch.inference_mode()``.
+
+``init`` returns the parameters; ``logical_axes`` the reference's axes tree
+beside them (``distributed.sharding.param_pspecs`` reads both).
+``set_mesh`` installs the reference's layout hooks: each call runs in the
+mesh's ``shard_ctx`` scope (so the MoE layers take the expert-parallel
+path where its ``model`` dim is > 1), and ``_constrain``, ``_constrain_bp``
+and ``_constrain_logits`` pin the residual stream, each layer's parameters
+(the plan's per-layer specs) and the logits.  A layout changes no value:
+on plain tensors the pins are the identity, and the logits with a mesh set
+are the logits without one.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Callable
 
@@ -70,7 +80,8 @@ from .layers import (
 )
 from .mamba2 import init_mamba2, init_ssm_cache, mamba2_decode, mamba2_full
 from .moe import init_moe, moe_apply
-from .param import Mk
+from .param import AxesMk, Mk
+from .shard_ctx import batch_axes, constrain_m, shard_scope
 
 __all__ = ["Model", "build_model"]
 
@@ -146,15 +157,85 @@ class Model:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.attention = attention
+        self._mesh = None  # set by set_mesh
+        self._msize = 1
+        self._layer_specs = None
+
+    # ------------------------------------------------------- distribution
+    def set_mesh(self, mesh):
+        """Install the layout hooks for ``mesh`` (a ``DeviceMesh``): the
+        residual stream batch x ('pod','data'), sequence x 'model'; the
+        logits' vocabulary x 'model'; each layer's parameters as the plan
+        lays them out.  Returns the model."""
+        from ..distributed.sharding import _axes
+
+        self._mesh = mesh
+        self._msize = _axes(mesh).get("model", 1)
+        self._layer_specs = self._per_layer_shardings(mesh)
+        return self
+
+    def _per_layer_shardings(self, mesh) -> dict:
+        """The plan's specs for ONE layer's parameters (the stacked specs
+        minus the leading 'layers' dim), and the hybrid's shared block's."""
+        from ..distributed.sharding import PartitionSpec, _map, param_pspecs
+
+        shapes = Model(self.cfg, "meta").init(torch.Generator())
+        specs = param_pspecs(self.logical_axes(), shapes, mesh)
+        is_spec = lambda x: isinstance(x, PartitionSpec)  # noqa: E731
+        out = {}
+        for name in ("blocks", "encoder"):
+            if name in specs:
+                out[name] = _map(lambda sp: PartitionSpec(*sp[1:]),
+                                 specs[name], is_leaf=is_spec)
+        if "shared" in specs:
+            out["shared"] = specs["shared"]
+        return out
+
+    def _constrain_bp(self, bp, which: str = "blocks"):
+        if not self._layer_specs or which not in self._layer_specs:
+            return bp
+        from ..distributed.sharding import _map, constrain
+
+        return _map(lambda t, sp: constrain(t, self._mesh, sp), bp,
+                    self._layer_specs[which])
+
+    def _scope(self):
+        """The mesh's sharding scope for a model call, keeping the batch
+        axes of an enclosing scope (the data-parallel step's); no mesh set:
+        the enclosing scope, if any, stays."""
+        if self._mesh is None:
+            return contextlib.nullcontext()
+        return shard_scope(self._mesh, batch_axes=batch_axes())
+
+    def _constrain(self, x):
+        """Residual-stream pin (a no-op when no mesh is installed)."""
+        if self._mesh is None or x.dim() != 3:
+            return x
+        s = x.shape[1]
+        seq = "model" if s > 1 and s % self._msize == 0 else None
+        return constrain_m(self._mesh, x, "dp", seq, None)
+
+    def _constrain_logits(self, logits):
+        if self._mesh is None or logits.dim() != 3:
+            return logits
+        return constrain_m(self._mesh, logits, "dp", None, "model")
 
     # ------------------------------------------------------------- init
     def init(self, generator: torch.Generator):
         """Random parameters on the model's device, drawn from
-        ``generator`` (a generator of that device).  Returns the params
-        tree; the reference's logical axes have no counterpart on one
-        card."""
+        ``generator`` (a generator of that device; any generator on the
+        meta device, which draws shapes alone).  Returns the params tree;
+        :meth:`logical_axes` gives the reference's axes tree beside it."""
+        return self._init_tree(Mk(generator, self.device))
+
+    def logical_axes(self):
+        """The reference's logical-axes tree of :meth:`init`'s parameters
+        (``Model.init(key)[1]`` there): a tuple of axis names a leaf, with
+        ``"layers"`` ahead of a stacked one."""
+        return self._init_tree(AxesMk())
+
+    def _init_tree(self, mk):
         cfg = self.cfg
-        mk = Mk(generator, self.device)
         n, d = cfg.n_layers, cfg.d_model
         params = {"embed": init_embedding(mk, cfg),
                   "final_norm": init_rmsnorm(mk, d)}
@@ -218,6 +299,10 @@ class Model:
         ``return_hidden``."""
         if remat not in _REMAT:
             raise ValueError(remat)
+        with self._scope():
+            return self._forward(params, batch, remat, return_hidden)
+
+    def _forward(self, params, batch: dict, remat: str, return_hidden: bool):
         cfg = self.cfg
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         if cfg.family == "encdec":
@@ -225,6 +310,7 @@ class Model:
             x, positions = self._embed_decoder(params, batch)
         else:
             x, positions = self._embed_inputs(params, batch)
+        x = self._constrain(x)
         tiles = self._tiles(positions)
         blocks = _layers(params["blocks"], cfg.n_layers)
 
@@ -232,6 +318,7 @@ class Model:
             windows = self.layer_windows()
 
             def layer(x, aux, bp, window):
+                bp = self._constrain_bp(bp)
                 h = rmsnorm(x, bp["ln1"]["w"])
                 x = residual_add(x, attn_full(bp["attn"], h, cfg, positions,
                                               window, tiles=tiles))
@@ -241,19 +328,23 @@ class Model:
                     aux = aux + a
                 else:
                     h = mlp(bp["mlp"], h, cfg)
-                return residual_add(x, h), aux
+                return self._constrain(residual_add(x, h)), aux
 
             layer = _maybe_remat(layer, remat)
             for bp, window in zip(blocks, windows):
                 x, aux = layer(x, aux, bp, window)
         elif cfg.family in ("ssm", "hybrid"):
             def ssm_layer(x, bp):
+                bp = self._constrain_bp(bp)
                 h = rmsnorm(x, bp["ln"]["w"])
-                return residual_add(x, mamba2_full(bp["ssm"], h, cfg))
+                return self._constrain(
+                    residual_add(x, mamba2_full(bp["ssm"], h, cfg)))
+
+            shared = self._constrain_bp(params.get("shared"), "shared")
 
             def shared_block(x):
-                return self._shared_block(params["shared"], x, positions,
-                                          tiles)[0]
+                return self._constrain(self._shared_block(
+                    shared, x, positions, tiles)[0])
 
             ssm_layer = _maybe_remat(ssm_layer, remat)
             shared_block = _maybe_remat(shared_block, remat)
@@ -263,7 +354,9 @@ class Model:
                     x = shared_block(x)
         else:  # encdec
             def dec_layer(x, bp):
-                return self._dec_layer(bp, x, positions, tiles, enc_out)[0]
+                bp = self._constrain_bp(bp)
+                return self._constrain(
+                    self._dec_layer(bp, x, positions, tiles, enc_out)[0])
 
             dec_layer = _maybe_remat(dec_layer, remat)
             for bp in blocks:
@@ -272,7 +365,7 @@ class Model:
         x = rmsnorm(x, params["final_norm"]["w"])
         if return_hidden:
             return x, aux
-        return unembed(params["embed"], x, cfg), aux
+        return self._constrain_logits(unembed(params["embed"], x, cfg)), aux
 
     def _shared_block(self, shared, x, positions, tiles):
         """The hybrid's shared attention + MLP block; returns (x, k, v)."""
@@ -309,11 +402,12 @@ class Model:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
         for bp in _layers(params["encoder"], cfg.encoder_layers):
+            bp = self._constrain_bp(bp, "encoder")
             h = rmsnorm(x, bp["ln1"]["w"])
             x = residual_add(x, attn_full(bp["attn"], h, cfg, positions,
                                           causal=False))
             h = rmsnorm(x, bp["ln2"]["w"])
-            x = residual_add(x, mlp(bp["mlp"], h, cfg))
+            x = self._constrain(residual_add(x, mlp(bp["mlp"], h, cfg)))
         return rmsnorm(x, params["enc_norm"]["w"])
 
     # ------------------------------------------------------------ caches
@@ -356,6 +450,10 @@ class Model:
         """One new token per sequence. tokens: [B, 1] -> (logits [B, V] f32,
         cache).  Every row takes position ``cache['len']``; attention caches
         are written in place, and the returned cache holds ``len + 1``."""
+        with self._scope():
+            return self._decode_step(params, cache, tokens)
+
+    def _decode_step(self, params, cache, tokens: torch.Tensor):
         cfg = self.cfg
         pos = cache["len"]
         b = tokens.shape[0]
@@ -434,14 +532,17 @@ class Model:
         b, s = tokens.shape
         max_len = max_len or s
         if cfg.family in _ATTN:
-            return self._prefill_fused(params, batch, max_len)
+            with self._scope():
+                return self._prefill_fused(params, batch, max_len)
         if cfg.family in ("ssm", "hybrid"):
-            return self._prefill_fused_ssm(params, batch, max_len)
+            with self._scope():
+                return self._prefill_fused_ssm(params, batch, max_len)
         hidden, _ = self.forward(params, batch, return_hidden=True)
         logits = unembed(params["embed"], hidden[:, -1], cfg)
         cache = self.init_cache(
             b, max_len, enc_len=batch.get("frames", tokens).shape[1])
-        return logits, self._prime_cache(params, batch, cache)
+        with self._scope():
+            return logits, self._prime_cache(params, batch, cache)
 
     @staticmethod
     def _cache_layout(k, v, pos, t_alloc: int, s: int) -> KVCache:
@@ -475,11 +576,12 @@ class Model:
         cfg = self.cfg
         s = batch["tokens"].shape[1]
         x, positions = self._embed_inputs(params, batch)
+        x = self._constrain(x)
         pos1d = positions[0] if cfg.m_rope_sections else positions
         tiles = self._tiles(positions)
         layers = []
         for l, w in enumerate(self.layer_windows()):
-            bp = _at(params["blocks"], l)
+            bp = self._constrain_bp(_at(params["blocks"], l))
             h = rmsnorm(x, bp["ln1"]["w"])
             out, k, v = attn_full(bp["attn"], h, cfg, positions, w,
                                   tiles=tiles, return_kv=True)
@@ -489,7 +591,7 @@ class Model:
                 hh, _ = moe_apply(bp["moe"], h, cfg)
             else:
                 hh = mlp(bp["mlp"], h, cfg)
-            x = residual_add(x, hh)
+            x = self._constrain(residual_add(x, hh))
             layers.append(self._cache_layout(
                 k, v, pos1d, min(w, max_len) if w else max_len, s))
         x = rmsnorm(x, params["final_norm"]["w"])

@@ -1,6 +1,5 @@
-"""Parameter creation: the torch twin of the JAX package's
-``repro/models/param.py`` factory, without its logical sharding axes (one
-card has no mesh).
+"""Parameter creation with logical sharding axes: the torch twin of the JAX
+package's ``repro/models/param.py`` factory.
 
 :class:`Mk` draws each parameter from one ``torch.Generator``: a
 fan-in-scaled normal drawn in f32 and cast to the parameter dtype (bf16 by
@@ -9,6 +8,13 @@ zeros or ones.  Shapes, dtypes, scales and tree keys are the JAX
 tree's; the numbers are not, since ``torch`` and ``jax.random`` give
 different draws from one seed.  A test that needs both packages on the same
 weights carries the JAX tree across (``repro_torch.convert.model_params``).
+On the meta device it draws shapes alone and allocates nothing.
+
+Each parameter names the reference's logical axes (``"embed"``,
+``"heads"``, ...; ``repro_torch.distributed.sharding`` maps them to mesh
+dims).  :class:`Mk` checks them against the shape; :class:`AxesMk` returns
+them in place of the tensor, so the same init code yields the reference's
+axes tree (``Model.logical_axes``) beside the parameters.
 """
 from __future__ import annotations
 
@@ -16,7 +22,7 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["Mk"]
+__all__ = ["AxesMk", "Mk"]
 
 
 class Mk:
@@ -36,12 +42,14 @@ class Mk:
     def param(
         self,
         shape: Tuple[int, ...],
+        axes: Tuple[Optional[str], ...],
         *,
         scale: Optional[float] = None,
         init: str = "normal",
         layers: Optional[int] = None,
         dtype: Optional[torch.dtype] = None,
     ) -> torch.Tensor:
+        assert len(shape) == len(axes), (shape, axes)
         full = ((layers,) if layers else ()) + tuple(shape)
         dtype = dtype or self.dtype
         if init in ("zeros", "ones"):
@@ -53,3 +61,14 @@ class Mk:
         v = torch.randn(full, generator=self.generator, dtype=torch.float32,
                         device=self.device)
         return v.mul_(scale).to(dtype)
+
+
+class AxesMk:
+    """The same calls as :class:`Mk`, returning each parameter's logical
+    axes (with ``"layers"`` ahead of a stacked one, the reference's
+    ``merge_axes``) instead of a tensor."""
+
+    def param(self, shape, axes, *, layers: Optional[int] = None,
+              **_) -> tuple:
+        assert len(shape) == len(axes), (shape, axes)
+        return (("layers",) if layers else ()) + tuple(axes)

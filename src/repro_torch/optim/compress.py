@@ -8,9 +8,9 @@ feedback, and run inside ``train_step`` when ``TrainConfig.grad_compress``
 is on.  ``torch.round`` rounds half to even, as ``jnp.round`` does, so the
 int8 payload and the scales are the reference's.
 
-The reference's wire collective ``compressed_psum`` (an all-reduce of the
-int8 payload inside ``shard_map``) is the multi-card slice's (ROADMAP §A
-A15.4).
+:func:`compressed_psum` is the wire collective: an all-reduce of the
+quantized payload over a mesh dim.  The reference calls it inside
+``shard_map``; here every rank calls it on its own gradients.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ import torch
 
 from ..checkpoint.store import _flatten, _unflatten
 
-__all__ = ["compress", "decompress", "init_error"]
+__all__ = ["compress", "compressed_psum", "decompress", "init_error"]
 
 
 def init_error(params) -> Any:
@@ -57,3 +57,47 @@ def decompress(q, scales):
     flat_q, _ = _flatten(q)
     flat_s, _ = _flatten(scales)
     return _unflatten(q, [qq.float() * s for qq, s in zip(flat_q, flat_s)])
+
+
+def _psum_leaf(g, e, mesh, names: tuple):
+    """One leaf of :func:`compressed_psum`: (mean, new error, the int8
+    payload, its int32 sum over the ranks)."""
+    import torch.distributed as dist
+
+    from ..distributed.sharding import _all_reduce, _axis_size
+
+    gf = g.float() + e
+    _, s = _q(gf)
+    # share one conservative scale so the integer sum is meaningful
+    s_max = _all_reduce(s.clone(), mesh, names, dist.ReduceOp.MAX)
+    q = torch.clip(torch.round(gf / s_max), -127, 127).to(torch.int8)
+    total = _all_reduce(q.to(torch.int32), mesh, names, dist.ReduceOp.SUM)
+    n = torch.tensor(float(_axis_size(mesh, names)), dtype=torch.float32,
+                     device=gf.device)
+    mean = total.float() * s_max / n
+    return mean, gf - q.float() * s_max, q, total
+
+
+def compressed_psum(grads, err, axis_name, *, mesh=None):
+    """Error-feedback int8 all-reduce over the mesh dim ``axis_name`` (a
+    name or a tuple of names) of ``mesh``, or of the mesh in scope
+    (``shard_ctx.current_mesh()``).  ``grads`` and ``err`` are this rank's;
+    returns (the mean over the ranks, this rank's new error).
+
+    The shared scale is the ``MAX`` all-reduce of the per-rank scales; the
+    int8 payload is summed in int32 with a ``SUM`` all-reduce (exact for
+    <= 2^23 summands), then ``mean = total * s_max / n`` and
+    ``err = gf - q * s_max``, in the reference's order.
+    """
+    from ..models.shard_ctx import current_mesh
+
+    mesh = mesh if mesh is not None else current_mesh()
+    if mesh is None:
+        raise ValueError("compressed_psum needs a mesh: pass mesh= or call "
+                         "it inside shard_ctx.shard_scope(mesh)")
+    names = axis_name if isinstance(axis_name, tuple) else (axis_name,)
+    flat_g, _ = _flatten(grads)
+    flat_e, _ = _flatten(err)
+    out = [_psum_leaf(g, e, mesh, names)[:2] for g, e in zip(flat_g, flat_e)]
+    return (_unflatten(grads, [o[0] for o in out]),
+            _unflatten(grads, [o[1] for o in out]))

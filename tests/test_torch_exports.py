@@ -2,7 +2,9 @@
 counterpart (ROADMAP §C P25): each name in a reference package's
 ``__all__`` must be in the port's ``__all__`` and importable from it, save
 the deliberate exceptions of ``ALLOWED``, each with its reason.  The
-modules the training slice ports are held the same way.
+modules the training and multi-card slices port are held the same way (a
+reference module without ``__all__``, ``models/shard_ctx.py``, by the
+functions and classes it defines).
 """
 import importlib
 
@@ -10,8 +12,10 @@ import pytest
 
 PACKAGES = ("", "algs", "analysis", "checkpoint", "configs", "core", "data",
             "graph", "kernels.decode_attn", "kernels.spmv", "models", "optim")
-MODULES = ("data.pipeline", "launch.steps", "launch.train", "models.flash",
-           "optim.adamw", "optim.compress")
+MODULES = ("data.pipeline", "distributed.sharding", "launch.mesh",
+           "launch.roofline", "launch.specs", "launch.steps", "launch.train",
+           "models.flash", "models.moe", "models.shard_ctx", "optim.adamw",
+           "optim.compress")
 
 # (module, name): why the port does not serve it
 ALLOWED = {
@@ -19,11 +23,17 @@ ALLOWED = {
         "the port calls it decode_attention_plain (ROADMAP §C P7)",
     ("kernels.spmv", "default_interpret"):
         "Pallas interpret mode has no counterpart on the card (§C P4)",
-    ("optim", "compressed_psum"):
-        "a multi-card collective, ported with ROADMAP §A A15.4",
-    ("optim.compress", "compressed_psum"):
-        "a multi-card collective, ported with ROADMAP §A A15.4",
 }
+
+
+def _public(module) -> list:
+    """``__all__``, or, for a module without one, the functions and classes
+    it defines under public names."""
+    if hasattr(module, "__all__"):
+        return list(module.__all__)
+    return [n for n, v in vars(module).items() if not n.startswith("_")
+            and callable(v) and getattr(v, "__module__", None)
+            == module.__name__]
 
 
 def _missing(name: str) -> list:
@@ -32,7 +42,7 @@ def _missing(name: str) -> list:
     port = importlib.import_module("repro_torch" + suffix)
     served = set(getattr(port, "__all__", ()))
     out = []
-    for public in ref.__all__:
+    for public in _public(ref):
         if (name, public) in ALLOWED:
             continue
         if public not in served or not hasattr(port, public):

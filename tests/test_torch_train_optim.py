@@ -35,6 +35,7 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.convert import model_params, opt_state
 from repro_torch.data import (SyntheticLM, TokenStream, pack_documents,
                               sharded_batches)
+from repro_torch.distributed.sharding import PartitionSpec
 from repro_torch.optim import (OptState, adamw_init, adamw_update, compress,
                                decompress, init_error, lr_at)
 
@@ -141,8 +142,20 @@ def test_sharded_batches_resume_on_a_device():
         for key, want in stream.batch(step).items():
             assert isinstance(got[key], torch.Tensor)
             np.testing.assert_array_equal(got[key].numpy(), want)
-    with pytest.raises(NotImplementedError, match="A15.4"):
-        next(sharded_batches(stream, mesh=object(), device="cpu"))
+    # over a mesh: this rank's block at its coordinates (data 1 of 2); the
+    # multi-rank file holds it against the reference's shards
+    class Rank:
+        device_type = "cpu"
+        mesh_dim_names = ("data", "model")
+        mesh = torch.empty(2, 1)
+
+        def get_local_rank(self, name):
+            return {"data": 1, "model": 0}[name]
+
+    got = next(sharded_batches(stream, Rank(), PartitionSpec("data"),
+                               start_step=5))
+    for key, want in stream.batch(5).items():
+        np.testing.assert_array_equal(got[key].numpy(), want[1:])
 
 
 # ----------------------------------------------------------------- optim
