@@ -121,6 +121,23 @@ Phases, each of which raises (and so exits non-zero) on failure:
                  (computed, not measured); (e) ``roofline.model_flops``
                  beside this script's ``prefill_bound``/``train_bound``
                  FLOP counts for lm_families' and lm_train's shapes.
+  7c. lm_dryrun — the dry run (``launch/dryrun.py``) against real steps
+                 of gemma-2b at full width: (a) the train step at
+                 lm_train's B=2, S=1,024 (remat full): ``FlopCounterMode``
+                 on the card equal to ``patch_probe.probe_cell``'s count on
+                 the meta device, and ``dryrun.trace_step``'s fake-tensor
+                 peak on the card's device within 15% of
+                 ``max_memory_allocated``; (b) prefill at B=4, S=1,024
+                 (the chunked path) and (c) the decode step at B=4,
+                 max_len 1,024 (B5 launched 18 times), FLOPs equal as in
+                 (a); (d) B5's operator ``torch.ops.repro_torch.decode_attn``
+                 against its plain version at the serve shape
+                 (atol=rtol=1e-4, two launches bit-equal) and the wrapper's
+                 ms through it against the direct launch; (e)
+                 ``python -m repro_torch.launch.dryrun`` on gemma-2b x
+                 train_4k (pod) in a subprocess on the CPU, started before
+                 lm_kernel, its record under the git-ignored
+                 ``build/dryrun/``.
 
   The graph slices (views freed of the LM's weights):
 
@@ -309,7 +326,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
 Prints the card's ``name, power.limit``, a ``{"kernels": [...]}`` line
 (B1-B5; B1/B2's launches are the main, batched, algorithm, host batched,
 recovery and analysis paths', B3/B4's the WCC, recovery and analysis
-paths', B5's the lm_serve, lm_families and lm_mesh paths') and, last, ``{"ok": true, "device": {...}}``.  ``--seed`` seeds
+paths', B5's the lm_serve, lm_families, lm_mesh and lm_dryrun paths')
+and, last, ``{"ok": true, "device": {...}}``.  ``--seed`` seeds
 the batched phase's reset matrix (default 0).  Exits non-zero without a CUDA
 device, and when the repository's ``src/`` is not beside it.
 """
@@ -4003,6 +4021,277 @@ def phase_lm_mesh(torch, smi, dev="cuda", moe_cfg=None,
     return rows["moe"]["b5_launches"], rows
 
 
+# ------------------------------------------------------ LM dry-run phase
+DRYRUN_OUT = ROOT / "build" / "dryrun"  # git-ignored
+DRYRUN_CELL = ("gemma-2b", "train_4k")  # traced at full size beside (a)-(d)
+DRYRUN_MEM_BAND = 0.15  # the fake-tensor peak against the card's, relative
+DRYRUN_DECODE = (4, 1024)  # lm_serve's batch and max_len
+
+
+def dryrun_cell_start():
+    """``python -m repro_torch.launch.dryrun`` on :data:`DRYRUN_CELL` (the
+    (16, 16) mesh), on the CPU in a subprocess with no card visible,
+    started with the LM phases so that it runs beside them (it is killed
+    at exit if it still runs); its output goes to ``build/dryrun/``."""
+    import atexit
+    import os
+
+    DRYRUN_OUT.mkdir(parents=True, exist_ok=True)
+    arch, shape = DRYRUN_CELL
+    (DRYRUN_OUT / f"{arch}__{shape}__pod.json").unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    with open(DRYRUN_OUT / "cell.log", "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "pod", "--out",
+             str(DRYRUN_OUT)], stdout=out, stderr=subprocess.STDOUT,
+            env=env)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+    atexit.register(stop)
+    return proc
+
+
+def dryrun_cell_end(proc, timeout: float) -> dict:
+    """Wait for :func:`dryrun_cell_start`'s process (killed past
+    ``timeout`` seconds) and return its record; raises unless it is ok."""
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"lm_dryrun: the {DRYRUN_CELL} dry run took "
+                             f"more than {timeout} s")
+    arch, shape = DRYRUN_CELL
+    path = DRYRUN_OUT / f"{arch}__{shape}__pod.json"
+    rec = json.loads(path.read_text()) if path.exists() else {}
+    out = (DRYRUN_OUT / "cell.log").read_text()
+    if proc.returncode != 0 or rec.get("status") != "ok":
+        raise AssertionError(f"lm_dryrun: the {DRYRUN_CELL} dry run failed "
+                             f"(rc {proc.returncode}): {out[-4000:]}")
+    log(f"lm_dryrun (e) {out.strip().splitlines()[-1]}")
+    return rec
+
+
+def _flops_of(fn, torch) -> int:
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        out = fn()
+    torch.cuda.synchronize()
+    return counter.get_total_flops(), out
+
+
+def _same_flops(label: str, card: int, probe: float) -> None:
+    if card != int(probe):
+        raise AssertionError(f"lm_dryrun {label}: FlopCounterMode counted "
+                             f"{card} FLOP on the card, the probe {probe:.0f}")
+
+
+def dryrun_train(model, params, cfg, dev, torch) -> dict:
+    """(a) the fake-tensor trace of the train step at lm_train's shape on
+    the card's device (``dryrun.trace_step(device=dev)``), then the real
+    step from the same state: its FLOPs equal the probe's, its peak within
+    DRYRUN_MEM_BAND of the trace's."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.patch_probe import probe_cell
+    from repro_torch.launch.specs import input_specs, state_specs
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+
+    shape = ShapeConfig("train_1k", TRAIN_S, TRAIN_B, "train")
+    probe = probe_cell(cfg.name, shape.name, cfg=cfg, shape=shape)
+    p_s, o_s, _ = state_specs(build_model(cfg, "meta"))
+    step = make_train_step(model, TrainConfig(remat="full"), donate=True)
+    est = dryrun.trace_step(step, (p_s, o_s, input_specs(cfg, shape)),
+                            device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    batch = {k: torch.randint(1, cfg.vocab, (TRAIN_B, TRAIN_S),
+                              generator=gen, device=dev, dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    params = _clone_tree(params, torch)
+    opt = adamw_init(params)
+    gc_cuda(torch)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    args = sum(t.numel() * t.element_size()
+               for tree in (params, opt, batch) for t in _leaves(tree))
+    torch.cuda.reset_peak_memory_stats()
+    flops, (params, opt, m) = _flops_of(lambda: step(params, opt, batch),
+                                        torch)
+    peak = torch.cuda.max_memory_allocated() - held + args
+    if not math.isfinite(float(m["loss"])):
+        raise AssertionError(f"lm_dryrun (a): loss {float(m['loss'])}")
+    _same_flops("(a) train", flops, probe["flops"])
+    ratio = est["memory"]["peak_bytes"] / peak
+    log(f"lm_dryrun (a) {cfg.name} train B={TRAIN_B} S={TRAIN_S} "
+        f"remat=full: FlopCounterMode on the card {flops} = probe "
+        f"{probe['flops']:.0f} (probe {probe['probe_s']} s on the meta "
+        f"device); peak {peak / 1e9:.3f} GB on the card (max_memory_"
+        f"allocated {torch.cuda.max_memory_allocated() / 1e9:.3f} GB less "
+        f"{(held - args) / 1e9:.3f} GB held besides the step's arguments), "
+        f"fake-tensor estimate {est['memory']['peak_bytes'] / 1e9:.3f} GB "
+        f"(arguments {est['memory']['argument_size_in_bytes'] / 1e9:.3f}, "
+        f"trace {est['seconds']:.1f} s): estimate / card {ratio:.4f}")
+    if abs(ratio - 1) > DRYRUN_MEM_BAND:
+        raise AssertionError(f"lm_dryrun (a): the memory estimate is "
+                             f"{ratio:.4f} of the card's peak")
+    del params, opt, m, batch
+    gc_cuda(torch)
+    return dict(flops=flops, probe_flops=probe["flops"], peak_bytes=peak,
+                estimate_bytes=est["memory"]["peak_bytes"], ratio=ratio,
+                trace_s=est["seconds"], probe_s=probe["probe_s"])
+
+
+def dryrun_b5(dev, torch) -> dict:
+    """(d) B5's operator against its plain version at lm_kernel's serve
+    shape (two launches bit-equal), and ms a call of the wrapper
+    (``decode_attention``, which with no dispatch mode launches the
+    operator's CUDA kernel directly) against a call through the operator
+    (18 copies taken in turn, as lm_time's (a); A B B A)."""
+    from repro_torch.kernels import decode_attn as tda
+
+    bf16 = torch.bfloat16
+    q, k, v, pos, cur = _attn_case(dev, torch, 4, 1, 8, 256, 1024, bf16,
+                                   (1, 200, 700, 1024), seed=300)
+    bt = tda.block_size(1024)
+    qg = q.reshape(4, 1, 8, 256)
+    got = torch.ops.repro_torch.decode_attn(qg, k, v, pos, cur, 0, bt)
+    again = torch.ops.repro_torch.decode_attn(qg, k, v, pos, cur, 0, bt)
+    want = tda.decode_attention_plain(q, k, v, pos, cur).reshape(4, 1, 8, 256)
+    torch.testing.assert_close(got, want, atol=LM_ATOL, rtol=LM_RTOL)
+    if not torch.equal(got, again):
+        raise AssertionError("lm_dryrun (d): two launches of the operator "
+                             "differ")
+    err = float((got - want).abs().max())
+    sets = [_attn_case(dev, torch, 4, 1, 8, 256, 1024, bf16, (1024,) * 4,
+                       seed=400 + i) for i in range(18)]
+    turn = [0]
+
+    def direct():
+        turn[0] += 1
+        return tda.decode_attention(*sets[turn[0] % len(sets)])
+
+    def through_op():
+        turn[0] += 1
+        q, k, v, pos, cur = sets[turn[0] % len(sets)]
+        out = torch.ops.repro_torch.decode_attn(q.reshape(4, 1, 8, 256), k,
+                                                v, pos, cur, 0, bt)
+        return out.reshape(4, 8, 256)
+
+    times = {}
+    for name, fn in (("direct", direct), ("op", through_op),
+                     ("op2", through_op), ("direct2", direct)):
+        times[name] = cuda_ms(fn, reps=200, warmup=5)
+    op_ms = (times["op"] + times["op2"]) / 2
+    direct_ms = (times["direct"] + times["direct2"]) / 2
+    log(f"lm_dryrun (d) B5 operator against its plain version at B=4 KV=1 "
+        f"G=8 hd=256 T=1024: max_abs_err={err:.3g}, two launches "
+        f"bit-equal; ms a call through the operator {op_ms:.5f} against "
+        f"the wrapper's direct launch {direct_ms:.5f} (A B B A: "
+        f"{json.dumps(times)})")
+    return dict(err=err, op_ms=op_ms, direct_ms=direct_ms, order=times)
+
+
+def phase_lm_dryrun(torch, smi, cell, dev="cuda", cfg=None) -> tuple:
+    """The dry run's counts against real steps on one card: (a) the train
+    step at lm_train's shape, (b) prefill at B=4, S=1,024 (the chunked
+    path), (c) the decode step at lm_serve's shape through B5, each
+    counted by ``FlopCounterMode`` on the card and equal to
+    ``patch_probe.probe_cell``'s count on the meta device; (a) also holds
+    the fake-tensor memory estimate against the card's peak; (d) B5's
+    operator; (e) the full-size dry run of one cell, ``cell``
+    (:func:`dryrun_cell_start`'s process, on the CPU beside the LM
+    phases).  Returns (B5 launches of (c), rows)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import decode_attn as tda
+    from repro_torch.launch.patch_probe import probe_cell
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    try:
+        cfg = cfg or get_config(LM_ARCH)
+        props = torch.cuda.get_device_properties(0)
+        log(f"lm_dryrun: {props.name} total_memory {props.total_memory} "
+            f"bytes ({props.total_memory / 2**30:.3f} GiB) on {smi}")
+        rows = {"total_memory": props.total_memory}
+        model = build_model(cfg, dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        rows["train"] = dryrun_train(model, params, cfg, dev, torch)
+
+        gen = torch.Generator(device=dev).manual_seed(6)
+        shape = ShapeConfig("prefill_1k", 1024, 4, "prefill")
+        probe = probe_cell(cfg.name, shape.name, cfg=cfg, shape=shape)
+        tokens = torch.randint(1, cfg.vocab, (4, 1024), generator=gen,
+                               device=dev, dtype=torch.int32)
+        prefill = make_prefill_step(model)
+        flops, _ = _flops_of(lambda: prefill(params, {"tokens": tokens}),
+                             torch)
+        _same_flops("(b) prefill", flops, probe["flops"])
+        log(f"lm_dryrun (b) {cfg.name} prefill B=4 S=1024 (the chunked "
+            f"path): FlopCounterMode on the card {flops} = probe "
+            f"{probe['flops']:.0f}")
+        rows["prefill"] = dict(flops=flops, probe_flops=probe["flops"])
+
+        b, max_len = DRYRUN_DECODE
+        shape = ShapeConfig("decode_1k", max_len, b, "decode")
+        probe = probe_cell(cfg.name, shape.name, cfg=cfg, shape=shape)
+        cache = model.init_cache(b, max_len)
+        cache["len"] = max_len - 1  # the probe's position: a full cache
+        toks = torch.randint(1, cfg.vocab, (b, 1), generator=gen, device=dev,
+                             dtype=torch.int32)
+        decode = make_decode_step(model)
+        tda.reset_launches()
+        flops, (nxt, logits, _) = _flops_of(
+            lambda: decode(params, cache, toks), torch)
+        launches = tda.launches[B5]
+        _same_flops("(c) decode", flops, probe["flops"])
+        if launches != cfg.n_layers:
+            raise AssertionError(f"lm_dryrun (c): B5 launched {launches} "
+                                 f"times, not {cfg.n_layers}")
+        if not bool(torch.isfinite(logits[:, :cfg.vocab]).all()):
+            raise AssertionError("lm_dryrun (c): logits not finite")
+        log(f"lm_dryrun (c) {cfg.name} decode step B={b} max_len={max_len} "
+            f"at position {max_len - 1}: FlopCounterMode on the card "
+            f"{flops} = the fake trace's {probe['flops']:.0f} (B5 through "
+            f"its FLOP formula), B5 launched {launches} times")
+        rows["decode"] = dict(flops=flops, probe_flops=probe["flops"],
+                              b5_launches=launches)
+        del params, cache, model, logits, nxt
+        gc_cuda(torch)
+        rows["b5"] = dryrun_b5(dev, torch)
+        gc_cuda(torch)
+        rec = dryrun_cell_end(cell, timeout=600)
+    finally:
+        if cell.poll() is None:
+            cell.kill()
+            cell.wait()
+    rows["cell"] = {k: rec[k] for k in ("lower_s", "memory", "cost",
+                                        "microbatches")}
+    rows["cell"]["probe_s"] = rec["probe"]["probe_s"]
+    rows["seconds"] = time.perf_counter() - t_phase
+    r = rows["train"]
+    log(f"lm_dryrun ratios: (a) FLOPs card / probe "
+        f"{r['flops'] / r['probe_flops']:.6f}, memory estimate / card "
+        f"{r['ratio']:.4f}; (b) "
+        f"{rows['prefill']['flops'] / rows['prefill']['probe_flops']:.6f}; "
+        f"(c) {rows['decode']['flops'] / rows['decode']['probe_flops']:.6f}"
+        f"; (e) {'x'.join(DRYRUN_CELL)} pod traced in {rec['lower_s']} s, "
+        f"probed in {rec['probe']['probe_s']} s")
+    log(f"lm_dryrun took {rows['seconds']:.1f} s")
+    return rows["decode"]["b5_launches"], rows
+
+
 def phase_lm_profile(model, params, torch, steps=PROFILE_STEPS,
                      batch=4, max_len=1024):
     """Device time and idle share over ``steps`` decode steps of the
@@ -4094,7 +4383,9 @@ def main(argv=None) -> int:
                    "15compact_windowsI", "14compact_blocksI"):
         check_no_spill(libs[0], kernel)
 
-    # The LM slice first, while the card holds nothing else.
+    # The LM slice first, while the card holds nothing else; lm_dryrun's
+    # full-size cell traces on the CPU meanwhile.
+    cell = dryrun_cell_start()
     lm_err = phase_lm_kernel(torch)
     model, params, served, lm = phase_lm_serve(torch)
     lm_times = phase_lm_time(torch)
@@ -4104,6 +4395,7 @@ def main(argv=None) -> int:
     fam_launches, fam_rows = phase_lm_families(torch)
     train_rows = phase_lm_train(torch)
     mesh_launches, mesh_rows = phase_lm_mesh(torch, smi)
+    dry_launches, dry_rows = phase_lm_dryrun(torch, smi, cell)
 
     t0 = time.perf_counter()
     g = rmat(16, edge_factor=16, seed=1)
@@ -4198,7 +4490,8 @@ def main(argv=None) -> int:
         {"name": B5, "route": "cuda",
          "source": "src/repro_torch/csrc/decode_attn.cu",
          "replaces": "src/repro/kernels/decode_attn/kernel.py:44",
-         "launches": lm["launches"] + fam_launches + mesh_launches,
+         "launches": lm["launches"] + fam_launches + mesh_launches
+         + dry_launches,
          "max_abs_err": max([lm_err] + [r["err"] for r in lm_times.values()]),
          "ms": serve_t["ms"], "plain_ms": serve_t["plain_ms"],
          "bound_ms": serve_t["bound_ms"], "bound_by": serve_t["bound_by"],
@@ -4212,6 +4505,7 @@ def main(argv=None) -> int:
     log("lm_families: " + json.dumps(fam_rows))
     log("lm_train: " + json.dumps(train_rows))
     log("lm_mesh: " + json.dumps(mesh_rows))
+    log("lm_dryrun: " + json.dumps(dry_rows))
     main_ms = {f"{b}/{r}": round(v, 3) for (b, r), v in wall.items()}
     log(f"main path wall ms: {json.dumps(main_ms)}")
     log(f"wcc wall ms: {json.dumps({b: round(v, 3) for b, v in wcc_wall.items()})}")

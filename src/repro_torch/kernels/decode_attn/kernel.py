@@ -8,6 +8,13 @@ git-ignored ``build/kernels/`` (:mod:`repro_torch.kernels.build`) and loaded
 with ``ctypes``.  :func:`decode_attn_cuda` launches it on CUDA tensors only:
 the CPU path is the plain version in ``ref.py``, chosen by
 ``ops.decode_attention``.
+
+:func:`decode_attn_op` is the launch as the operator
+``torch.ops.repro_torch.decode_attn``, so that dispatch modes see it: its
+CUDA implementation is :func:`decode_attn_cuda`, its fake implementation
+(meta and fake tensors) returns the output's shape, and its FLOP formula
+counts the q.k and p.v products over every cache slot (``FlopCounterMode``
+reads it).  It has no CPU implementation: a CPU tensor raises.
 """
 from __future__ import annotations
 
@@ -15,10 +22,12 @@ import ctypes
 from pathlib import Path
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import build
 
-__all__ = ["build_library", "decode_attn_cuda", "launches", "reset_launches"]
+__all__ = ["build_library", "decode_attn_cuda", "decode_attn_op", "launches",
+           "reset_launches"]
 
 #: Kernel launches since the last :func:`reset_launches` (one per call).
 launches = {"decode_attention": 0}
@@ -145,14 +154,24 @@ def _check(qg, k, v, pos, cur, block_t: int) -> None:
     dev = qg.device
     if dev.type != "cuda":
         raise ValueError(f"the decode-attention kernel runs on CUDA, got {dev}")
-    for name, t in (("k", k), ("v", v), ("pos", pos), ("cur", cur)):
-        if t.device != dev:
-            raise ValueError(f"{name} lies on {t.device}, q on {dev}")
+    _check_shapes(qg, k, v, pos, cur, block_t)
+    for name, t in (("q", qg), ("k", k), ("v", v), ("pos", pos),
+                    ("cur", cur)):
         if not t.is_contiguous():
             raise ValueError(f"the decode-attention kernel takes a "
                              f"contiguous {name}")
-    if not qg.is_contiguous():
-        raise ValueError("the decode-attention kernel takes a contiguous q")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("the decode-attention kernel takes 16-byte aligned "
+                         "k and v")
+
+
+def _check_shapes(qg, k, v, pos, cur, block_t: int) -> None:
+    """What the kernel takes that a tensor's metadata shows: devices,
+    dtypes, shapes, the head grouping and the cache block."""
+    dev = qg.device
+    for name, t in (("k", k), ("v", v), ("pos", pos), ("cur", cur)):
+        if t.device != dev:
+            raise ValueError(f"{name} lies on {t.device}, q on {dev}")
     if qg.dtype not in _ENTRY or k.dtype != qg.dtype or v.dtype != qg.dtype:
         raise TypeError(f"q, k, v must share bfloat16 or float32, got "
                         f"{qg.dtype}, {k.dtype}, {v.dtype}")
@@ -172,9 +191,6 @@ def _check(qg, k, v, pos, cur, block_t: int) -> None:
         raise ValueError(f"the kernel takes 1..{_MAX_G} query heads per KV "
                          f"head and a head_dim of 1..{_MAX_HD} in multiples "
                          f"of {step}, got G={g}, hd={hd}")
-    if k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("the decode-attention kernel takes 16-byte aligned "
-                         "k and v")
     if block_t < 1 or t % block_t:
         raise ValueError(f"block_t={block_t} does not divide T={t}")
 
@@ -221,3 +237,40 @@ def decode_attn_cuda(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"error {err}")
     launches["decode_attention"] += 1
     return out
+
+
+# The operator is defined with ``torch.library.Library`` rather than the
+# ``torch.library.custom_op`` decorator: the decorator's Python wrapper added
+# ~20 us of host time a call, the plain registration ~5 (a CPU stand-in
+# body, 20,000 calls), and the decode loop is host-bound.
+_LIB = torch.library.Library("repro_torch", "DEF")
+_LIB.define("decode_attn(Tensor qg, Tensor k, Tensor v, Tensor pos, "
+            "Tensor cur, int window, int block_t) -> Tensor")
+
+
+def _decode_attn_impl(qg, k, v, pos, cur, window, block_t):
+    return decode_attn_cuda(qg, k, v, pos, cur, window=window,
+                            block_t=block_t)
+
+
+_LIB.impl("decode_attn", _decode_attn_impl, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::decode_attn", lib=_LIB)
+def _decode_attn_fake(qg, k, v, pos, cur, window, block_t):
+    _check_shapes(qg, k, v, pos, cur, block_t)
+    return qg.new_empty(qg.shape, dtype=torch.float32)
+
+
+#: B5 as an operator: :func:`decode_attn_cuda` on CUDA tensors, the
+#: output's shape on meta and fake ones; no other device has a kernel.
+decode_attn_op = torch.ops.repro_torch.decode_attn.default
+
+
+@register_flop_formula(torch.ops.repro_torch.decode_attn)
+def _decode_attn_flops(qg_shape, k_shape, *args, **kwargs) -> int:
+    """q.k and p.v over every one of the T cache slots: 2 B H T hd each
+    (the kernel reads only the live slots' pieces; the count, like the
+    reference's, does not depend on the data)."""
+    b, kv, g, hd = qg_shape
+    return 2 * 2 * b * kv * g * k_shape[1] * hd

@@ -14,8 +14,9 @@ the same slots.
 from __future__ import annotations
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
-from .kernel import decode_attn_cuda
+from .kernel import decode_attn_cuda, decode_attn_op
 from .ref import decode_attention_plain
 
 __all__ = ["block_size", "decode_attention", "live_blocks"]
@@ -56,20 +57,31 @@ def decode_attention(
 ) -> torch.Tensor:
     """Returns [B, H, hd] attention output (f32).
 
-    On a CUDA tensor this launches B5 or raises; on a CPU tensor it runs the
-    plain version.  ``interpret`` is kept for the reference's signature and
-    ignored: the tensor's device decides (ROADMAP §C P4).
+    On a CUDA tensor this launches B5 or raises; on a meta or fake tensor
+    the operator ``torch.ops.repro_torch.decode_attn`` gives the output's
+    shape (a traced step); on a CPU tensor it runs the plain version.
+    Under a dispatch mode (``FlopCounterMode``, a fake-tensor trace) a CUDA
+    call goes through the operator too, so that the mode sees B5; with
+    none, it launches the operator's CUDA kernel directly, without the
+    operator's dispatch (~20 us of host time a call on the H100's host).
+    ``interpret`` is kept for the reference's signature and ignored: the
+    tensor's device decides (ROADMAP §C P4).
     """
     if q.dim() == 4:
         q = q[:, 0]
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, pos, cur, window=window)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"no decode attention for device {q.device}")
     b, h, hd = q.shape
     t, kv = k.shape[1], k.shape[2]
     if h % kv:
         raise ValueError(f"{h} query heads do not group over {kv} KV heads")
-    out = decode_attn_cuda(q.reshape(b, kv, h // kv, hd), k, v, pos, cur,
-                           window=window, block_t=block_size(t, block_t))
+    qg = q.reshape(b, kv, h // kv, hd)
+    bt = block_size(t, block_t)
+    if q.device.type == "cuda" and _get_current_dispatch_mode() is None:
+        out = decode_attn_cuda(qg, k, v, pos, cur, window=int(window),
+                               block_t=bt)
+    else:
+        out = decode_attn_op(qg, k, v, pos, cur, int(window), bt)
     return out.reshape(b, h, hd)

@@ -18,7 +18,7 @@ import torch.distributed as dist
 
 from .._device import resolve_device
 
-__all__ = ["make_local_mesh", "make_production_mesh"]
+__all__ = ["make_fake_mesh", "make_local_mesh", "make_production_mesh"]
 
 # One-rank groups rendezvous through a file under the checkout's git-ignored
 # build/ unless the caller names another.
@@ -72,3 +72,30 @@ def make_local_mesh(data: int = 1, model: int = 1, device=None, *,
     opens no network listener; more ranks need the caller's group.  Raises
     without a card unless ``device`` is given."""
     return _mesh(device, (data, model), ("data", "model"), init_file)
+
+
+def make_fake_mesh(shape: tuple, names: tuple):
+    """A ``DeviceMesh`` of ``shape`` with dims ``names`` over the ``fake``
+    backend, as rank 0 of a world of ``prod(shape)`` ranks, in this
+    process: for the dry run only (``launch/dryrun.py``), which traces one
+    rank's step and records the collectives it issues.  The fake group
+    moves no bytes, starts no other process and opens no listener (its
+    store is an in-process stub).  Raises if a process group is already up;
+    the caller tears it down with ``torch.distributed.destroy_process_group``.
+    """
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already up: the fake mesh "
+                           "needs a process of its own")
+    n = 1
+    for size in shape:
+        n *= size
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    try:
+        return init_device_mesh("cpu", tuple(shape),
+                                mesh_dim_names=tuple(names))
+    except BaseException:
+        dist.destroy_process_group()
+        raise

@@ -4,15 +4,17 @@
 Per (arch x shape) on the single-pod 16x16 mesh, three terms in seconds:
 
   compute    = FLOPs_global / (chips x the card's dense bf16 peak)
-               FLOPs from a record's probe (the reference's dry run counts
-               them from an unrolled lowering; the port's counterpart is
-               ROADMAP §A's next slice).
+               FLOPs from a record's probe (the port's dry run,
+               ``launch/dryrun.py``, counts them with ``FlopCounterMode``
+               over the unpartitioned step on meta tensors).
   memory     = two columns: mem_hlo (the probe's bytes accessed, an upper
                bound) and mem_model (:func:`_model_traffic`, the analytic
                HBM traffic model the bottleneck call uses), over the card's
                memory rate.
-  collective = the per-device collective bytes of a record over its
-               links' rate.
+  collective = each mesh dim's per-card link bytes over the rate of the
+               links its rings cross (:func:`_coll_seconds`): NVLink 4 for a
+               dim whose groups stay within one node of 8 cards, the
+               node's network for one that leaves it.
 
 Also reported: MODEL_FLOPS = 6·N·D (train dense) / 6·N_active·D (MoE) plus
 the exact causal attention term (:func:`model_flops`), and MODEL_FLOPS /
@@ -20,8 +22,9 @@ probe FLOPs (usefulness).
 
 :func:`model_flops` and :func:`_model_traffic` are arithmetic over the
 configurations, as in the reference.  :func:`roofline_terms` and
-:func:`analyze` read dry-run records of the reference's shape; nothing in
-the port writes them until its dry run lands (ROADMAP §A).
+:func:`analyze` read dry-run records of the reference's shape: the port's
+(``experiments/dryrun_torch``), or the reference's, which carry no
+per-dim bytes and are put on NVLink whole, as the reference does.
 """
 from __future__ import annotations
 
@@ -39,6 +42,10 @@ PEAK_FLOPS = 989e12  # dense bf16 tensor-core FLOP/s
 HBM_BW = 3.35e12  # B/s of device memory
 LINK_BW = 25e9  # B/s one way on one NVLink 4 link
 ICI_LINKS = 18  # NVLink 4 links per card (450 GB/s one way in all)
+NODE_CARDS = 8  # cards of one NVLink domain (an HGX / DGX H100 node)
+# B/s one way a card over the nodes' network: one 400 Gb/s NDR InfiniBand
+# port (ConnectX-7) a card, eight a node, as in a DGX H100
+NET_BW = 50e9
 CHIPS = 256  # single-pod 16x16
 MSIZE = 16  # the mesh's model dim
 
@@ -150,6 +157,34 @@ def _model_traffic(rec: dict) -> float:
     return p_sweep + cache / CHIPS + b * cfg.vocab_padded * 4 / CHIPS
 
 
+def _coll_seconds(coll: dict, mesh: str) -> float:
+    """Seconds of a record's collectives on one card.  Per mesh dim
+    (``by_dim``; the mesh ``"16x16"`` or ``"2x16x16"``, ranks laid out
+    row-major over it, 8 cards a node): a dim whose groups span at most one
+    node (its size times the sizes of the dims after it <= 8) moves its
+    link bytes over NVLink 4 (18 x 25 GB/s), one that spans more over the
+    network (:data:`NET_BW`).  On the (16, 16) mesh both dims leave the
+    node.  A record without ``by_dim`` (the reference's) is put on NVLink
+    whole."""
+    by_dim = coll.get("by_dim")
+    if not by_dim:
+        link_b = coll.get("total_link_bytes", coll.get("total_bytes", 0))
+        return link_b / (ICI_LINKS * LINK_BW)
+    sizes = [int(n) for n in mesh.split("x")]
+    names = ("pod", "data", "model")[3 - len(sizes):]
+    span = {}
+    for i, name in enumerate(names):
+        span[name] = 1
+        for size in sizes[i:]:
+            span[name] *= size
+    total = 0.0
+    for dim, row in by_dim.items():
+        inside = span.get(dim, NODE_CARDS + 1) <= NODE_CARDS
+        total += row["link_bytes"] / (ICI_LINKS * LINK_BW if inside
+                                      else NET_BW)
+    return total
+
+
 def roofline_terms(rec: dict) -> dict:
     """The three terms (seconds) + bottleneck for one dry-run record."""
     probe = rec.get("probe", {})
@@ -162,8 +197,7 @@ def roofline_terms(rec: dict) -> dict:
     mem_hlo_s = probe.get("bytes accessed", 0.0) / (CHIPS * HBM_BW)
     mem_model_s = _model_traffic(rec) / HBM_BW
     coll = rec.get("collectives", {})
-    link_b = coll.get("total_link_bytes", coll.get("total_bytes", 0))
-    coll_s = link_b / (ICI_LINKS * LINK_BW)  # per-device bytes over its links
+    coll_s = _coll_seconds(coll, rec.get("mesh", "16x16"))
     mf = model_flops(rec["arch"], rec["shape"])
     terms = {"compute": compute_s, "memory": mem_model_s, "collective": coll_s}
     dominant = max(terms, key=terms.get)

@@ -94,7 +94,9 @@ class TileTable:
     query position, over all rows of the batch), or all at or below the
     window of every query in it.  The chunk extrema are read from the
     device once, at the first causal table asked for; each window's table
-    is then made once on the host and kept.
+    is then made once on the host and kept.  :meth:`of_arange` makes the
+    table of the model's default positions with no read at all (so a step
+    traces on meta and fake tensors).
     """
 
     def __init__(self, qpos: torch.Tensor, kpos: torch.Tensor, cq: int,
@@ -103,6 +105,17 @@ class TileTable:
         self.nq, self.nk = qpos.shape[1] // cq, kpos.shape[1] // ck
         self._extrema = None
         self._live: dict = {}
+
+    @classmethod
+    def of_arange(cls, pos: torch.Tensor, cq: int, ck: int) -> "TileTable":
+        """The self-attention table of positions that are ``arange(S)`` in
+        every row of ``pos`` [B, S] (the model's default): the chunk extrema
+        are known on the host, and nothing is read from the device."""
+        table = cls(pos, pos, cq, ck)
+        q0 = np.arange(table.nq, dtype=np.int64) * cq
+        k0 = np.arange(table.nk, dtype=np.int64) * ck
+        table._extrema = (q0 + cq - 1, q0, k0, k0 + ck - 1)
+        return table
 
     def extrema(self):
         """(qmax, qmin, kmin over live keys, kmax) per chunk, int64 numpy:

@@ -184,13 +184,15 @@ def unembed(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     On the card ``torch.mm(..., out_dtype=torch.float32)`` accumulates in
     f32 and writes f32 from the bf16 operands, as the reference's
     ``preferred_element_type`` (:class:`_LogitsF32` gives it a gradient).
-    The CPU build has no such ``mm``: there both operands are upcast,
-    which gives the same exact f32 products.
+    A step traced on the meta device takes the card's route, so that its
+    FLOP count and memory are the card's.  The CPU build has no such
+    ``mm``: there both operands are upcast, which gives the same exact f32
+    products.
     """
     table = p["table"].T if cfg.tie_embeddings else p["head"]
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    if x2.device.type == "cuda":
+    if x2.device.type in ("cuda", "meta"):
         logits = _LogitsF32.apply(x2, table)
     else:
         logits = x2.float() @ table.float()

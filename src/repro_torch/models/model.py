@@ -311,7 +311,7 @@ class Model:
         else:
             x, positions = self._embed_inputs(params, batch)
         x = self._constrain(x)
-        tiles = self._tiles(positions)
+        tiles = self._tiles(positions, batch)
         blocks = _layers(params["blocks"], cfg.n_layers)
 
         if cfg.family in _ATTN:
@@ -578,7 +578,7 @@ class Model:
         x, positions = self._embed_inputs(params, batch)
         x = self._constrain(x)
         pos1d = positions[0] if cfg.m_rope_sections else positions
-        tiles = self._tiles(positions)
+        tiles = self._tiles(positions, batch)
         layers = []
         for l, w in enumerate(self.layer_windows()):
             bp = self._constrain_bp(_at(params["blocks"], l))
@@ -605,7 +605,7 @@ class Model:
         s = batch["tokens"].shape[1]
         x, positions = self._embed_inputs(params, batch)
         pos1d = positions[0] if cfg.m_rope_sections else positions
-        tiles = self._tiles(positions)
+        tiles = self._tiles(positions, batch)
         layers = []
         for l in range(cfg.n_layers):
             bp = _at(params["blocks"], l)
@@ -633,7 +633,7 @@ class Model:
         enc_out = self.encode(params, batch)
         x, positions = self._embed_decoder(params, batch)
         b, s = positions.shape
-        tiles = self._tiles(positions)
+        tiles = self._tiles(positions, batch)
         layers = list(cache["layers"])
         for l in range(cfg.n_layers):
             x, k, v, ek, ev = self._dec_layer(_at(params["blocks"], l), x,
@@ -650,14 +650,20 @@ class Model:
         return {"layers": tuple(layers), "len": s}
 
     # ------------------------------------------------------------ helpers
-    def _tiles(self, positions):
+    def _tiles(self, positions, batch: dict):
         """The live flash tiles of a forward's self-attention (None below
-        ``FLASH_MIN_SEQ``, where attention is dense)."""
+        ``FLASH_MIN_SEQ``, where attention is dense).  The model's own
+        positions (``arange(S)``: no ``batch["positions"]``, and always on
+        the encoder-decoder) give the table without a device read;
+        caller-given ones are read once."""
         pos1d = positions[0] if self.cfg.m_rope_sections else positions
         s = pos1d.shape[1]
         if s < FLASH_MIN_SEQ:
             return None
-        return TileTable(pos1d, pos1d, pick_chunk(s, 512), pick_chunk(s, 1024))
+        cq, ck = pick_chunk(s, 512), pick_chunk(s, 1024)
+        if self.cfg.family == "encdec" or batch.get("positions") is None:
+            return TileTable.of_arange(pos1d, cq, ck)
+        return TileTable(pos1d, pos1d, cq, ck)
 
     def _embed_inputs(self, params, batch: dict):
         cfg = self.cfg

@@ -100,7 +100,9 @@ def _route(xf: torch.Tensor, router: torch.Tensor, cfg: ModelConfig,
     flat_tok = torch.arange(t, device=dev).repeat_interleave(k)
     order = torch.argsort(flat_e, stable=True)
     se, stok, sgate = flat_e[order], flat_tok[order], gate_vals.reshape(-1)[order]
-    counts = torch.bincount(se, minlength=e)
+    # bincount's count with an op that has meta and fake kernels
+    counts = torch.zeros(e, dtype=se.dtype, device=dev).index_add_(
+        0, se, torch.ones_like(se))
     starts = torch.cumsum(counts, dim=0) - counts
     slot = torch.arange(t * k, device=dev) - starts[se]
     keep = slot < cap

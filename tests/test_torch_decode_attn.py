@@ -291,12 +291,18 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 
 def test_decode_attention_refuses_other_devices():
-    q = torch.zeros(1, 2, 16, device="meta")
-    k = torch.zeros(1, 32, 1, 16, device="meta")
-    pos = torch.zeros(1, 32, dtype=torch.int32, device="meta")
-    cur = torch.zeros(1, dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="no decode attention"):
-        tda.decode_attention(q, k, k, pos, cur)
+    """Only the CPU (the plain version), CUDA (B5) and the meta device (a
+    traced step, B5's operator) are served: a fake XPU tensor is refused
+    before anything runs."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        q = torch.zeros(1, 2, 16, device="xpu")
+        k = torch.zeros(1, 32, 1, 16, device="xpu")
+        pos = torch.zeros(1, 32, dtype=torch.int32, device="xpu")
+        cur = torch.zeros(1, dtype=torch.int32, device="xpu")
+        with pytest.raises(ValueError, match="no decode attention"):
+            tda.decode_attention(q, k, k, pos, cur)
 
 
 @pytest.mark.parametrize("rows,units,slots,want", [

@@ -2,17 +2,19 @@
 counterpart (ROADMAP §C P25): each name in a reference package's
 ``__all__`` must be in the port's ``__all__`` and importable from it, save
 the deliberate exceptions of ``ALLOWED``, each with its reason.  The
-modules the training and multi-card slices port are held the same way (a
-reference module without ``__all__``, ``models/shard_ctx.py``, by the
-functions and classes it defines).
+modules the training, multi-card and dry-run slices port are held the
+same way (a reference module without ``__all__``, such as
+``models/shard_ctx.py``, by the functions and classes it defines).
 """
 import importlib
+import os
 
 import pytest
 
 PACKAGES = ("", "algs", "analysis", "checkpoint", "configs", "core", "data",
             "graph", "kernels.decode_attn", "kernels.spmv", "models", "optim")
-MODULES = ("data.pipeline", "distributed.sharding", "launch.mesh",
+MODULES = ("data.pipeline", "distributed.sharding", "launch.dryrun",
+           "launch.mesh", "launch.patch_probe", "launch.report",
            "launch.roofline", "launch.specs", "launch.steps", "launch.train",
            "models.flash", "models.moe", "models.shard_ctx", "optim.adamw",
            "optim.compress")
@@ -36,9 +38,23 @@ def _public(module) -> list:
             == module.__name__]
 
 
+def _import_reference(name: str):
+    """``repro.<name>``, with ``XLA_FLAGS`` as it was: the reference's dry
+    run and patch probe set it when imported, and it would reach the
+    subprocesses of other test files on this worker."""
+    before = os.environ.get("XLA_FLAGS")
+    try:
+        return importlib.import_module("repro" + name)
+    finally:
+        if before is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = before
+
+
 def _missing(name: str) -> list:
     suffix = "." + name if name else ""
-    ref = importlib.import_module("repro" + suffix)
+    ref = _import_reference(suffix)
     port = importlib.import_module("repro_torch" + suffix)
     served = set(getattr(port, "__all__", ()))
     out = []
