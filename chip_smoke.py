@@ -100,16 +100,20 @@ Phases, each of which raises (and so exits non-zero) on failure:
                  (``make_local_mesh(1, 1)``, its ``file://`` store under
                  the git-ignored ``build/mesh/``; the group is destroyed at
                  the end): (a) qwen3-moe-235b-a22b at 4 of 94 layers
-                 (capacity factor 8, seeded weights) with
-                 ``model.set_mesh(mesh)``: prefill at B=2, S=1,024 and 8
-                 decode steps through B5, every logit bit-equal to the same
-                 model's without a mesh (B5 counted: 4 x 8); then
+                 (capacity factor 8, seeded weights) through
+                 ``make_prefill_step`` / ``make_decode_step`` with their
+                 plans (``param_shardings``; the decode's serving layout,
+                 ``fsdp=False, moe_2d=True``; the cache held as
+                 ``cache_pspecs`` lays it out): prefill at B=2, S=1,024 and
+                 8 decode steps through B5, every logit bit-equal to the
+                 same model's without a mesh (B5 counted: 4 x 8); then
                  ``moe_ffn_ep`` on layer 0's experts at the prefill and the
                  decode shape, y and aux bit-equal to ``moe_ffn``, both
                  timed; (b) gemma-2b at full width, B=2, S=1,024, batches
                  from ``sharded_batches(stream, mesh, batch_pspec(2,
                  mesh))``: ``make_train_step(param_shardings=plan)``'s
-                 first step (loss, grad norm, every updated parameter)
+                 first step on the rank's blocks (``shard_params``; loss,
+                 grad norm, every updated parameter gathered back)
                  bit-equal to the step without a plan from the same state,
                  ms a step; (c) ``compressed_psum`` over 'data' on that
                  batch's gradient tree: mean and error bit-equal to
@@ -120,7 +124,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
                  optimizer and cache bytes under the (16, 16) plan
                  (computed, not measured); (e) ``roofline.model_flops``
                  beside this script's ``prefill_bound``/``train_bound``
-                 FLOP counts for lm_families' and lm_train's shapes.
+                 FLOP counts for lm_families' and lm_train's shapes; (f)
+                 after the group is gone, ``python3 chip_smoke.py
+                 --mesh-rank`` in a process of its own: rank 0 of gemma-2b
+                 ``train_4k`` on the (16, 16) plan over a ``fake``
+                 256-rank group, its blocks and its 16 rows real CUDA
+                 tensors, one train step (values not checked):
+                 ``max_memory_allocated`` within 15% of the dry run's
+                 fake-tensor peak for the same cell (lm_dryrun's trace)
+                 and under the card's memory, its arguments the plan's
+                 bytes.
   7c. lm_dryrun — the dry run (``launch/dryrun.py``) against real steps
                  of gemma-2b at full width: (a) the train step at
                  lm_train's B=2, S=1,024 (remat full): ``FlopCounterMode``
@@ -333,6 +346,7 @@ device, and when the repository's ``src/`` is not beside it.
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import subprocess
@@ -357,8 +371,10 @@ LAYOUT_FREE = ("messages", "supersteps")
 # Depth cuts of the host phase, for the script's time: PageRank pull at
 # scale 20 runs into its default cap of 100 supersteps (31 s on host), the
 # scale-14 tile PageRank takes 36-40 s on host, and the profiler multiplies
-# a host PageRank's 18 s wall by ten.  Host and device runs get the same cap.
-PULL_ITERS_20, PUSH_ITERS_14, PROFILE_ITERS = 30, 20, 10
+# a host PageRank's 18 s wall by ten (at 10 supersteps its key_averages
+# took 90 s of a 1,107 s run on one H100 host; 3 keep the idle share's
+# reading).  Host and device runs get the same cap.
+PULL_ITERS_20, PUSH_ITERS_14, PROFILE_ITERS = 30, 20, 3
 
 
 def log(msg: str) -> None:
@@ -3744,10 +3760,16 @@ MESH_DEPTH = 4  # of 94 layers, as lm_families cuts it
 
 
 def mesh_moe(mesh, torch, dev, cfg, smi) -> dict:
-    """(a): the moe serving path with ``set_mesh`` against the same model
-    without one, bit for bit, and ``moe_ffn_ep`` against ``moe_ffn`` on one
-    layer's experts at the prefill and the decode shape."""
+    """(a): the moe serving path through the steps with their plans (the
+    prefill's, the decode's serving layout, the cache held as
+    ``cache_pspecs`` lays it out) against the same model without a mesh,
+    bit for bit, and ``moe_ffn_ep`` against ``moe_ffn`` on one layer's
+    experts at the prefill and the decode shape."""
+    from repro_torch.distributed.sharding import (cache_pspecs,
+                                                  param_shardings,
+                                                  shard_params)
     from repro_torch.kernels import decode_attn as tda
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import build_model
     from repro_torch.models.moe import moe_ffn, moe_ffn_ep
 
@@ -3764,15 +3786,27 @@ def mesh_moe(mesh, torch, dev, cfg, smi) -> dict:
     toks = torch.cat([batch["tokens"][:, MESH_S:], torch.randint(
         1, cfg.vocab, (MESH_B, MESH_STEPS - 1), generator=gen, device=dev)],
         1)
+    axes, max_len = plain.logical_axes(), MESH_S + MESH_STEPS
+    pplan = param_shardings(axes, params, mesh)
+    dplan = param_shardings(axes, params, mesh, fsdp=False, moe_2d=True)
+    cplan = cache_pspecs(build_model(cfg, "meta").init_cache(
+        MESH_B, max_len), mesh, MESH_B)
+    steps = {"plain": (lambda b: plain.prefill(params, b, max_len=max_len),
+                       lambda c, t: plain.decode_step(params, c, t)),
+             "mesh": (functools.partial(make_prefill_step(
+                 meshed, param_shardings=pplan, cache_shardings=cplan,
+                 max_len=max_len), shard_params(params, pplan)),
+                 lambda c, t, d=make_decode_step(
+                     meshed, param_shardings=dplan, cache_shardings=cplan),
+                 blocks=shard_params(params, dplan): d(blocks, c, t)[1:])}
     runs, launches = {}, 0
-    for name, model in (("plain", plain), ("mesh", meshed)):
-        logits, cache = model.prefill(params, prompt,
-                                      max_len=MESH_S + MESH_STEPS)
+    for name, (prefill, decode) in steps.items():
+        logits, cache = prefill(prompt)
         out = [logits]
         if name == "mesh":
             tda.reset_launches()
         for i in range(MESH_STEPS):
-            logits, cache = model.decode_step(params, cache, toks[:, i:i + 1])
+            logits, cache = decode(cache, toks[:, i:i + 1])
             out.append(logits)
         torch.cuda.synchronize()
         if name == "mesh":
@@ -3781,16 +3815,20 @@ def mesh_moe(mesh, torch, dev, cfg, smi) -> dict:
         del cache
     if not all(torch.equal(a, b) for a, b in zip(runs["plain"],
                                                  runs["mesh"])):
-        raise AssertionError("lm_mesh (a): logits with a one-rank mesh set "
-                             "differ from the logits without one")
+        raise AssertionError("lm_mesh (a): logits of the planned steps on a "
+                             "one-rank mesh differ from the logits without "
+                             "a mesh")
     want = attn_layers(cfg) * MESH_STEPS
     if launches != want:
         raise AssertionError(f"lm_mesh (a): B5 ran {launches} times, not "
                              f"{want}")
     log(f"lm_mesh (a) prefill B={MESH_B} S={MESH_S} + {MESH_STEPS} decode "
-        f"steps with set_mesh: logits bit-equal to the model's without a "
-        f"mesh at all {MESH_STEPS + 1} steps; B5 launched {launches} times")
+        f"steps through make_prefill_step / make_decode_step with their "
+        f"plans (the cache held as cache_pspecs lays it out): logits "
+        f"bit-equal to the model's without a mesh at all {MESH_STEPS + 1} "
+        f"steps; B5 launched {launches} times")
     row = {"logits_bit_equal": True, "b5_launches": launches}
+    del steps
     p = {k: v[0] for k, v in params["blocks"]["moe"].items()}
     for label, s in (("prefill", MESH_S), ("decode", 1)):
         x = torch.randn((MESH_B, s, cfg.d_model), generator=gen,
@@ -3815,14 +3853,16 @@ def mesh_moe(mesh, torch, dev, cfg, smi) -> dict:
 
 
 def mesh_train(mesh, torch, dev, cfg, smi) -> dict:
-    """(b) the data-parallel step with a plan against the step without one,
-    from one state and one batch of ``sharded_batches`` over the mesh; (c)
-    ``compressed_psum`` over 'data' on that batch's gradient tree against
-    ``decompress(compress(g, e))``."""
+    """(b) the blocked step with a plan (the rank's blocks of the
+    parameters and moments, ``shard_params``) against the step without
+    one, from one state and one batch of ``sharded_batches`` over the mesh;
+    (c) ``compressed_psum`` over 'data' on that batch's gradient tree
+    against ``decompress(compress(g, e))``."""
     from repro_torch.checkpoint.store import _flatten, _unflatten
     from repro_torch.configs import TrainConfig
     from repro_torch.data import TokenStream, sharded_batches
-    from repro_torch.distributed.sharding import batch_pspec, param_shardings
+    from repro_torch.distributed.sharding import (
+        batch_pspec, gather_params, param_shardings, shard_params)
     from repro_torch.launch.steps import cross_entropy, make_train_step
     from repro_torch.models import build_model
     from repro_torch.optim import (adamw_init, compress, compressed_psum,
@@ -3843,15 +3883,15 @@ def mesh_train(mesh, torch, dev, cfg, smi) -> dict:
     del params, opt
     gc_cuda(torch)
     step = make_train_step(model, tc, param_shardings=plan, donate=True)
-    params = _clone_tree(params0, torch)
+    params = shard_params(_clone_tree(params0, torch), plan)
     opt = adamw_init(params)
     params, opt, m_b = step(params, opt, first)
     for key in ("loss", "grad_norm"):
         if not torch.equal(m_a[key], m_b[key]):
             raise AssertionError(f"lm_mesh (b): {key} {float(m_b[key])} "
                                  f"with the plan, {float(m_a[key])} without")
-    if not all(torch.equal(a, b) for a, b in zip(_leaves(want["params"]),
-                                                  _leaves(params))):
+    if not all(torch.equal(a, b) for a, b in zip(
+            _leaves(want["params"]), _leaves(gather_params(params, plan)))):
         raise AssertionError("lm_mesh (b): updated parameters differ from "
                              "the step's without a plan")
     del want
@@ -3870,7 +3910,7 @@ def mesh_train(mesh, torch, dev, cfg, smi) -> dict:
            "grad_norm": float(m_b["grad_norm"]), "ms_per_step": ms,
            "losses": [float(m["loss"])]}
     log(f"lm_mesh (b) {cfg.name} B={TRAIN_B} S={TRAIN_S}, sharded_batches "
-        f"spec {row['spec']}: the planned step's loss "
+        f"spec {row['spec']}: the blocked step's loss "
         f"{row['loss']:.6f}, grad norm {row['grad_norm']:.6f} and updated "
         f"parameters bit-equal to the step without a plan; {ms:.2f} ms a "
         f"step (CUDA events, {MESH_TIMED} steps; {smi})")
@@ -3989,14 +4029,120 @@ def mesh_roofline(torch, runs=FAMILY_RUNS) -> dict:
     return rows
 
 
+MESH_RANK_TIMEOUT = 600  # (f): seconds for its process
+
+
+def mesh_rank_run() -> int:
+    """(f)'s process (``python3 chip_smoke.py --mesh-rank``): rank 0 of
+    :data:`DRYRUN_CELL` on the (16, 16) plan over a ``fake`` world of 256
+    ranks, with real CUDA tensors holding its blocks of the parameters and
+    moments and its block of the batch (seeded, values not checked): one
+    train step as the dry run traces it (``microbatches`` its default,
+    remat full, donated).  Prints one JSON line: the card's
+    ``max_memory_allocated`` over the step, the arguments' bytes, the
+    step's seconds.  The fake group moves no bytes: its gathers leave
+    their outputs as the allocator gave them."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import SHAPES, TrainConfig, get_config
+    from repro_torch.distributed.sharding import (_axis_size, _map,
+                                                  batch_pspec,
+                                                  param_shardings)
+    from repro_torch.launch.dryrun import _default_microbatches, _nbytes
+    from repro_torch.launch.mesh import make_fake_mesh
+    from repro_torch.launch.specs import state_specs
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+
+    arch, shape_name = DRYRUN_CELL
+    shape, cfg = SHAPES[shape_name], get_config(arch)
+    mesh = make_fake_mesh((16, 16), ("data", "model"))
+    try:
+        model = build_model(cfg, "cuda").set_mesh(mesh)
+        params_g, _, axes = state_specs(model)
+        plan = param_shardings(axes, params_g, mesh)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = _map(lambda t: (torch.randn(
+            t.shape, generator=gen, device="cuda") * 0.02).to(t.dtype),
+            state_specs(model, mesh)[0])
+        opt = adamw_init(params)
+        spec = batch_pspec(shape.global_batch, mesh)
+        rows = shape.global_batch // _axis_size(mesh, spec[0])
+        batch = {k: torch.randint(0, cfg.vocab, (rows, shape.seq_len),
+                                  generator=gen, device="cuda",
+                                  dtype=torch.int32)
+                 for k in ("tokens", "labels")}
+        mb = _default_microbatches(arch, shape_name)
+        step = make_train_step(model, TrainConfig(microbatches=mb,
+                                                  remat="full"),
+                               param_shardings=plan, donate=True)
+        args = _nbytes((params, opt, batch))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+        print(json.dumps({
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "argument_bytes": args, "microbatches": mb, "rows": rows,
+            "seconds": time.perf_counter() - t0}))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def mesh_rank(torch, smi, cell) -> dict:
+    """(f) :func:`mesh_rank_run` in a process of its own (a process holds
+    one process group: lm_mesh's NCCL one is up here), its peak against the
+    dry run's fake-tensor peak of the same cell (``cell``: lm_dryrun's
+    trace, :func:`dryrun_cell_start`): within DRYRUN_MEM_BAND, and under
+    the card's memory."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                        "--mesh-rank"], capture_output=True, text=True,
+                       timeout=MESH_RANK_TIMEOUT, cwd=str(ROOT))
+    if r.returncode != 0:
+        raise AssertionError(f"lm_mesh (f): the rank's step failed (rc "
+                             f"{r.returncode}): {r.stderr[-4000:]}")
+    row = json.loads(r.stdout.strip().splitlines()[-1])
+    rec = dryrun_cell_end(cell, timeout=600)
+    fake = rec["memory"]["peak_bytes"]
+    if rec["memory"]["argument_size_in_bytes"] != row["argument_bytes"]:
+        raise AssertionError(f"lm_mesh (f): the rank holds "
+                             f"{row['argument_bytes']} bytes of arguments, "
+                             f"the dry run traced "
+                             f"{rec['memory']['argument_size_in_bytes']}")
+    card = torch.cuda.get_device_properties(0).total_memory
+    ratio = row["max_memory_allocated"] / fake
+    row.update(fake_peak_bytes=fake, ratio=ratio, card_bytes=card,
+               wall_s=time.perf_counter() - t0)
+    log(f"lm_mesh (f) {DRYRUN_CELL[0]} x {DRYRUN_CELL[1]}, rank 0 of the "
+        f"(16, 16) plan on a fake 256-rank group with real CUDA tensors "
+        f"({row['rows']} rows, {row['microbatches']} microbatches, remat "
+        f"full): max_memory_allocated {row['max_memory_allocated']} bytes "
+        f"against the dry run's fake-tensor peak {fake} ({ratio:.4f}); "
+        f"arguments {row['argument_bytes']} bytes (the plan's); the step "
+        f"{row['seconds']:.2f} s, values not checked; {smi}")
+    if abs(ratio - 1.0) > DRYRUN_MEM_BAND or row["max_memory_allocated"] \
+            >= card:
+        raise AssertionError(f"lm_mesh (f): peak {ratio:.4f} of the dry "
+                             f"run's (band {DRYRUN_MEM_BAND}), card {card}")
+    return row
+
+
 def phase_lm_mesh(torch, smi, dev="cuda", moe_cfg=None,
-                  train_cfg=None) -> tuple:
+                  train_cfg=None, cell=None) -> tuple:
     """The multi-card layer on a one-rank NCCL mesh (``make_local_mesh(1,
     1)``, its ``file://`` store under ``build/``): (a) qwen3-moe's serving
-    path with ``set_mesh`` and ``moe_ffn_ep``, (b) the data-parallel train
-    step with a plan, (c) ``compressed_psum``, (d) the meta-device specs,
-    (e) roofline FLOP counts.  The group is destroyed at the end, whatever
-    happens.  Returns (B5 launches of (a)'s meshed decode, rows)."""
+    path through the planned steps and ``moe_ffn_ep``, (b) the blocked
+    train step with a plan, (c) ``compressed_psum``, (d) the meta-device
+    specs, (e) roofline FLOP counts; then (f) one rank of the (16, 16)
+    plan with real allocations (``cell``: lm_dryrun's trace of the same
+    cell; None skips it, for rehearsals).  The group is destroyed at the
+    end, whatever happens.  Returns (B5 launches of (a)'s meshed decode,
+    rows)."""
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
@@ -4016,6 +4162,9 @@ def phase_lm_mesh(torch, smi, dev="cuda", moe_cfg=None,
     finally:
         dist.destroy_process_group()
         MESH_STORE.unlink(missing_ok=True)
+    if cell is not None:
+        gc_cuda(torch)
+        rows["rank"] = mesh_rank(torch, smi, cell)
     rows["seconds"] = time.perf_counter() - t_phase
     log(f"lm_mesh took {rows['seconds']:.1f} s")
     return rows["moe"]["b5_launches"], rows
@@ -4347,11 +4496,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of repro_torch")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the batched phase's reset matrix")
+    ap.add_argument("--mesh-rank", action="store_true",
+                    help="lm_mesh (f)'s process alone (mesh_rank_run)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.mesh_rank:
+        return mesh_rank_run()
     import repro_torch
     from repro_torch.graph.generators import rmat
     from repro_torch.kernels import decode_attn as tda
@@ -4394,7 +4547,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     fam_launches, fam_rows = phase_lm_families(torch)
     train_rows = phase_lm_train(torch)
-    mesh_launches, mesh_rows = phase_lm_mesh(torch, smi)
+    mesh_launches, mesh_rows = phase_lm_mesh(torch, smi, cell=cell)
     dry_launches, dry_rows = phase_lm_dryrun(torch, smi, cell)
 
     t0 = time.perf_counter()

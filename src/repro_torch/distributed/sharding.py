@@ -19,6 +19,16 @@ names and sizes: they take a ``DeviceMesh`` or a :class:`MeshShape` (the
 counterpart of ``jax.sharding.AbstractMesh``), so a plan for (16, 16) can
 be made on one card.  ``param_shardings`` turns each spec into ``DTensor``
 placements (``Shard(dim)`` / ``Replicate()`` per mesh dim).
+
+The plan realised, a process a rank: :func:`shard_params` gives the
+rank's block of every leaf (:func:`gather_params` the global tree back),
+and the steps compute with blocks.  :func:`use` gathers a leaf on use
+(ZeRO-3), with a gradient summed over the mesh dims where the rank's
+compute differs and taken as the rank's own block elsewhere;
+:func:`copy_to_model` and :func:`reduce_from_model` are Megatron's two
+tensor-parallel operators; :func:`split`, :func:`gather` and
+:func:`all_to_all` carry their transposes; :func:`relayout` moves a
+decode cache between its plan and a step's layout.
 """
 from __future__ import annotations
 
@@ -33,8 +43,10 @@ __all__ = [
     "cache_pspecs",
     "constrain",
     "data_axes",
+    "gather_params",
     "param_pspecs",
     "param_shardings",
+    "shard_params",
 ]
 
 LOGICAL_RULES = {
@@ -202,8 +214,10 @@ class NamedSharding:
         return f"NamedSharding({self.mesh!r}, {self.spec!r})"
 
 
-def param_shardings(axes_tree, shapes_tree, mesh, *, fsdp: bool = True):
-    specs = param_pspecs(axes_tree, shapes_tree, mesh, fsdp=fsdp)
+def param_shardings(axes_tree, shapes_tree, mesh, *, fsdp: bool = True,
+                    moe_2d: bool = False):
+    specs = param_pspecs(axes_tree, shapes_tree, mesh, fsdp=fsdp,
+                         moe_2d=moe_2d)
     return _map(lambda s: NamedSharding(mesh, s), specs,
                 is_leaf=lambda x: isinstance(x, PartitionSpec))
 
@@ -337,18 +351,254 @@ def _reduce_scatter(x: torch.Tensor, mesh, names) -> torch.Tensor:
     return x
 
 
-class _AllGather(torch.autograd.Function):
-    """:func:`_gather` along dim 0 with its gradient: each rank's block
-    gets the sum of every rank's gradient for it."""
+def _names(entry) -> tuple:
+    """The mesh dims of one spec entry (None, a name or a tuple)."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def _split_dims(spec, mesh, keep=()) -> tuple:
+    """``(dim, names)`` of each dim ``spec`` lays over mesh dims of more
+    than one rank (a dim of one rank moves nothing), less the dims whose
+    entry names a mesh dim in ``keep``."""
+    axes = _axes(mesh)
+    out = []
+    for dim, e in enumerate(spec):
+        names = tuple(n for n in _names(e) if axes.get(n, 1) > 1)
+        if names and not set(_names(e)) & set(keep):
+            out.append((dim, names))
+    return tuple(out)
+
+
+def _own(x: torch.Tensor, mesh, names, dim: int) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim`` over the mesh dims
+    ``names`` (major to minor)."""
+    return x.chunk(_axis_size(mesh, names), dim)[_coord(mesh, names)]
+
+
+def _scatter_sum(x: torch.Tensor, mesh, names, dim: int) -> torch.Tensor:
+    """:func:`_reduce_scatter` along ``dim``."""
+    if dim == 0:
+        return _reduce_scatter(x, mesh, names)
+    return _reduce_scatter(x.movedim(dim, 0), mesh, names).movedim(0, dim)
+
+
+class _Use(torch.autograd.Function):
+    """A leaf's block gathered along ``dims`` (``(dim, names)`` pairs) with
+    its gradient.  Backward, over each mesh dim of ``partial`` (the rank's
+    compute differs over it: its batch, or the block of heads it runs) the
+    gradients of the ranks are summed, in f32: a reduce-scatter along a
+    gathered dim, an all-reduce where the leaf is not laid over that mesh
+    dim (``reduce``).  Over any other mesh dim the ranks computed the same
+    gradient, and each keeps its own block of it: a sum there would count
+    it once a rank."""
 
     @staticmethod
-    def forward(ctx, x, mesh, names):
-        ctx.mesh, ctx.names = mesh, names
-        return _gather(x, mesh, names, 0)
+    def forward(ctx, x, mesh, dims, partial, reduce):
+        ctx.mesh, ctx.dims, ctx.partial, ctx.reduce = (mesh, dims, partial,
+                                                       reduce)
+        for dim, names in dims:
+            x = _gather(x, mesh, names, dim)
+        return x
 
     @staticmethod
     def backward(ctx, g):
-        return _reduce_scatter(g, ctx.mesh, ctx.names), None, None
+        mesh = ctx.mesh
+        g = g.float()
+        for dim, names in reversed(ctx.dims):
+            for name in names:  # major first: the gather's last step
+                g = (_scatter_sum(g, mesh, (name,), dim)
+                     if name in ctx.partial else _own(g, mesh, (name,), dim))
+        if ctx.reduce:
+            import torch.distributed as dist
+
+            g = _all_reduce(g, mesh, ctx.reduce, dist.ReduceOp.SUM)
+        return g, None, None, None, None
+
+
+def use(x: torch.Tensor, mesh, spec, *, keep=(), partial=()) -> torch.Tensor:
+    """What a rank computes with from its block ``x`` of a leaf that
+    ``spec`` lays out on ``mesh``: ``x`` gathered over every mesh dim the
+    spec names, save the dims whose entry names one of ``keep`` (the rank
+    runs on its block there: its heads, its ffn slice, its vocabulary, its
+    experts).  ``partial``: the mesh dims over which the rank's gradient
+    of the result is a part of the whole (see :class:`_Use`); outside
+    autograd it changes nothing."""
+    dims = _split_dims(spec, mesh, keep)
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        for dim, names in dims:
+            x = _gather(x, mesh, names, dim)
+        return x
+    named = {n for e in spec for n in _names(e)}
+    axes = _axes(mesh)
+    reduce = tuple(a for a in axes if a in partial and a not in named
+                   and axes[a] > 1)
+    if not (dims or reduce):
+        return x
+    return _Use.apply(x, mesh, dims, frozenset(partial), reduce)
+
+
+class _Reduce(torch.autograd.Function):
+    """A SUM all-reduce over the mesh dims ``fwd`` in the forward, over
+    ``bwd`` in the backward, each in f32 and rounded once to the tensor's
+    dtype.  ``fwd=(), bwd=("model",)`` and ``fwd=("model",), bwd=()`` are
+    Megatron's two operators: the identity at a column-parallel input whose
+    gradient is summed, and the sum of a row-parallel product's partials,
+    whose gradient every rank already holds whole."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, fwd, bwd):
+        ctx.mesh, ctx.bwd = mesh, bwd
+        return _sum_f32(x, mesh, fwd) if fwd else x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_f32(g, ctx.mesh, ctx.bwd), None, None, None
+
+
+def _sum_f32(x: torch.Tensor, mesh, names) -> torch.Tensor:
+    import torch.distributed as dist
+
+    names = tuple(n for n in names if _axes(mesh).get(n, 1) > 1)
+    if not names:
+        return x
+    s = _all_reduce(x.float() if x.dtype != torch.float32 else x.clone(),
+                    mesh, names, dist.ReduceOp.SUM)
+    return s.to(x.dtype)
+
+
+def reduce_sum(x: torch.Tensor, mesh, fwd=(), bwd=()) -> torch.Tensor:
+    """:class:`_Reduce` (in f32, rounded once); outside autograd the
+    forward alone."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Reduce.apply(x, mesh, tuple(fwd), tuple(bwd))
+    return _sum_f32(x, mesh, fwd)
+
+
+def copy_to_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Megatron's column-parallel input: the identity, its gradient summed
+    over 'model'."""
+    return reduce_sum(x, mesh, (), ("model",))
+
+
+def reduce_from_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Megatron's row-parallel output: the partials summed over 'model' in
+    f32 and rounded once; the gradient passes as it is."""
+    return reduce_sum(x, mesh, ("model",), ())
+
+
+class _Split(torch.autograd.Function):
+    """This rank's block along ``dim`` over ``names``; backward gathers
+    the blocks' gradients (the transpose of a gather whose gradient every
+    rank holds whole)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, names, dim):
+        ctx.mesh, ctx.names, ctx.dim = mesh, names, dim
+        return _own(x, mesh, names, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.mesh, ctx.names, ctx.dim), None, None, None
+
+
+def split(x: torch.Tensor, mesh, names, dim: int) -> torch.Tensor:
+    names = tuple(names)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Split.apply(x, mesh, names, dim)
+    return _own(x, mesh, names, dim)
+
+
+def gather(x: torch.Tensor, mesh, names, dim: int, *,
+           partial: bool) -> torch.Tensor:
+    """The blocks of ``x`` along ``dim`` over ``names``, with the gradient
+    of :func:`use`: summed over the ranks (``partial``) or each rank's own
+    block of it."""
+    names = tuple(n for n in names if _axes(mesh).get(n, 1) > 1)
+    if not names:
+        return x
+    return use(x, mesh, tuple(names if d == dim else None
+                              for d in range(x.dim())),
+               partial=names if partial else ())
+
+
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all_single`` over ``group`` (chunk i of dim 0 to peer i);
+    its transpose is the same exchange of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.group), None
+
+
+def _exchange(x: torch.Tensor, group) -> torch.Tensor:
+    import torch.distributed as dist
+
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _AllToAll.apply(x, group)
+    return _exchange(x, group)
+
+
+def relayout(x: torch.Tensor, mesh, held, want) -> torch.Tensor:
+    """A tensor laid out by the entries ``held`` (one a dim) in the layout
+    ``want``, outside autograd: gathered where ``held`` names mesh dims
+    that ``want`` does not, cut to this rank's block where ``want`` names
+    ones that ``held`` does not (a decode cache between its plan and the
+    layout a step computes in)."""
+    for dim, (h, w) in enumerate(zip(held, want)):
+        if h == w:
+            continue
+        if h is not None:
+            x = _gather(x, mesh, _names(h), dim)
+        if w is not None:
+            x = _own(x, mesh, _names(w), dim)
+    return x
+
+
+# ------------------------------------------------------ the plan realised
+def shard_params(tree, plan):
+    """This rank's blocks of the global ``tree`` (parameters, or anything
+    of their shapes: the AdamW moments) under ``plan`` (a tree of
+    :class:`NamedSharding`, :func:`param_shardings`' tree): each block a
+    tensor of its own, as ``param_pspecs`` lays it out (a leaf the plan
+    does not split over more than one rank is the leaf itself)."""
+    def one(t, s):
+        b = _block(t, s.mesh, s.spec)
+        return t if b.numel() == t.numel() else b.clone()
+
+    return _map(one, tree, plan)
+
+
+def gather_params(blocks, plan):
+    """The global tree of this rank's ``blocks`` under ``plan`` (every
+    rank calls it: each leaf is gathered over every mesh dim its spec
+    names)."""
+    def one(t, s):
+        for dim, names in _split_dims(s.spec, s.mesh):
+            t = _gather(t, s.mesh, names, dim)
+        return t
+
+    return _map(one, blocks, plan)
+
+
+def block_shape(shape: tuple, spec, mesh) -> tuple:
+    """The shape of one rank's block of a leaf of ``shape`` under
+    ``spec``."""
+    return tuple(n // _axis_size(mesh, _names(e) or None)
+                 for n, e in zip(shape, tuple(spec) + (None,) * len(shape)))
 
 
 def _shard_bytes(shapes_tree, specs_tree, mesh) -> int:

@@ -14,10 +14,10 @@ as rank 0 of a ``fake`` process group of the mesh's size
   * ``torch.utils.flop_counter.FlopCounterMode``: the rank's FLOPs (B5
     counts through its operator's FLOP formula);
   * ``torch.distributed._tools.mem_tracker.MemTracker``: the rank's peak
-    bytes, of which the arguments are what the rank holds as the port
-    holds it today (parameters and optimizer state replicated over the
-    data axes, ROADMAP §C P31), and ``plan_argument_bytes`` what it would
-    hold under the sharding plan;
+    bytes, of which the arguments are the rank's blocks of the parameters,
+    the moments and the decode cache, as the sharding plan lays them out
+    (``plan_argument_bytes``: the plan's bytes, computed from the specs, so
+    the two agree);
   * a dispatch mode that adds each op's input and output bytes (the
     reference's ``bytes accessed``, before any fusion).
 
@@ -26,13 +26,14 @@ is the unpartitioned step of the whole global batch on meta tensors with no
 mesh, its layers unrolled as the port always runs them.
 
 Rank 0 runs its block of the batch (``sharded_batches``' block over the
-data axes).  The train step is the data-parallel step of the plan
-(``make_train_step(param_shardings=)``, an f32 gradient all-reduce over the
-data axes); prefill and decode run in the mesh's scope with the batch
-sharded over the data axes, as that step's forward does (a moe layer
-gathers the tokens over them, then runs ``moe_ffn_ep`` over ``model``).
-Decode takes the serving layout's plan (``param_pspecs(..., fsdp=False,
-moe_2d=True)``) and a full cache at position ``seq_len - 1``.
+data axes) with its blocks of the state: the train step under
+``param_pspecs``' plan (ZeRO-3 over the data axes, tensor and expert
+parallel over 'model': the gathers on use, their reduce-scatters, the
+'model' all-reduces and the experts' all-to-alls are the collectives
+counted), prefill under the same plan, decode under the serving layout's
+(``param_pspecs(..., fsdp=False, moe_2d=True)``) with a full cache at
+position ``seq_len - 1`` held as ``cache_pspecs`` lays it out (the port
+keeps the cache's position as a Python int: neither count has it).
 
 The dry run needs no card and runs on the CPU.  Run it as its own process
 (``python -m repro_torch.launch.dryrun``): a process holds one process
@@ -208,20 +209,14 @@ def _mesh_names(mesh_shape: tuple) -> tuple:
     return ("pod", "data", "model")[3 - len(mesh_shape):]
 
 
-def _blocked(tree, specs, mesh):
-    """Meta tensors of the blocks rank 0 holds of ``tree`` when only the
-    leading (batch) dim of each spec is realised: the port shards a batch
-    over the data axes and replicates the rest."""
-    from ..distributed.sharding import _axis_size, _map
+def _blocks(tree, specs, mesh):
+    """Meta tensors of the blocks rank 0 holds of ``tree`` laid out by the
+    spec tree ``specs``."""
+    from ..distributed.sharding import _map, block_shape
 
-    def one(t, spec):
-        if not isinstance(t, torch.Tensor) or not spec or spec[0] is None:
-            return t
-        n = _axis_size(mesh, spec[0])
-        return torch.empty((t.shape[0] // n,) + tuple(t.shape[1:]),
-                           dtype=t.dtype, device="meta")
-
-    return _map(one, tree, specs)
+    return _map(lambda t, spec: torch.empty(
+        block_shape(t.shape, spec, mesh), dtype=t.dtype, device="meta")
+        if isinstance(t, torch.Tensor) else t, tree, specs)
 
 
 def _fake(tree, mode, device):
@@ -293,10 +288,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
 
     from ..configs import SHAPES, TrainConfig, cell_is_skipped, get_config
     from ..distributed.sharding import (
-        _axis_size, _shard_bytes, batch_pspec, cache_pspecs, data_axes,
+        _axis_size, _names, _shard_bytes, batch_pspec, cache_pspecs,
         param_pspecs, param_shardings)
     from ..models import build_model
-    from ..models.shard_ctx import shard_scope
     from .mesh import make_fake_mesh
     from .patch_probe import probe_cell
     from .specs import cache_specs, input_specs, state_specs
@@ -310,64 +304,61 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     cfg = cfg or get_config(arch)
     mesh_shape = tuple(mesh_shape or ((2, 16, 16) if multi_pod else (16, 16)))
     mesh_name = "x".join(str(n) for n in mesh_shape)
-    if shape.kind == "train" and cfg.family == "moe" and mesh_shape[-1] > 1:
-        return {"arch": arch, "shape": shape_name, "mesh": mesh_name,
-                "status": "skipped",
-                "reason": "the port's expert-parallel moe_ffn_ep runs forward "
-                          "only: no train step over a model dim > 1 "
-                          "(ROADMAP §A 3)"}
-
     mesh = make_fake_mesh(mesh_shape, _mesh_names(mesh_shape))
     try:
         model = build_model(cfg, "meta").set_mesh(mesh)
-        params_s, opt_s, axes = state_specs(model)
-        p_specs = param_pspecs(axes, params_s, mesh)
+        params_g, opt_g, axes = state_specs(model)
         bspec = batch_pspec(shape.global_batch, mesh)
         batch = input_specs(cfg, shape)
         b_specs = {k: bspec for k in batch}
-        batch_r = _blocked(batch, b_specs, mesh)
+        batch_r = _blocks(batch, b_specs, mesh)
         plan = _shard_bytes(batch, b_specs, mesh)
         sharded = bool(bspec) and _axis_size(mesh, bspec[0]) > 1
-        scope = shard_scope(mesh, batch_axes=data_axes(mesh) if sharded
-                            else ())
+        baxes = _names(bspec[0]) if sharded else ()
         mb = 1
         if shape.kind == "train":
             mb = microbatches or _default_microbatches(arch, shape_name)
             tc = TrainConfig(microbatches=mb, remat="full")
-            step = make_train_step(
-                model, tc, param_shardings=param_shardings(axes, params_s,
-                                                           mesh),
-                donate=True)
+            pplan = param_shardings(axes, params_g, mesh)
+            p_specs = param_pspecs(axes, params_g, mesh)
+            params_s, opt_s, _ = state_specs(model, mesh)
+            step = make_train_step(model, tc, param_shardings=pplan,
+                                   donate=True)
             args = (params_s, opt_s, batch_r)
-            plan += (_shard_bytes(params_s, p_specs, mesh)
-                     + _shard_bytes(opt_s.m, p_specs, mesh)
-                     + _shard_bytes(opt_s.v, p_specs, mesh)
-                     + _nbytes(opt_s.step))
+            plan += (_shard_bytes(params_g, p_specs, mesh)
+                     + _shard_bytes(opt_g.m, p_specs, mesh)
+                     + _shard_bytes(opt_g.v, p_specs, mesh)
+                     + _nbytes(opt_g.step))
         elif shape.kind == "prefill":
-            inner = make_prefill_step(model)
-
-            def step(params, batch):
-                with scope:
-                    return inner(params, batch)
-
+            pplan = param_shardings(axes, params_g, mesh)
+            params_s, _, _ = state_specs(model, mesh)
+            # the primed cache's plan, made outside the trace (its global
+            # shapes on the meta device would count as the rank's memory)
+            c_specs = cache_pspecs(cache_specs(model, shape), mesh,
+                                   shape.global_batch)
+            step = make_prefill_step(model, param_shardings=pplan,
+                                     cache_shardings=c_specs,
+                                     batch_axes=baxes)
             args = (params_s, batch_r)
-            plan += _shard_bytes(params_s, p_specs, mesh)
+            plan += _shard_bytes(params_g, param_pspecs(axes, params_g, mesh),
+                                 mesh)
         else:
             cache_s = cache_specs(model, shape)
             c_specs = cache_pspecs(cache_s, mesh, shape.global_batch)
-            serve = param_pspecs(axes, params_s, mesh, fsdp=False,
-                                 moe_2d=True)
-            plan += (_shard_bytes(params_s, serve, mesh)
-                     + _shard_bytes(cache_s, c_specs, mesh))
+            serve = dict(fsdp=False, moe_2d=True)
+            dplan = param_shardings(axes, params_g, mesh, **serve)
+            params_s, _, _ = state_specs(model, mesh, **serve)
+            layers = {"layers": cache_s["layers"]}
+            plan += (_shard_bytes(params_g, param_pspecs(axes, params_g, mesh,
+                                                         **serve), mesh)
+                     + _shard_bytes(layers, {"layers": c_specs["layers"]},
+                                    mesh))
             # the port's cache holds its position as a Python int
-            cache_r = dict(_blocked(cache_s, c_specs, mesh),
-                           len=shape.seq_len - 1)
-            inner = make_decode_step(model)
-
-            def step(params, cache, tokens):
-                with scope:
-                    return inner(params, cache, tokens)
-
+            cache_r = dict(_blocks(layers, {"layers": c_specs["layers"]},
+                                   mesh), len=shape.seq_len - 1)
+            step = make_decode_step(model, param_shardings=dplan,
+                                    cache_shardings=c_specs,
+                                    batch_axes=baxes)
             args = (params_s, cache_r, batch_r["tokens"])
         traced = trace_step(step, args, mesh)
         mem = dict(traced["memory"], plan_argument_bytes=plan)

@@ -25,8 +25,8 @@ HBM_GIB = HBM_BYTES / 2**30
 def dryrun_table(d: Path, mesh: str) -> str:
     """One row a registry cell: the reference's columns (``compile s`` is
     0: the port traces and compiles nothing), the fit against the card's
-    memory, then the arguments one rank holds as the port holds them today
-    and as the sharding plan would lay them out."""
+    memory, then the arguments one rank holds (its blocks of the state)
+    and the plan's bytes for them, computed from the specs."""
     rows = [
         "| arch | shape | compile s | temp GiB/dev | fits 80G | coll GB/dev "
         "(link) | probe GFLOPs (global) | args GiB/dev | plan args GiB/dev |",

@@ -45,12 +45,21 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
     return batch
 
 
-def state_specs(model: Model):
+def state_specs(model: Model, mesh=None, **plan):
     """(parameter specs, optimizer-state specs, logical axes) on the meta
-    device."""
+    device.  With ``mesh``: the shapes of one rank's blocks under the plan
+    ``param_pspecs(axes, params, mesh, **plan)`` (``fsdp``, ``moe_2d``)
+    lays out, the blocks a step with that plan takes."""
     meta = _meta(model)
     params = meta.init(torch.Generator())
-    return params, adamw_init(params), meta.logical_axes()
+    axes = meta.logical_axes()
+    if mesh is not None:
+        from ..distributed.sharding import _map, block_shape, param_pspecs
+
+        specs = param_pspecs(axes, params, mesh, **plan)
+        params = _map(lambda t, sp: _sds(block_shape(t.shape, sp, mesh),
+                                         t.dtype), params, specs)
+    return params, adamw_init(params), axes
 
 
 def cache_specs(model: Model, shape: ShapeConfig):

@@ -7,6 +7,12 @@ The reference jit-compiles these steps; the port runs them eagerly.
 ``torch.inference_mode()`` (``Model.prefill`` and ``Model.decode_step``
 enter it); the train step differentiates ``Model.forward`` with
 ``torch.autograd.grad``.
+
+With a plan (``param_shardings``: ``distributed.sharding.param_shardings``'
+tree), a step takes and returns this rank's blocks of the parameters (and
+of the moments and the decode cache): the model gathers each layer's
+leaves on use and runs attention, the MLP, the vocabulary and the experts
+on the rank's block over 'model' (``models/model.py``).
 """
 from __future__ import annotations
 
@@ -16,7 +22,8 @@ import torch
 
 from ..checkpoint.store import _flatten, _unflatten
 from ..configs.base import TrainConfig
-from ..distributed.sharding import _all_reduce, _axis_size, data_axes
+from ..distributed.sharding import (
+    _all_reduce, _axis_size, _gather, data_axes, reduce_sum)
 from ..models.model import Model
 from ..models.shard_ctx import shard_scope
 from ..optim import OptState, adamw_update, compress, decompress
@@ -24,17 +31,36 @@ from ..optim import OptState, adamw_update, compress, decompress
 __all__ = ["cross_entropy", "make_decode_step", "make_prefill_step",
            "make_train_step"]
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mesh=None) -> torch.Tensor:
     """Mean token CE. logits [B,S,V] (f32), labels [B,S] integer.
 
     The reference contracts a one-hot of the labels against the logits (a
-    gather over a vocab-sharded dim would replicate them); on one card a
-    gather of each label's logit gives the same value."""
+    gather over a vocab-sharded dim would replicate them).  Without
+    ``mesh`` a gather of each label's logit gives the same value.  With
+    ``mesh``, ``logits`` is this rank's block of the vocabulary over its
+    'model' dim, and the max, the sum of exponents and the label's logit
+    (from the rank whose block holds it, zero elsewhere) are each reduced
+    over 'model': the reference's gather-free form, partitioned."""
     logits = logits.float()
     m = logits.detach().amax(dim=-1, keepdim=True)
-    lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
-    label_logit = torch.take_along_dim(logits, labels[..., None].long(),
-                                       dim=-1)[..., 0]
+    if mesh is None:
+        lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+        label_logit = torch.take_along_dim(logits, labels[..., None].long(),
+                                           dim=-1)[..., 0]
+        return torch.mean(lse - label_logit)
+    import torch.distributed as dist
+
+    model = ("model",)
+    m = _all_reduce(m, mesh, model, dist.ReduceOp.MAX)
+    sumexp = reduce_sum(torch.exp(logits - m).sum(dim=-1), mesh, model)
+    lse = torch.log(sumexp) + m[..., 0]
+    v = logits.shape[-1]
+    local = labels.long() - v * mesh.get_local_rank("model")
+    mine = (local >= 0) & (local < v)
+    label_logit = torch.take_along_dim(
+        logits, torch.where(mine, local, 0)[..., None], dim=-1)[..., 0]
+    label_logit = reduce_sum(torch.where(mine, label_logit, 0.0), mesh, model)
     return torch.mean(lse - label_logit)
 
 
@@ -67,23 +93,27 @@ def make_train_step(
     (``donate_argnums=(0, 1)``); the caller must not read the old values.
 
     ``param_shardings`` (``distributed.sharding.param_shardings``' tree, the
-    plan) makes the step data-parallel over the plan mesh's data axes: the
+    plan) makes the step ZeRO-3 over the plan mesh's data axes and tensor
+    parallel over its 'model' dim: ``params`` and ``opt`` are this rank's
+    blocks (``sharding.shard_params``), and so are the returned ones; the
     batch is this rank's block of the global batch (``sharded_batches``
-    with a spec that shards it over those axes), the forward runs in that
-    mesh's scope, and the gradient, ``loss`` and ``ce`` are averaged over
-    the data axes with an f32 all-reduce — the reduction XLA makes
-    implicitly in the reference's one program.  Compression and AdamW
-    then run on the averaged gradient as without a plan; parameters and
-    optimizer state stay replicated.
+    with a spec that shards it over the data axes).  The forward runs in
+    the mesh's scope and gathers each layer's leaves on use; their
+    backward sums the gradients of the data axes' ranks into each block
+    (a reduce-scatter in f32), from a loss divided by the data count, so
+    the f32 microbatch accumulator holds blocks of the mean gradient, as
+    the reference pins it to the parameter layout.  ``loss`` and ``ce``
+    are averaged over the data axes; the norm, compression and AdamW run
+    on the blocks (``global_norm`` sums over the ranks).
     """
     mesh = _plan_mesh(param_shardings)
+    n_data = 1 if mesh is None else _axis_size(mesh, data_axes(mesh))
 
     def loss_fn(params, batch):
-        with (contextlib.nullcontext() if mesh is None
-              else shard_scope(mesh, batch_axes=data_axes(mesh))):
+        with _step_scope(mesh, param_shardings):
             logits, aux = model.forward(params, batch, remat=tc.remat,
                                         unroll=unroll)
-        ce = cross_entropy(logits, batch["labels"])
+            ce = cross_entropy(logits, batch["labels"], model.vocab_mesh())
         return ce + aux_weight * aux, ce
 
     def grads_of(params, batch):
@@ -91,7 +121,9 @@ def make_train_step(
         leaves = [_leaf(p) for p in flat]
         with torch.enable_grad():
             loss, ce = loss_fn(_unflatten(params, leaves), batch)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            # each rank's share of the mean over the data axes' batch
+            grads = torch.autograd.grad(loss / n_data if n_data > 1
+                                        else loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
         return _unflatten(params, grads), loss.detach(), ce.detach()
@@ -119,7 +151,7 @@ def make_train_step(
         else:
             grads, loss, ce = grads_of(params, inputs)
         if mesh is not None:
-            grads, loss, ce = _data_mean((grads, loss, ce), mesh)
+            loss, ce = _data_mean((loss, ce), mesh)
 
         if tc.grad_compress:
             err = batch.get("_grad_error")
@@ -129,16 +161,28 @@ def make_train_step(
                                                      dtype=torch.float32,
                                                      device=g.device)
                                          for g in flat])
-            q, scales, _ = compress(grads, err)
+            q, scales, _ = compress(grads, err, param_shardings)
             grads = decompress(q, scales)
 
         with torch.no_grad():
             params, opt, om = adamw_update(grads, opt, params, tc,
-                                           inplace=donate)
+                                           inplace=donate,
+                                           plan=param_shardings)
         metrics = {"loss": loss, "ce": ce, **om}
         return params, opt, metrics
 
     return train_step
+
+
+def _step_scope(mesh, plan, cache_plan=None, batch_axes=None):
+    """The scope a step with a plan runs its model call in (none without
+    one): the batch a block over ``batch_axes`` (default: the mesh's data
+    axes), the parameters held under ``plan``."""
+    if mesh is None:
+        return contextlib.nullcontext()
+    return shard_scope(mesh, plan=plan, cache_plan=cache_plan,
+                       batch_axes=data_axes(mesh) if batch_axes is None
+                       else batch_axes)
 
 
 def _plan_mesh(plan):
@@ -164,24 +208,63 @@ def _data_mean(tree, mesh):
     return _unflatten(tree, out)
 
 
-def make_prefill_step(model: Model, unroll: bool = False):
-    """(params, batch) -> (last-token logits, primed decode cache)."""
+def make_prefill_step(model: Model, unroll: bool = False,
+                      param_shardings=None, *, cache_shardings=None,
+                      max_len=None, batch_axes=None):
+    """(params, batch) -> (last-token logits, primed decode cache).
+
+    With a plan (``param_shardings``, ``param_pspecs(fsdp=True)``'s) the
+    parameters are this rank's blocks and the batch its block over
+    ``batch_axes`` (default: the data axes); the logits are the rank's
+    block of the vocabulary where the plan splits it, and the cache is held
+    as ``cache_shardings`` (``cache_pspecs``' tree of the decode cache;
+    default: of the cache this prefill makes).  ``max_len`` sizes the
+    cache (``Model.prefill``)."""
+    mesh = _plan_mesh(param_shardings)
 
     def prefill_step(params, batch):
-        return model.prefill(params, batch, unroll=unroll)
+        with _step_scope(mesh, param_shardings, cache_shardings, batch_axes):
+            return model.prefill(params, batch, unroll=unroll,
+                                 max_len=max_len)
 
     return prefill_step
 
 
-def make_decode_step(model: Model, sample: bool = False):
+def make_decode_step(model: Model, sample: bool = False,
+                     param_shardings=None, *, cache_shardings=None,
+                     batch_axes=None):
     """(params, cache, tokens[B,1]) -> (next_tokens[B,1], logits, cache).
 
     ``sample`` is kept for the reference's signature: both pick the argmax.
+    With a plan (``param_pspecs(fsdp=False, moe_2d=True)``'s, the serving
+    layout) the parameters and the cache (held as ``cache_shardings``) are
+    this rank's blocks and the tokens its block over ``batch_axes``
+    (default: the data axes); the logits are its block of the vocabulary
+    where the plan splits it, and the argmax is taken over the whole
+    vocabulary (each rank's best, gathered over 'model').
     """
+    mesh = _plan_mesh(param_shardings)
 
     def decode_step(params, cache, tokens):
-        logits, cache = model.decode_step(params, cache, tokens)
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
-        return nxt, logits, cache
+        with _step_scope(mesh, param_shardings, cache_shardings, batch_axes):
+            logits, cache = model.decode_step(params, cache, tokens)
+            vocab = model.vocab_mesh()
+        with torch.inference_mode():
+            nxt = _argmax(logits, vocab)
+        return nxt.to(torch.int32)[:, None], logits, cache
 
     return decode_step
+
+
+def _argmax(logits: torch.Tensor, mesh) -> torch.Tensor:
+    """The first index of the largest logit of each row; with ``mesh``,
+    over the vocabulary whose blocks the ranks of 'model' hold."""
+    if mesh is None:
+        return torch.argmax(logits, dim=-1)
+    v = logits.shape[-1]
+    best, idx = logits.max(dim=-1)
+    idx = idx + v * mesh.get_local_rank("model")
+    best = _gather(best[None], mesh, ("model",), 0)  # [model, B]
+    idx = _gather(idx[None], mesh, ("model",), 0)
+    # the first block holding the largest value: the lowest index
+    return idx.gather(0, best.argmax(dim=0)[None])[0]

@@ -25,11 +25,11 @@ import torch
 from ..configs.base import ModelConfig
 from ..kernels.decode_attn import decode_attention
 from .flash import NEG_INF, TileTable, flash_attention, pick_chunk
-from .layers import apply_rope, rmsnorm
+from .layers import apply_rope, on_model_block, rmsnorm
 from .param import Mk
 from .shard_ctx import constrain, constrain_heads, current_mesh
 
-__all__ = ["FLASH_MIN_SEQ", "KVCache", "attn_cross", "attn_decode",
+__all__ = ["FLASH_MIN_SEQ", "CacheLayout", "KVCache", "attn_cross", "attn_decode",
            "attn_full", "init_attention", "init_kv_cache", "project_kv"]
 
 # Above this many query rows the dense [B,H,S,T] score tensor is replaced by
@@ -84,7 +84,15 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig, positions):
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    """q, k, v of ``x``.  Where the plan in scope splits the heads over
+    'model' (``wq`` a rank's block), q holds this rank's heads, and k and v
+    its kv heads when those split too; otherwise k and v hold every kv
+    head (:func:`_local_kv` picks the ones a rank's q heads read)."""
+    q_split = on_model_block(p, "wq")
+    kv_split = on_model_block(p, "wk")
+    xq = _copy_to_model(x) if q_split else x
+    xk = xq if kv_split else x
+    q, k, v = _proj(xq, p["wq"]), _proj(xk, p["wk"]), _proj(xk, p["wv"])
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"]["w"])
         k = rmsnorm(k, p["k_norm"]["w"])
@@ -96,10 +104,43 @@ def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig, positions):
     return constrain_heads(q, k, v)
 
 
-def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
-    """``einsum('bshk,hkd->bsd', out, wo)`` as one matrix product."""
+def _copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    from ..distributed.sharding import copy_to_model
+
+    return copy_to_model(x, current_mesh())
+
+
+def _local_kv(p, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              cfg: ModelConfig) -> tuple:
+    """The kv heads this rank's q heads read: ``k`` and ``v`` as they are,
+    unless q holds a block of the heads over 'model' (``wq`` a rank's block
+    in ``p``) and k and v every kv head (``wk`` whole); then the kv heads of
+    that block (every rank computed them whole, so their gradient is summed
+    over 'model' before the cut)."""
+    if not on_model_block(p, "wq") or on_model_block(p, "wk"):
+        return k, v
+    hq = q.shape[-2]
+    group = cfg.n_heads // cfg.n_kv_heads
+    first = hq * current_mesh().get_local_rank("model")
+    lo, hi = first // group, (first + hq - 1) // group + 1
+    if hq % (hi - lo) or (hi - lo) * group < hq:
+        raise ValueError(f"{hq} heads a rank do not map onto whole kv "
+                         f"heads ({cfg.n_heads} heads, {cfg.n_kv_heads} kv)")
+    return _copy_to_model(k)[..., lo:hi, :], _copy_to_model(v)[..., lo:hi, :]
+
+
+def _out_proj(out: torch.Tensor, p) -> torch.Tensor:
+    """``einsum('bshk,hkd->bsd', out, p["wo"])`` as one matrix product;
+    row parallel (summed over 'model') when ``wo`` holds a rank's block of
+    the heads, as ``out`` then does."""
+    wo = p["wo"]
     h, k, d = wo.shape
-    return out.reshape(*out.shape[:-2], h * k) @ wo.reshape(h * k, d)
+    o2 = out.reshape(*out.shape[:-2], h * k)
+    if on_model_block(p, "wo"):
+        from .layers import row_parallel
+
+        return row_parallel(o2, wo.reshape(h * k, d))
+    return o2 @ wo.reshape(h * k, d)
 
 
 def _sdpa(q, k, v, mask):
@@ -148,13 +189,26 @@ def attn_full(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
     sliding-window attention.  ``tiles`` is the forward's table of live
     flash tiles over these positions (made here when None);
     ``return_kv=True`` also returns the projected K and V, which prefill
-    lays into the decode cache."""
+    lays into the decode cache (a rank's kv heads where the plan in scope
+    splits them, every kv head otherwise)."""
     pos1d = positions[0] if cfg.m_rope_sections else positions
     q, k, v = _project_qkv(p, x, cfg, positions)
-    out = _attention(q, k, v, pos1d, int(window), causal, tiles)
+    kq, vq = _local_kv(p, q, k, v, cfg)
+    out = _attention(q, kq, vq, pos1d, int(window), causal, tiles)
     out, _, _ = constrain_heads(out, out, out)
-    out = _out_proj(out, p["wo"])
+    out = _out_proj(out, p)
     return (out, k, v) if return_kv else out
+
+
+class CacheLayout(NamedTuple):
+    """How a rank holds an attention cache and how a step computes with
+    it, as spec entries of k and v ``[B, T, KV, hd]`` (pos ``[B, T]``
+    takes the first two): ``held`` the plan's (``cache_pspecs``), ``want``
+    the step's (its batch block, its kv heads where the heads split)."""
+
+    mesh: object
+    held: tuple
+    want: tuple
 
 
 def attn_decode(
@@ -165,6 +219,7 @@ def attn_decode(
     positions: torch.Tensor,
     window: int = 0,
     attend: Callable = decode_attention,
+    layout: Optional[CacheLayout] = None,
 ) -> tuple[torch.Tensor, KVCache]:
     """One-token decode against the cache.
 
@@ -184,33 +239,78 @@ def attn_decode(
     after the write, because no stored position exceeds the new token's when
     every row writes one increasing position per step, as the decode loop
     and ``serve_batch`` do.
+
+    ``layout``: the cache is this rank's block under the plan (see
+    :class:`CacheLayout`): the new entry is written into the block that
+    holds its slot, and what the step does not split (a head_dim over
+    'model', a sequence over the data axes) is gathered for the attention.
     """
     q, k_new, v_new = _project_qkv(p, x, cfg, positions)
-    b, t = cache.pos.shape
     pos1d = (positions[0] if cfg.m_rope_sections else positions)[:, 0]  # [B]
+    if layout is None:
+        _write(cache, k_new, v_new, pos1d)
+        k, v, kpos = cache.k, cache.v, cache.pos
+    else:
+        k, v, kpos = _write_held(cache, k_new, v_new, pos1d, layout)
+    # the reference's decode layout: head_dim x 'model'
+    q = constrain(q, "dp", None, None, "model")
+    k = constrain(k, "dp", None, None, "model")
+    v = constrain(v, "dp", None, None, "model")
+    k, v = _local_kv(p, q, k, v, cfg)
+
+    out = attend(q, k.contiguous(), v.contiguous(), kpos, pos1d,
+                 window=window)
+    b, hq = q.shape[0], q.shape[2]
+    out = out.to(x.dtype).reshape(b, 1, hq, cfg.head_dim)
+    return _out_proj(out, p), cache
+
+
+def _write(cache: KVCache, k_new, v_new, pos1d) -> None:
+    """The new token's K, V and position at slot ``pos % T`` of a whole
+    cache."""
+    b, t = cache.pos.shape
     slot = (pos1d % t).long()
-    bidx = torch.arange(b, device=x.device)
+    bidx = torch.arange(b, device=k_new.device)
     cache.k.index_put_((bidx, slot), k_new[:, 0])
     cache.v.index_put_((bidx, slot), v_new[:, 0])
     cache.pos.index_put_((bidx, slot), pos1d)
-    # the reference's decode layout: head_dim x 'model'
-    q = constrain(q, "dp", None, None, "model")
-    k = constrain(cache.k, "dp", None, None, "model")
-    v = constrain(cache.v, "dp", None, None, "model")
 
-    out = attend(q, k, v, cache.pos, pos1d, window=window)
-    h, hd = cfg.n_heads, cfg.head_dim
-    out = out.to(x.dtype).reshape(b, 1, h * hd)
-    out = out @ p["wo"].reshape(h * hd, -1)
-    return out, cache
+
+def _write_held(cache: KVCache, k_new, v_new, pos1d, layout: CacheLayout):
+    """:func:`_write` into this rank's block of the cache (only the rank
+    whose sequence block holds the slot writes it), then (k, v, pos) in
+    the step's layout."""
+    from ..distributed.sharding import _axis_size, _coord, _names, relayout
+
+    mesh, held, want = layout
+    b, t_loc = cache.pos.shape
+    seq = _names(held[1])
+    lo = t_loc * _coord(mesh, seq) if seq else 0
+    local = (pos1d % (t_loc * _axis_size(mesh, seq))).long() - lo
+    mine = (local >= 0) & (local < t_loc)
+    idx = local.clamp(0, t_loc - 1)
+    bidx = torch.arange(b, device=k_new.device)
+    row = (want[0], None, want[2], want[3])
+    for buf, new in ((cache.k, k_new), (cache.v, v_new)):
+        new = relayout(new, mesh, row, (held[0], None, held[2], held[3]))
+        buf.index_put_((bidx, idx), torch.where(mine[:, None, None],
+                                                new[:, 0], buf[bidx, idx]))
+    cache.pos.index_put_((bidx, idx), torch.where(mine, pos1d,
+                                                  cache.pos[bidx, idx]))
+    return (relayout(cache.k, mesh, held, want),
+            relayout(cache.v, mesh, held, want),
+            relayout(cache.pos, mesh, held[:2], want[:2]))
 
 
 def attn_cross(p, x: torch.Tensor, enc_k: torch.Tensor, enc_v: torch.Tensor,
                cfg: ModelConfig) -> torch.Tensor:
     """Cross-attention over precomputed encoder K/V (whisper decoder): no
-    mask, the chunked path once either side reaches ``FLASH_MIN_SEQ``."""
-    q = _proj(x, p["wq"])
+    mask, the chunked path once either side reaches ``FLASH_MIN_SEQ``.
+    ``enc_k``/``enc_v`` as :func:`project_kv` gives them."""
+    q_split = on_model_block(p, "wq")
+    q = _proj(_copy_to_model(x) if q_split else x, p["wq"])
     q, _, _ = constrain_heads(q, q, q)
+    enc_k, enc_v = _local_kv(p, q, enc_k, enc_v, cfg)
     b, s = x.shape[:2]
     t = enc_k.shape[1]
     if s >= FLASH_MIN_SEQ or t >= FLASH_MIN_SEQ:
@@ -223,11 +323,15 @@ def attn_cross(p, x: torch.Tensor, enc_k: torch.Tensor, enc_v: torch.Tensor,
     else:
         mask = torch.ones((s, t), dtype=torch.bool, device=x.device)
         out = _sdpa(q, enc_k, enc_v, mask)
-    return _out_proj(out, p["wo"])
+    return _out_proj(out, p)
 
 
 def project_kv(p, x_enc: torch.Tensor, cfg: ModelConfig):
-    """Encoder-side K/V for cross attention (computed once per request)."""
+    """Encoder-side K/V for cross attention (computed once per request): a
+    rank's kv heads where the plan in scope splits them, every kv head
+    otherwise."""
+    if on_model_block(p, "wk"):
+        x_enc = _copy_to_model(x_enc)
     k = _proj(x_enc, p["wk"])
     _, k, v = constrain_heads(k, k, _proj(x_enc, p["wv"]))
     return k, v

@@ -17,7 +17,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from .param import Mk
-from .shard_ctx import constrain
+from .shard_ctx import constrain, current_mesh
 
 __all__ = [
     "apply_rope",
@@ -31,6 +31,18 @@ __all__ = [
     "rope",
     "unembed",
 ]
+
+# The key under which a layer's tree, as ``models.model._gathered`` makes it
+# under a plan, names the leaves it kept as this rank's block over 'model'
+# (the plan splits their heads, ffn or vocabulary); a leaf not named there
+# is whole.
+MODEL_BLOCKS = "model_blocks"
+
+
+def on_model_block(p, name: str) -> bool:
+    """Whether leaf ``name`` of the layer tree ``p`` is this rank's block
+    over 'model' (:data:`MODEL_BLOCKS`)."""
+    return name in p.get(MODEL_BLOCKS, ())
 
 
 def residual_add(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
@@ -77,20 +89,65 @@ def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
     raise ValueError(kind)
 
 
+def _f32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """f32 ``a @ b`` of bf16 operands (f32 accumulation, no rounding): the
+    card's ``mm`` with an f32 output; the CPU build upcasts, which gives
+    the same exact products."""
+    if a.device.type in ("cuda", "meta"):
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _RowParallel(torch.autograd.Function):
+    """``x2 @ w`` where ``x2`` and ``w`` hold this rank's slice of the
+    reduction over 'model': each rank's partial product in f32, summed over
+    'model' in f32 and rounded once to x2's dtype.  The backward is the
+    plain product's (every rank holds the output's gradient whole)."""
+
+    @staticmethod
+    def forward(ctx, x2, w, mesh):
+        from ..distributed.sharding import _sum_f32
+
+        ctx.save_for_backward(x2, w)
+        return _sum_f32(_f32_product(x2, w), mesh, ("model",)).to(x2.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        dx = g @ w.T if ctx.needs_input_grad[0] else None
+        dw = x2.T @ g if ctx.needs_input_grad[1] else None
+        return dx, dw, None
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` (w 2-D) over this rank's slice of the reduction, summed
+    over the scope mesh's 'model' dim (:class:`_RowParallel`)."""
+    x2 = x.reshape(-1, x.shape[-1])
+    out = _RowParallel.apply(x2, w, current_mesh())
+    return out.reshape(*x.shape[:-1], w.shape[-1])
+
+
 def mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Gated MLP (GeGLU or SwiGLU), or the plain two-layer one
-    (``gated_mlp=False``)."""
+    (``gated_mlp=False``).  With the ffn leaves a rank's block over
+    'model' (a plan in scope), column-parallel up and gate and a
+    row-parallel down projection."""
     def pin(h):  # the hidden ff-sharded x model, seq full
         return constrain(h, "dp", None, "model") if h.dim() == 3 else h
 
     if x.dim() == 3:
         x = constrain(x, "dp", None, None)
+    split = on_model_block(p, "up")
+    if split:
+        from ..distributed.sharding import copy_to_model
+
+        x = copy_to_model(x, current_mesh())
     up = pin(x @ p["up"])
     if cfg.gated_mlp:
         h = _act(pin(x @ p["gate"]), cfg.act) * up
     else:
         h = _act(up, cfg.act)
-    return h @ p["down"]
+    return row_parallel(h, p["down"]) if split else h @ p["down"]
 
 
 def init_embedding(mk: Mk, cfg: ModelConfig):
@@ -107,8 +164,32 @@ def init_embedding(mk: Mk, cfg: ModelConfig):
     return p
 
 
+def _vocab_block(p, name: str, rows: int):
+    """(mesh, first vocabulary row) of leaf ``name`` of ``p``, which holds
+    ``rows`` rows of the padded vocabulary: a rank's block over 'model'
+    where :func:`on_model_block` says so, else (None, 0), the whole."""
+    if not on_model_block(p, name):
+        return None, 0
+    mesh = current_mesh()
+    return mesh, rows * mesh.get_local_rank("model")
+
+
 def embed(p, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    x = p["table"][tokens]
+    """The table's rows of ``tokens``.  Vocab-parallel when the table is a
+    rank's block over 'model': each rank looks up the tokens of its rows,
+    zeroes the rest, and the ranks' rows are summed over 'model'."""
+    table = p["table"]
+    mesh, lo = _vocab_block(p, "table", table.shape[0])
+    if mesh is None:
+        x = table[tokens]
+    else:
+        from ..distributed.sharding import reduce_from_model
+
+        local = tokens - lo
+        mine = (local >= 0) & (local < table.shape[0])
+        x = table[torch.where(mine, local, 0)] * mine[..., None].to(
+            table.dtype)
+        x = reduce_from_model(x, mesh)
     if cfg.embed_scale:
         # a constant of the activation dtype, as the reference's
         # jnp.asarray(sqrt(d), x.dtype): sqrt(2048) = 45.2548 is 45.25 in bf16
@@ -179,7 +260,9 @@ class _LogitsF32(torch.autograd.Function):
 
 def unembed(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """f32 logits [..., V] of a bf16 product with the tied table (or the
-    untied ``head``), never rounded to bf16.
+    untied ``head``), never rounded to bf16.  With the table a rank's
+    block over 'model' (a plan in scope), the rank's block of the
+    vocabulary's logits.
 
     On the card ``torch.mm(..., out_dtype=torch.float32)`` accumulates in
     f32 and writes f32 from the bf16 operands, as the reference's
@@ -189,7 +272,13 @@ def unembed(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     ``mm``: there both operands are upcast, which gives the same exact f32
     products.
     """
+    name = "table" if cfg.tie_embeddings else "head"
     table = p["table"].T if cfg.tie_embeddings else p["head"]
+    mesh, lo = _vocab_block(p, name, table.shape[1])
+    if mesh is not None:  # vocab-parallel: this rank's block of the logits
+        from ..distributed.sharding import copy_to_model
+
+        x = copy_to_model(x, mesh)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x2.device.type in ("cuda", "meta"):
@@ -197,10 +286,11 @@ def unembed(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     else:
         logits = x2.float() @ table.float()
     logits = logits.reshape(*lead, -1)
-    if cfg.vocab_padded > cfg.vocab:
+    if cfg.vocab_padded > cfg.vocab and cfg.vocab - lo < logits.shape[-1]:
         # Padding columns (vocab rounded up for clean TP sharding) must
-        # never win the softmax/argmax.
-        logits[..., cfg.vocab:] = -1e30
+        # never win the softmax/argmax; by their global index, so they
+        # sit in the last 'model' block alone.
+        logits[..., max(cfg.vocab - lo, 0):] = -1e30
     return logits
 
 

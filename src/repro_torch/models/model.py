@@ -35,11 +35,19 @@ that keeps the weight products; it changes no value, only training memory
 beside them (``distributed.sharding.param_pspecs`` reads both).
 ``set_mesh`` installs the reference's layout hooks: each call runs in the
 mesh's ``shard_ctx`` scope (so the MoE layers take the expert-parallel
-path where its ``model`` dim is > 1), and ``_constrain``, ``_constrain_bp``
-and ``_constrain_logits`` pin the residual stream, each layer's parameters
-(the plan's per-layer specs) and the logits.  A layout changes no value:
-on plain tensors the pins are the identity, and the logits with a mesh set
-are the logits without one.
+path where its ``model`` dim is > 1), and ``_constrain`` and
+``_constrain_logits`` pin the residual stream and the logits (the
+identity on plain tensors).
+
+Under a scope with a plan (a step's ``param_shardings``), the parameters
+are this rank's blocks of it: each layer gathers its leaves on use inside
+its body (:func:`_gathered`; the remat recompute gathers again, ZeRO-3's
+backward), so one layer's gathered leaves live at a time.  Attention's
+heads, the MLP's ffn, the vocabulary and the experts run on the rank's
+block over 'model' where the plan splits them; every other leaf is
+gathered whole and its compute replicated over 'model'.  The decode cache
+is then held as the scope's cache plan (``cache_pspecs``) lays it out, and
+prefill lays its cache out so.
 """
 from __future__ import annotations
 
@@ -59,6 +67,7 @@ from ..configs.base import ModelConfig
 from ..kernels.decode_attn import decode_attention
 from .attention import (
     FLASH_MIN_SEQ,
+    CacheLayout,
     KVCache,
     attn_cross,
     attn_decode,
@@ -69,6 +78,7 @@ from .attention import (
 )
 from .flash import TileTable, pick_chunk
 from .layers import (
+    MODEL_BLOCKS,
     embed,
     init_embedding,
     init_mlp,
@@ -81,7 +91,15 @@ from .layers import (
 from .mamba2 import init_mamba2, init_ssm_cache, mamba2_decode, mamba2_full
 from .moe import init_moe, moe_apply
 from .param import AxesMk, Mk
-from .shard_ctx import batch_axes, constrain_m, shard_scope
+from .shard_ctx import (
+    batch_axes,
+    constrain_m,
+    current_cache_plan,
+    current_mesh,
+    current_plan,
+    rescoped,
+    shard_scope,
+)
 
 __all__ = ["Model", "build_model"]
 
@@ -106,6 +124,65 @@ def _layers(tree, n: int) -> list:
     return [{k: v[l] for k, v in per.items()} for l in range(n)]
 
 
+# The leaves whose compute runs on a rank's block over 'model' where the
+# plan splits them: attention's projections (heads, kv), the MLP's (ffn),
+# the vocabulary's rows and columns.
+_SPLIT = frozenset({"wq", "wk", "wv", "wo", "up", "gate", "down", "table",
+                    "head"})
+
+
+def _on_model_block(name: str, spec, mesh) -> bool:
+    """Whether leaf ``name``, laid out by ``spec`` (one layer's) on
+    ``mesh``, is computed with as the rank's block over 'model': a leaf of
+    :data:`_SPLIT` that the plan lays over a 'model' dim of more than one
+    rank.  The one place this is decided."""
+    from ..distributed.sharding import _axes, _names
+
+    return (name in _SPLIT and _axes(mesh).get("model", 1) > 1
+            and any("model" in _names(e) for e in spec))
+
+
+def _gathered(tree, specs, mesh, data: tuple):
+    """A layer's (or the embedding's) blocks as it computes with them: the
+    leaves :func:`_on_model_block` picks gathered over the data axes alone
+    (kept as the rank's block over 'model', and named under
+    :data:`~.layers.MODEL_BLOCKS`, which the layer functions read), every
+    other leaf gathered whole; a moe layer's leaves stay blocks
+    (``moe_apply`` gathers them as its path needs).  Their gradients sum
+    over ``data`` (the mesh dims of the rank's batch block) and, for the
+    q/k norms of heads split over 'model', over 'model' too: each rank
+    normed its own heads."""
+    from ..distributed.sharding import use
+
+    out, blocks = {}, set()
+    for k, t in tree.items():
+        s = specs[k]
+        if k == "moe":
+            out[k] = t
+        elif k in ("q_norm", "k_norm"):
+            w = "wq" if k == "q_norm" else "wk"
+            heads = _on_model_block(w, specs[w], mesh)
+            out[k] = {"w": use(t["w"], mesh, s["w"],
+                               partial=data + (("model",) if heads else ()))}
+        elif isinstance(t, dict):
+            out[k] = _gathered(t, s, mesh, data)
+        else:
+            block = _on_model_block(k, s, mesh)
+            if block:
+                blocks.add(k)
+            out[k] = use(t, mesh, s, keep=("model",) if block else (),
+                         partial=data)
+    if blocks:
+        out[MODEL_BLOCKS] = frozenset(blocks)
+    return out
+
+
+def _kv_split(attn_specs) -> bool:
+    """Whether an attention's kv heads split over 'model' under the plan
+    (its ``wk`` spec, one layer's)."""
+    return _on_model_block("wk", attn_specs["wk"], current_mesh())
+
+
 def _dots_policy(ctx, op, *args, **kwargs):
     """Keep the 2-D weight products, recompute the rest: the reference's
     ``checkpoint_dots_with_no_batch_dims`` (a ``[B, S, d] @ [d, f]``
@@ -121,9 +198,11 @@ def _maybe_remat(body: Callable, remat: str) -> Callable:
     """``body`` under activation recomputation: ``"full"`` saves only its
     inputs, ``"dots"`` also its weight products (:func:`_dots_policy`).
     Outside autograd there is nothing to save, and the body runs as it
-    is."""
+    is.  The recomputation runs in the scope of the forward (the mesh and
+    the plan the body gathers its leaves by)."""
     if remat == "none" or not torch.is_grad_enabled():
         return body
+    body = rescoped(body)
     kw = {}
     if remat == "dots":
         kw["context_fn"] = functools.partial(
@@ -159,53 +238,123 @@ class Model:
         self.attention = attention
         self._mesh = None  # set by set_mesh
         self._msize = 1
-        self._layer_specs = None
+        self._plan_specs = None  # (the plan in scope, its spec trees)
 
     # ------------------------------------------------------- distribution
     def set_mesh(self, mesh):
-        """Install the layout hooks for ``mesh`` (a ``DeviceMesh``): the
-        residual stream batch x ('pod','data'), sequence x 'model'; the
-        logits' vocabulary x 'model'; each layer's parameters as the plan
-        lays them out.  Returns the model."""
+        """Install the layout hooks for ``mesh`` (a ``DeviceMesh``): each
+        call runs in the mesh's scope (the expert-parallel moe, the layout
+        pins of the residual stream, batch x ('pod','data') and sequence x
+        'model', and of the logits' vocabulary x 'model').  Returns the
+        model.  The parameters stay global unless a scope with a plan is
+        open (the steps' ``param_shardings``)."""
         from ..distributed.sharding import _axes
 
         self._mesh = mesh
         self._msize = _axes(mesh).get("model", 1)
-        self._layer_specs = self._per_layer_shardings(mesh)
         return self
 
-    def _per_layer_shardings(self, mesh) -> dict:
-        """The plan's specs for ONE layer's parameters (the stacked specs
-        minus the leading 'layers' dim), and the hybrid's shared block's."""
-        from ..distributed.sharding import PartitionSpec, _map, param_pspecs
+    def _specs(self):
+        """The plan in scope as spec trees (the stacked ones without their
+        layer dim), or None: no plan, the parameters are global."""
+        from ..distributed.sharding import PartitionSpec
 
-        shapes = Model(self.cfg, "meta").init(torch.Generator())
-        specs = param_pspecs(self.logical_axes(), shapes, mesh)
-        is_spec = lambda x: isinstance(x, PartitionSpec)  # noqa: E731
-        out = {}
-        for name in ("blocks", "encoder"):
-            if name in specs:
-                out[name] = _map(lambda sp: PartitionSpec(*sp[1:]),
-                                 specs[name], is_leaf=is_spec)
-        if "shared" in specs:
-            out["shared"] = specs["shared"]
-        return out
+        plan = current_plan()
+        if plan is None:
+            return None
+        if self._plan_specs is not None and self._plan_specs[0] is plan:
+            return self._plan_specs[1]
 
-    def _constrain_bp(self, bp, which: str = "blocks"):
-        if not self._layer_specs or which not in self._layer_specs:
-            return bp
-        from ..distributed.sharding import _map, constrain
+        def strip(t, stacked):
+            if isinstance(t, dict):
+                return {k: strip(v, stacked) for k, v in t.items()}
+            return PartitionSpec(*t.spec[1:]) if stacked else t.spec
 
-        return _map(lambda t, sp: constrain(t, self._mesh, sp), bp,
-                    self._layer_specs[which])
+        specs = {k: strip(v, k in ("blocks", "encoder"))
+                 for k, v in plan.items()}
+        self._plan_specs = (plan, specs)
+        return specs
+
+    def vocab_mesh(self):
+        """The mesh in scope where the plan in scope computes the
+        vocabulary on the rank's block over 'model' (the logits are then
+        its block of the vocabulary), else None."""
+        specs = self._specs()
+        if specs is None:
+            return None
+        name = "table" if self.cfg.tie_embeddings else "head"
+        mesh = current_mesh()
+        return mesh if _on_model_block(name, specs["embed"][name],
+                                       mesh) else None
+
+    def _use(self, tree, specs, key: str):
+        """``tree[key]`` as a layer computes with it (:meth:`_use_tree`;
+        ``specs``: the plan's spec tree beside ``tree``, or None)."""
+        return self._use_tree(tree[key], None if specs is None
+                              else specs[key])
+
+    @staticmethod
+    def _use_tree(tree, specs):
+        """The global leaves as they are without a plan (``specs`` None),
+        else the rank's blocks gathered on use (:func:`_gathered`)."""
+        if specs is None:
+            return tree
+        return _gathered(tree, specs, current_mesh(), batch_axes())
+
+    @staticmethod
+    def _want(ndim: int, kv_split: bool = False) -> tuple:
+        """The layout a step computes with a cache tensor of ``ndim`` dims
+        in: this rank's batch block, and its kv heads (dim 2 of a K or V)
+        where the plan splits them."""
+        from ..distributed.sharding import _entry
+
+        want = [_entry(batch_axes())] + [None] * (ndim - 1)
+        if kv_split:
+            want[2] = "model"
+        return tuple(want)
+
+    def _kv_layout(self, spec: KVCache, attn_specs) -> CacheLayout:
+        """An attention cache's :class:`CacheLayout` (``spec``: its specs
+        under the cache plan; ``attn_specs``: the layer's attention
+        specs)."""
+        return CacheLayout(current_mesh(), tuple(spec.k),
+                           self._want(4, _kv_split(attn_specs)))
+
+    def _hold(self, entry, spec, attn_specs=None, back: bool = False):
+        """One layer's cache ``entry`` (a ``KVCache``, an ``SSMCache`` or a
+        cross K or V) made in a step's layout, as the cache plan holds it
+        (``spec``: its specs there; None: no plan, as it is); ``back``: the
+        other way."""
+        from ..distributed.sharding import relayout
+
+        if spec is None:
+            return entry
+        mesh = current_mesh()
+        split = attn_specs is not None and _kv_split(attn_specs)
+
+        def one(t, sp, kv):
+            want = self._want(t.dim(), kv and split)
+            src, dst = (tuple(sp), want) if back else (want, tuple(sp))
+            return relayout(t, mesh, src, dst).contiguous()
+
+        if isinstance(entry, KVCache):
+            return KVCache(one(entry.k, spec.k, True),
+                           one(entry.v, spec.v, True),
+                           one(entry.pos, spec.pos, False))
+        if isinstance(entry, tuple):  # SSMCache
+            return type(entry)(*(one(t, sp, False)
+                                 for t, sp in zip(entry, spec)))
+        return one(entry, spec, True)
 
     def _scope(self):
         """The mesh's sharding scope for a model call, keeping the batch
-        axes of an enclosing scope (the data-parallel step's); no mesh set:
+        axes and the plans of an enclosing scope (a step's); no mesh set:
         the enclosing scope, if any, stays."""
         if self._mesh is None:
             return contextlib.nullcontext()
-        return shard_scope(self._mesh, batch_axes=batch_axes())
+        return shard_scope(self._mesh, batch_axes=batch_axes(),
+                           plan=current_plan(),
+                           cache_plan=current_cache_plan())
 
     def _constrain(self, x):
         """Residual-stream pin (a no-op when no mesh is installed)."""
@@ -304,27 +453,30 @@ class Model:
 
     def _forward(self, params, batch: dict, remat: str, return_hidden: bool):
         cfg = self.cfg
+        specs = self._specs()
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         if cfg.family == "encdec":
             enc_out = self.encode(params, batch)
-            x, positions = self._embed_decoder(params, batch)
+            x, positions = self._embed_decoder(params, batch, specs)
         else:
-            x, positions = self._embed_inputs(params, batch)
+            x, positions = self._embed_inputs(params, batch, specs)
         x = self._constrain(x)
         tiles = self._tiles(positions, batch)
         blocks = _layers(params["blocks"], cfg.n_layers)
+        bspecs = specs and specs["blocks"]
 
         if cfg.family in _ATTN:
             windows = self.layer_windows()
 
             def layer(x, aux, bp, window):
-                bp = self._constrain_bp(bp)
+                bp = self._use_tree(bp, bspecs)
                 h = rmsnorm(x, bp["ln1"]["w"])
                 x = residual_add(x, attn_full(bp["attn"], h, cfg, positions,
                                               window, tiles=tiles))
                 h = rmsnorm(x, bp["ln2"]["w"])
                 if cfg.family == "moe":
-                    h, a = moe_apply(bp["moe"], h, cfg)
+                    h, a = moe_apply(bp["moe"], h, cfg,
+                                     bspecs and bspecs["moe"])
                     aux = aux + a
                 else:
                     h = mlp(bp["mlp"], h, cfg)
@@ -335,14 +487,13 @@ class Model:
                 x, aux = layer(x, aux, bp, window)
         elif cfg.family in ("ssm", "hybrid"):
             def ssm_layer(x, bp):
-                bp = self._constrain_bp(bp)
+                bp = self._use_tree(bp, bspecs)
                 h = rmsnorm(x, bp["ln"]["w"])
                 return self._constrain(
                     residual_add(x, mamba2_full(bp["ssm"], h, cfg)))
 
-            shared = self._constrain_bp(params.get("shared"), "shared")
-
             def shared_block(x):
+                shared = self._use(params, specs, "shared")
                 return self._constrain(self._shared_block(
                     shared, x, positions, tiles)[0])
 
@@ -354,7 +505,7 @@ class Model:
                     x = shared_block(x)
         else:  # encdec
             def dec_layer(x, bp):
-                bp = self._constrain_bp(bp)
+                bp = self._use_tree(bp, bspecs)
                 return self._constrain(
                     self._dec_layer(bp, x, positions, tiles, enc_out)[0])
 
@@ -362,10 +513,11 @@ class Model:
             for bp in blocks:
                 x = dec_layer(x, bp)
 
-        x = rmsnorm(x, params["final_norm"]["w"])
+        x = rmsnorm(x, self._use(params, specs, "final_norm")["w"])
         if return_hidden:
             return x, aux
-        return self._constrain_logits(unembed(params["embed"], x, cfg)), aux
+        return self._constrain_logits(
+            unembed(self._use(params, specs, "embed"), x, cfg)), aux
 
     def _shared_block(self, shared, x, positions, tiles):
         """The hybrid's shared attention + MLP block; returns (x, k, v)."""
@@ -395,20 +547,21 @@ class Model:
     def encode(self, params, batch: dict):
         """Whisper encoder over stubbed frame embeddings [B, S, d]."""
         cfg = self.cfg
+        specs = self._specs()
         x = batch["frames"].to(torch.bfloat16)
         b, s = x.shape[:2]
         if cfg.pos == "learned":
-            x = x + params["embed"]["pos"][:s][None]
+            x = x + self._use(params, specs, "embed")["pos"][:s][None]
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
         for bp in _layers(params["encoder"], cfg.encoder_layers):
-            bp = self._constrain_bp(bp, "encoder")
+            bp = self._use_tree(bp, specs and specs["encoder"])
             h = rmsnorm(x, bp["ln1"]["w"])
             x = residual_add(x, attn_full(bp["attn"], h, cfg, positions,
                                           causal=False))
             h = rmsnorm(x, bp["ln2"]["w"])
             x = self._constrain(residual_add(x, mlp(bp["mlp"], h, cfg)))
-        return rmsnorm(x, params["enc_norm"]["w"])
+        return rmsnorm(x, self._use(params, specs, "enc_norm")["w"])
 
     # ------------------------------------------------------------ caches
     def init_cache(self, batch: int, max_len: int, enc_len: int = 0):
@@ -455,6 +608,14 @@ class Model:
 
     def _decode_step(self, params, cache, tokens: torch.Tensor):
         cfg = self.cfg
+        specs = self._specs()
+        cspecs = None
+        if specs is not None:
+            cspecs = current_cache_plan()
+            if cspecs is None:
+                raise ValueError("a decode step under a plan needs its "
+                                 "cache's specs (shard_scope(cache_plan=))")
+            cspecs = cspecs["layers"]
         pos = cache["len"]
         b = tokens.shape[0]
         positions = torch.full((b, 1), pos, dtype=torch.int32,
@@ -462,59 +623,78 @@ class Model:
         if cfg.m_rope_sections:
             positions = positions[None].expand(3, b, 1)
 
-        x = embed(params["embed"], tokens, cfg)
+        emb = self._use(params, specs, "embed")
+        x = embed(emb, tokens, cfg)
         if cfg.pos == "learned":
-            x = x + params["embed"]["pos"][pos][None, None]
+            x = x + emb["pos"][pos][None, None]
+        del emb
 
         attend = self.attention
         windows = self.layer_windows()
+        bspecs = specs and specs["blocks"]
         new_layers = []
         for l in range(cfg.n_layers):
-            bp = _at(params["blocks"], l)
+            bp = self._use_tree(_at(params["blocks"], l), bspecs)
             lc = cache["layers"][l]
+            cs = cspecs and cspecs[l]
             if cfg.family in _ATTN:
                 h = rmsnorm(x, bp["ln1"]["w"])
-                h, lc = attn_decode(bp["attn"], h, lc, cfg, positions,
-                                    windows[l], attend=attend)
+                h, lc = attn_decode(
+                    bp["attn"], h, lc, cfg, positions, windows[l],
+                    attend=attend,
+                    layout=cs and self._kv_layout(cs, bspecs["attn"]))
                 x = residual_add(x, h)
                 h = rmsnorm(x, bp["ln2"]["w"])
                 if cfg.family == "moe":
-                    h, _ = moe_apply(bp["moe"], h, cfg)
+                    h, _ = moe_apply(bp["moe"], h, cfg,
+                                     bspecs and bspecs["moe"])
                 else:
                     h = mlp(bp["mlp"], h, cfg)
                 x = residual_add(x, h)
             elif cfg.family == "ssm":
                 h = rmsnorm(x, bp["ln"]["w"])
-                h, lc = mamba2_decode(bp["ssm"], h, lc, cfg)
+                h, st = mamba2_decode(bp["ssm"], h,
+                                      self._hold(lc, cs, back=True), cfg)
                 x = residual_add(x, h)
+                lc = self._hold(st, cs)
             elif cfg.family == "hybrid":
                 h = rmsnorm(x, bp["ln"]["w"])
-                h, ssm_c = mamba2_decode(bp["ssm"], h, lc["ssm"], cfg)
+                h, st = mamba2_decode(
+                    bp["ssm"], h, self._hold(lc["ssm"], cs and cs["ssm"],
+                                             back=True), cfg)
                 x = residual_add(x, h)
-                lc = dict(lc, ssm=ssm_c)
+                lc = dict(lc, ssm=self._hold(st, cs and cs["ssm"]))
                 if "attn" in lc:
-                    shared = params["shared"]
+                    shared = self._use(params, specs, "shared")
                     h = rmsnorm(x, shared["ln1"]["w"])
-                    h, _ = attn_decode(shared["attn"], h, lc["attn"], cfg,
-                                       positions, attend=attend)
+                    h, _ = attn_decode(
+                        shared["attn"], h, lc["attn"], cfg, positions,
+                        attend=attend,
+                        layout=cs and self._kv_layout(
+                            cs["attn"], specs["shared"]["attn"]))
                     x = residual_add(x, h)
                     h = rmsnorm(x, shared["ln2"]["w"])
                     x = residual_add(x, mlp(shared["mlp"], h, cfg))
             else:  # encdec
                 h = rmsnorm(x, bp["ln1"]["w"])
-                h, _ = attn_decode(bp["self_attn"], h, lc["self"], cfg,
-                                   positions, attend=attend)
+                h, _ = attn_decode(
+                    bp["self_attn"], h, lc["self"], cfg, positions,
+                    attend=attend,
+                    layout=cs and self._kv_layout(cs["self"],
+                                                  bspecs["self_attn"]))
                 x = residual_add(x, h)
                 h = rmsnorm(x, bp["ln_x"]["w"])
-                x = residual_add(x, attn_cross(bp["cross_attn"], h,
-                                               lc["cross_k"], lc["cross_v"],
+                cross = bspecs and bspecs["cross_attn"]
+                ek, ev = (self._hold(lc[k], cs and cs[k], cross, back=True)
+                          for k in ("cross_k", "cross_v"))
+                x = residual_add(x, attn_cross(bp["cross_attn"], h, ek, ev,
                                                cfg))
                 h = rmsnorm(x, bp["ln2"]["w"])
                 x = residual_add(x, mlp(bp["mlp"], h, cfg))
             new_layers.append(lc)
 
-        x = rmsnorm(x, params["final_norm"]["w"])
-        logits = unembed(params["embed"], x[:, 0], cfg)
+        x = rmsnorm(x, self._use(params, specs, "final_norm")["w"])
+        logits = unembed(self._use(params, specs, "embed"), x[:, 0], cfg)
         return logits, {"layers": tuple(new_layers), "len": pos + 1}
 
     # ------------------------------------------------------------ prefill
@@ -531,18 +711,41 @@ class Model:
         tokens = batch["tokens"]
         b, s = tokens.shape
         max_len = max_len or s
-        if cfg.family in _ATTN:
-            with self._scope():
-                return self._prefill_fused(params, batch, max_len)
-        if cfg.family in ("ssm", "hybrid"):
-            with self._scope():
-                return self._prefill_fused_ssm(params, batch, max_len)
-        hidden, _ = self.forward(params, batch, return_hidden=True)
-        logits = unembed(params["embed"], hidden[:, -1], cfg)
-        cache = self.init_cache(
-            b, max_len, enc_len=batch.get("frames", tokens).shape[1])
+        enc_len = batch.get("frames", tokens).shape[1]
         with self._scope():
-            return logits, self._prime_cache(params, batch, cache)
+            cspecs = self._prefill_cache_plan(b, max_len, enc_len)
+            if cfg.family in _ATTN:
+                return self._prefill_fused(params, batch, max_len, cspecs)
+            if cfg.family in ("ssm", "hybrid"):
+                return self._prefill_fused_ssm(params, batch, max_len,
+                                               cspecs)
+            return self._prefill_encdec(params, batch, max_len, enc_len,
+                                        cspecs)
+
+    def _prefill_cache_plan(self, b: int, max_len: int, enc_len: int):
+        """The per-layer specs the primed cache is held under: the scope's
+        cache plan, else ``cache_pspecs`` of the cache a global batch of
+        ``b`` rows a rank makes; None without a plan."""
+        from ..distributed.sharding import _axis_size, cache_pspecs
+
+        if self._specs() is None:
+            return None
+        cspecs = current_cache_plan()
+        if cspecs is None:
+            mesh = current_mesh()
+            gb = b * _axis_size(mesh, batch_axes())
+            shapes = Model(self.cfg, "meta").init_cache(gb, max_len, enc_len)
+            cspecs = cache_pspecs(shapes, mesh, gb)
+        return cspecs["layers"]
+
+    def _prefill_encdec(self, params, batch: dict, max_len: int,
+                        enc_len: int, cspecs):
+        """The encoder-decoder's prefill: the forward's last hidden state
+        unembedded, then the cache (:meth:`_prime_cache`)."""
+        hidden, _ = self.forward(params, batch, return_hidden=True)
+        logits = unembed(self._use(params, self._specs(), "embed"),
+                         hidden[:, -1], self.cfg)
+        return logits, self._prime_cache(params, batch, max_len, cspecs)
 
     @staticmethod
     def _cache_layout(k, v, pos, t_alloc: int, s: int) -> KVCache:
@@ -568,85 +771,97 @@ class Model:
         p_buf[bidx, slots] = p_t.to(torch.int32)
         return KVCache(k=k_buf, v=v_buf, pos=p_buf)
 
-    def _prefill_fused(self, params, batch: dict, max_len: int):
+    def _prefill_fused(self, params, batch: dict, max_len: int, cspecs):
         """dense/vlm/moe prefill: one pass computing the last logits AND the
         cache.  Each layer's K/V is laid into its cache as the layer ends
         (window layers keep only their last ``w`` positions, in rotating
-        slot order)."""
+        slot order); under a plan, as ``cspecs`` (its per-layer specs) hold
+        it."""
         cfg = self.cfg
+        specs = self._specs()
+        bspecs = specs and specs["blocks"]
         s = batch["tokens"].shape[1]
-        x, positions = self._embed_inputs(params, batch)
+        x, positions = self._embed_inputs(params, batch, specs)
         x = self._constrain(x)
         pos1d = positions[0] if cfg.m_rope_sections else positions
         tiles = self._tiles(positions, batch)
         layers = []
         for l, w in enumerate(self.layer_windows()):
-            bp = self._constrain_bp(_at(params["blocks"], l))
+            bp = self._use_tree(_at(params["blocks"], l), bspecs)
             h = rmsnorm(x, bp["ln1"]["w"])
             out, k, v = attn_full(bp["attn"], h, cfg, positions, w,
                                   tiles=tiles, return_kv=True)
             x = residual_add(x, out)
             h = rmsnorm(x, bp["ln2"]["w"])
             if cfg.family == "moe":
-                hh, _ = moe_apply(bp["moe"], h, cfg)
+                hh, _ = moe_apply(bp["moe"], h, cfg, bspecs and bspecs["moe"])
             else:
                 hh = mlp(bp["mlp"], h, cfg)
             x = self._constrain(residual_add(x, hh))
-            layers.append(self._cache_layout(
-                k, v, pos1d, min(w, max_len) if w else max_len, s))
-        x = rmsnorm(x, params["final_norm"]["w"])
-        logits = unembed(params["embed"], x[:, -1], cfg)
+            layers.append(self._hold(
+                self._cache_layout(k, v, pos1d,
+                                   min(w, max_len) if w else max_len, s),
+                cspecs and cspecs[l], bspecs and bspecs["attn"]))
+        x = rmsnorm(x, self._use(params, specs, "final_norm")["w"])
+        logits = unembed(self._use(params, specs, "embed"), x[:, -1], cfg)
         return logits, {"layers": tuple(layers), "len": s}
 
-    def _prefill_fused_ssm(self, params, batch: dict, max_len: int):
+    def _prefill_fused_ssm(self, params, batch: dict, max_len: int, cspecs):
         """ssm/hybrid prefill: each layer's SSM state (and, for the hybrid,
         the shared block's K/V) taken as the layer runs."""
         cfg = self.cfg
+        specs = self._specs()
+        bspecs = specs and specs["blocks"]
         s = batch["tokens"].shape[1]
-        x, positions = self._embed_inputs(params, batch)
+        x, positions = self._embed_inputs(params, batch, specs)
         pos1d = positions[0] if cfg.m_rope_sections else positions
         tiles = self._tiles(positions, batch)
         layers = []
         for l in range(cfg.n_layers):
-            bp = _at(params["blocks"], l)
+            bp = self._use_tree(_at(params["blocks"], l), bspecs)
+            cs = cspecs and cspecs[l]
             h = rmsnorm(x, bp["ln"]["w"])
             y, st = mamba2_full(bp["ssm"], h, cfg, return_state=True)
             x = residual_add(x, y)
             if cfg.family == "ssm":
-                layers.append(st)
+                layers.append(self._hold(st, cs))
                 continue
-            entry = {"ssm": st}
+            entry = {"ssm": self._hold(st, cs and cs["ssm"])}
             if self._has_shared_attn(l):
-                x, k, v = self._shared_block(params["shared"], x, positions,
-                                             tiles)
-                entry["attn"] = self._cache_layout(k, v, pos1d, max_len, s)
+                x, k, v = self._shared_block(
+                    self._use(params, specs, "shared"), x, positions, tiles)
+                entry["attn"] = self._hold(
+                    self._cache_layout(k, v, pos1d, max_len, s),
+                    cs and cs["attn"], specs and specs["shared"]["attn"])
             layers.append(entry)
-        x = rmsnorm(x, params["final_norm"]["w"])
-        logits = unembed(params["embed"], x[:, -1], cfg)
+        x = rmsnorm(x, self._use(params, specs, "final_norm")["w"])
+        logits = unembed(self._use(params, specs, "embed"), x[:, -1], cfg)
         return logits, {"layers": tuple(layers), "len": s}
 
-    def _prime_cache(self, params, batch, cache):
+    def _prime_cache(self, params, batch, max_len: int, cspecs):
         """The encoder-decoder's cache: re-run the decoder stack to fill each
         layer's self K/V (at ``slot == pos % T``) and its cross K/V, as the
         reference's prefill does after its forward."""
         cfg = self.cfg
+        specs = self._specs()
+        bspecs = specs and specs["blocks"]
         enc_out = self.encode(params, batch)
-        x, positions = self._embed_decoder(params, batch)
-        b, s = positions.shape
+        x, positions = self._embed_decoder(params, batch, specs)
+        s = positions.shape[1]
         tiles = self._tiles(positions, batch)
-        layers = list(cache["layers"])
+        layers = []
         for l in range(cfg.n_layers):
-            x, k, v, ek, ev = self._dec_layer(_at(params["blocks"], l), x,
-                                              positions, tiles, enc_out)
-            sc = layers[l]["self"]
-            t = sc.pos.shape[1]
-            take = min(t, s)
-            slots = (positions[:, s - take:] % t).long()
-            bidx = torch.arange(b, device=x.device)[:, None]
-            sc.k[bidx, slots] = k[:, s - take:]
-            sc.v[bidx, slots] = v[:, s - take:]
-            sc.pos[bidx, slots] = positions[:, s - take:]
-            layers[l] = dict(layers[l], cross_k=ek, cross_v=ev)
+            bp = self._use_tree(_at(params["blocks"], l), bspecs)
+            x, k, v, ek, ev = self._dec_layer(bp, x, positions, tiles,
+                                              enc_out)
+            cs = cspecs and cspecs[l]
+            cross = bspecs and bspecs["cross_attn"]
+            layers.append({
+                "self": self._hold(
+                    self._cache_layout(k, v, positions, max_len, s),
+                    cs and cs["self"], bspecs and bspecs["self_attn"]),
+                "cross_k": self._hold(ek, cs and cs["cross_k"], cross),
+                "cross_v": self._hold(ev, cs and cs["cross_v"], cross)})
         return {"layers": tuple(layers), "len": s}
 
     # ------------------------------------------------------------ helpers
@@ -665,13 +880,14 @@ class Model:
             return TileTable.of_arange(pos1d, cq, ck)
         return TileTable(pos1d, pos1d, cq, ck)
 
-    def _embed_inputs(self, params, batch: dict):
+    def _embed_inputs(self, params, batch: dict, specs=None):
         cfg = self.cfg
         tokens = batch["tokens"]
         if cfg.family == "encdec":
-            return self._embed_decoder(params, batch)
+            return self._embed_decoder(params, batch, specs)
         b, s = tokens.shape
-        x = embed(params["embed"], tokens, cfg)
+        emb = self._use(params, specs, "embed")
+        x = embed(emb, tokens, cfg)
         if cfg.family == "vlm" and "vision_embeds" in batch:
             ve = batch["vision_embeds"].to(x.dtype)
             x = torch.cat([ve, x[:, ve.shape[1]:]], dim=1)
@@ -681,15 +897,16 @@ class Model:
             if cfg.m_rope_sections:
                 positions = positions[None].expand(3, b, s)
         if cfg.pos == "learned":
-            x = x + params["embed"]["pos"][:s][None]
+            x = x + emb["pos"][:s][None]
         return x, positions
 
-    def _embed_decoder(self, params, batch: dict):
+    def _embed_decoder(self, params, batch: dict, specs=None):
         cfg = self.cfg
         tokens = batch["tokens"]
-        x = embed(params["embed"], tokens, cfg)
+        emb = self._use(params, specs, "embed")
+        x = embed(emb, tokens, cfg)
         if cfg.pos == "learned":
-            x = x + params["embed"]["pos"][:tokens.shape[1]][None]
+            x = x + emb["pos"][:tokens.shape[1]][None]
         return x, _default_positions(tokens)
 
 

@@ -8,25 +8,27 @@ Two execution paths, as in the reference:
     ``[E, cap, d]``, one batched product per expert matrix, and the
     inverse gather.
   * :func:`moe_ffn_ep` — the expert-parallel path over a mesh's ``model``
-    dim.  Where the reference runs a ``shard_map``, every rank here takes
-    the global ``x`` and parameters, works on the local block the
-    reference's ``in_specs`` give its mesh coordinates (its token shard,
-    routed locally with ``moe_capacity`` of the local token count; its
-    experts, rows ``[j*e_loc, (j+1)*e_loc)``), exchanges capacity buckets
-    with one ``all_to_all_single`` over the ``model`` group and reverses
-    it with a second, and returns the global ``y`` (its blocks gathered
-    over the token shards) and the aux loss averaged over every rank.
-    In the training layout the FSDP'd expert weights are all-gathered over
-    the data group; in the serving layout (``s == 1``) experts are laid
-    out experts x model, ffn x data and the down-projection partials are
-    summed over the data group.  Forward only: the collectives carry no
-    gradient (expert-parallel training waits for ROADMAP §A).
+    dim.  Where the reference runs a ``shard_map``, each rank works on the
+    block the reference's ``in_specs`` give its mesh coordinates (its token
+    shard, routed locally with ``moe_capacity`` of the local token count;
+    its experts, rows ``[j*e_loc, (j+1)*e_loc)``, held as the plan's
+    blocks), exchanges capacity buckets with one ``all_to_all_single``
+    over the ``model`` group and reverses it with a second, and returns
+    the global ``y`` and the aux loss averaged over every rank.  In the
+    training layout the FSDP'd expert weights are gathered over the data
+    axes on use; in the serving layout (``s == 1``) experts are laid out
+    experts x model, ffn x data and the down-projection partials are
+    summed over the data axes.  Every collective carries its gradient
+    (``distributed.sharding``: the exchange's transpose is the reverse
+    exchange), so the layer trains.
 
 ``moe_apply`` dispatches as the reference's does: EP under a scope whose
-``model`` dim is > 1.  Under a scope whose batch is sharded (the
-data-parallel train step's, ``shard_ctx.batch_axes``), it first gathers the
-tokens over those dims, so that routing and capacity see the global batch
-as the reference's one program does, and keeps its own block of ``y``.
+``model`` dim is > 1.  Under a scope whose batch is sharded (the train
+step's, ``shard_ctx.batch_axes``), the training layout routes this rank's
+block of the batch as it is (its data block is the reference's token
+shard); serving and the single-program path first gather the tokens over
+those dims, so that routing and capacity see the global batch as the
+reference's one program does, and keep this rank's block of ``y``.
 
 Two choices keep the routing the reference's on every device:
 
@@ -155,116 +157,166 @@ def moe_ffn(p, x: torch.Tensor,
     return _unroute(out, dispatch, t, d, x.dtype).reshape(b, s, d), aux
 
 
-def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
-    """Chunk i of dim 0 to peer i; chunk i of the result from peer i."""
-    import torch.distributed as dist
-
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    dist.all_to_all_single(out, x, group=group)
-    return out
-
-
-def moe_ffn_ep(p, x: torch.Tensor, cfg: ModelConfig,
-               mesh) -> tuple[torch.Tensor, torch.Tensor]:
+def moe_ffn_ep(p, x: torch.Tensor, cfg: ModelConfig, mesh,
+               specs=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Expert-parallel MoE over ``mesh`` (see the module docstring): the
     global x [B, S, d] on every rank -> (the global y, the aux loss
-    averaged over every rank).  Falls back to :func:`moe_ffn` where the
-    topology does not divide, as the reference does."""
-    import torch.distributed as dist
+    averaged over every rank).  ``p``: this rank's blocks under ``specs``
+    (the plan's specs of the moe leaves), or the global leaves when
+    ``specs`` is None.  Falls back to :func:`moe_ffn` where the topology
+    does not divide, as the reference does."""
+    b, s, d = x.shape
+    dp = _data(mesh)
+    if not _ep_fits(cfg, mesh, b, s):
+        return moe_ffn(_whole(p, specs, mesh, ()), x, cfg)
+    p, specs = _ep_blocks(p, specs, mesh, s == 1)
+    if s == 1:
+        return _ep(p, specs, x, cfg, mesh, serving=True, aux_partial=())
+    # the training layout: this rank's (data, model) block of the tokens
+    from ..distributed.sharding import gather, split
 
+    xl = split(x, mesh, dp, 0) if dp else x
+    y, aux = _ep(p, specs, xl, cfg, mesh, serving=False, aux_partial=())
+    return (gather(y, mesh, dp, 0, partial=False) if dp else y), aux
+
+
+def _data(mesh) -> tuple:
+    """The mesh's data axes of more than one rank."""
+    from ..distributed.sharding import _axes, data_axes
+
+    return tuple(a for a in data_axes(mesh) if _axes(mesh)[a] > 1)
+
+
+def _ep_fits(cfg: ModelConfig, mesh, b: int, s: int) -> bool:
+    """Whether the expert-parallel layout divides (``b``, ``s``: the
+    global batch and sequence)."""
+    from ..distributed.sharding import _axes, _axis_size
+
+    msize = _axes(mesh).get("model", 1)
+    dsize = _axis_size(mesh, _data(mesh))
+    return not (cfg.n_experts % msize or (dsize > 1 and b % dsize)
+                or (s > 1 and s % msize))
+
+
+def _ep_blocks(p, specs, mesh, serving: bool):
+    """(blocks, specs): ``p`` as given when ``specs`` is set, else this
+    rank's blocks of the global leaves in the layout of the reference's
+    ``shard_map``: experts x model with d_model FSDP'd over data
+    (training), or ffn over data (serving), the router whole."""
+    if specs is not None:
+        return p, specs
+    from ..distributed.sharding import PartitionSpec as P, _axes, _block
+    from ..distributed.sharding import _entry, data_axes
+
+    dpe = _entry(data_axes(mesh))
+    m = "model" if "model" in _axes(mesh) else None
+    if serving:
+        specs = {"up": P(m, None, dpe), "gate": P(m, None, dpe),
+                 "down": P(m, dpe, None)}
+    else:
+        specs = {"up": P(m, dpe, None), "gate": P(m, dpe, None),
+                 "down": P(m, None, dpe)}
+    specs["router"] = P()
+    return {k: _block(p[k], mesh, specs[k]) for k in p}, specs
+
+
+def _whole(p, specs, mesh, partial):
+    """Every moe leaf gathered whole (the single-program path's)."""
+    if specs is None:
+        return p
+    from ..distributed.sharding import use
+
+    return {k: use(p[k], mesh, specs[k], partial=partial) for k in p}
+
+
+def _ep(p, specs, x: torch.Tensor, cfg: ModelConfig, mesh, *, serving: bool,
+        aux_partial: tuple):
+    """The expert-parallel layer on this rank's tokens ``x`` (training:
+    its data block [b, s, d], cut here to its sequence block over 'model';
+    serving: every token): route locally with the capacity of the local
+    token count, exchange capacity buckets with the experts' owners over
+    'model' and back, and return (this rank's y, the aux loss averaged
+    over every rank).  ``aux_partial``: the mesh dims over which the
+    loss the aux enters differs (a sharded batch's), whose gradients it
+    sums."""
     from ..distributed.sharding import (
-        PartitionSpec as P, _all_reduce, _axes, _axis_size, _block, _entry,
-        _gather, data_axes)
+        _axes, _axis_size, _names, all_to_all, gather, reduce_sum, split,
+        use)
 
     b, s, d = x.shape
     e = cfg.n_experts
     axes = _axes(mesh)
     msize = axes.get("model", 1)
-    dp = data_axes(mesh)
-    dpe = _entry(dp)
-    dsize = _axis_size(mesh, dp) if dp else 1
-    if e % msize or (dsize > 1 and b % dsize) or (s > 1 and s % msize):
-        return moe_ffn(p, x, cfg)  # topology doesn't divide: dense fallback
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, *p.values())):
-        raise NotImplementedError(
-            "moe_ffn_ep runs forward only: gradients through its "
-            "collectives wait for expert-parallel training (ROADMAP §A)")
-    e_loc = e // msize
-    seq_shard = s % msize == 0 and s > 1
-    # serving (decode: s == 1): experts stay resident in a 2D layout
-    # (experts x model, ffn x data), decode tokens are replicated over data
-    # and the ffn-partial down-projection sums over the data axes.
-    serving = s == 1
-    x_spec = (P(None, None, None) if serving
-              else P(dpe, "model" if seq_shard else None, None))
-    t_loc = b if serving else (b // dsize) * (s // msize if seq_shard else s)
-    cap = moe_capacity(t_loc, cfg)
-
-    xl = _block(x, mesh, x_spec)
+    dp = _data(mesh)
+    seq_shard = not serving and msize > 1
+    xl = split(x, mesh, ("model",), 1) if seq_shard else x
     b_l, s_l, _ = xl.shape
     t_l = b_l * s_l
-    bucket, dispatch, aux = _route(xl.reshape(t_l, d), p["router"], cfg,
-                                   cap)
-    aux = _all_reduce(aux.clone(), mesh, tuple(axes), dist.ReduceOp.SUM)
-    aux = aux / _axis_size(mesh, tuple(axes))
+    cap = moe_capacity(t_l, cfg)
+    # the ranks route different tokens: their gradients of the leaves sum
+    tokens = () if serving else dp
+    router = use(p["router"], mesh, specs["router"],
+                 partial=tokens + (("model",) if seq_shard else ()))
+    bucket, dispatch, aux = _route(xl.reshape(t_l, d), router, cfg, cap)
+    every = tuple(a for a in axes if axes[a] > 1)
+    aux = reduce_sum(aux, mesh, every, aux_partial) / _axis_size(mesh, every)
 
-    if serving:
-        w_specs = (P("model", None, dpe), P("model", None, dpe),
-                   P("model", dpe, None))  # up, gate [E, d, ff]; down
-    else:
-        w_specs = (P("model", dpe, None), P("model", dpe, None),
-                   P("model", None, dpe))  # d_model FSDP'd
-    up, gate, down = (_block(p[k], mesh, spec) if "model" in axes
-                      else _block(p[k], mesh, P(None, *spec[1:]))
-                      for k, spec in zip(("up", "gate", "down"), w_specs))
-    if dp and not serving:
-        # ZeRO-3: gather the FSDP'd d_model dim of the local experts
-        up = _gather(up, mesh, dp, 1)
-        gate = _gather(gate, mesh, dp, 1)
-        down = _gather(down, mesh, dp, 2)
-
+    # the serving layout's ffn over data: each rank holds a slice of it
+    ffn = tuple(n for n in _names(specs["up"][2]) if n in dp)
+    up, gate, down = (use(p[k], mesh, specs[k], keep=("model",) + ffn,
+                          partial=tokens) for k in ("up", "gate", "down"))
+    e_loc = up.shape[0]
     # dispatch: experts are contiguous in the bucket, so peer j's experts
     # are rows [j*e_loc, (j+1)*e_loc)
     if msize > 1:
         group = mesh.get_group("model")
-        recv = _all_to_all(bucket, group).reshape(msize, e_loc, cap, d)
+        recv = all_to_all(bucket, group).reshape(msize, e_loc, cap, d)
         recv = recv.transpose(0, 1).reshape(e_loc, msize * cap, d)
     else:
         recv = bucket
     out = _experts(recv, up, gate, down)  # serving: the local ffn slice
-    if serving and dp:
-        out = _all_reduce(out, mesh, dp, dist.ReduceOp.SUM)
+    if ffn:
+        out = reduce_sum(out, mesh, ffn, ())
     if msize > 1:
         out = out.reshape(e_loc, msize, cap, d).transpose(0, 1)
-        out = _all_to_all(out, group).reshape(e, cap, d)  # [E, cap, d]
+        out = all_to_all(out, group).reshape(e, cap, d)  # [E, cap, d]
     y = _unroute(out, dispatch, t_l, d, x.dtype).reshape(b_l, s_l, d)
-    # out_specs = x_spec: every rank returns the global y
-    if seq_shard and "model" in axes:
-        y = _gather(y, mesh, ("model",), 1)
-    if dp and not serving:
-        y = _gather(y, mesh, dp, 0)
+    if seq_shard:
+        y = gather(y, mesh, ("model",), 1, partial=False)
     return y, aux
 
 
-def moe_apply(p, x: torch.Tensor, cfg: ModelConfig):
+def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, specs=None):
     """Dispatch: EP under a mesh scope whose ``model`` dim is > 1, the
-    single-program path otherwise; a batch sharded over the scope's
-    ``batch_axes`` is gathered first and this rank's block of y kept."""
+    single-program path otherwise.  ``p``: this rank's blocks under
+    ``specs`` (the plan's), or the global leaves when ``specs`` is None.
+    Under a scope whose batch is sharded (``batch_axes``), ``x`` is this
+    rank's block: the training layout routes it as it is (its data block
+    is the reference's shard); serving and the single-program path gather
+    the tokens over those dims first and keep this rank's block of y."""
     from ..distributed.sharding import (
-        _AllGather, _axes, _axis_size, _block, _entry, PartitionSpec)
+        PartitionSpec, _axes, _axis_size, _block, _entry, gather)
     from .shard_ctx import batch_axes, current_mesh
 
     mesh = current_mesh()
     if mesh is None:
         return moe_ffn(p, x, cfg)
-    ep = _axes(mesh).get("model", 1) > 1
-    names = batch_axes()
-    if names and _axis_size(mesh, names) > 1:
-        xg = _AllGather.apply(x, mesh, names)
-        y, aux = moe_ffn_ep(p, xg, cfg, mesh) if ep else moe_ffn(p, xg, cfg)
-        return _block(y, mesh, PartitionSpec(_entry(names))), aux
+    names = tuple(a for a in batch_axes() if _axes(mesh)[a] > 1)
+    b, s, _ = x.shape
+    ep = (_axes(mesh).get("model", 1) > 1
+          and _ep_fits(cfg, mesh, b * _axis_size(mesh, names), s))
+    if not names:
+        if ep:
+            return moe_ffn_ep(p, x, cfg, mesh, specs)
+        return moe_ffn(_whole(p, specs, mesh, ()), x, cfg)
+    if ep and s > 1:
+        p, specs = _ep_blocks(p, specs, mesh, False)
+        return _ep(p, specs, x, cfg, mesh, serving=False, aux_partial=names)
+    xg = gather(x, mesh, names, 0, partial=True)
     if ep:
-        return moe_ffn_ep(p, x, cfg, mesh)
-    return moe_ffn(p, x, cfg)
+        p, specs = _ep_blocks(p, specs, mesh, True)
+        y, aux = _ep(p, specs, xg, cfg, mesh, serving=True,
+                     aux_partial=names)
+    else:
+        y, aux = moe_ffn(_whole(p, specs, mesh, names), xg, cfg)
+    return _block(y, mesh, PartitionSpec(_entry(names))), aux

@@ -14,6 +14,11 @@ is sharded over (``batch_axes``): the data-parallel train step runs each
 rank's forward on its own block of the batch, where the reference's one
 program sees the whole batch; ``moe_apply`` reads it to route the global
 batch as the reference does.
+
+A scope may carry the plan too (``plan``: a tree of ``NamedSharding``
+beside the parameters): the parameters the model is called with are then
+this rank's blocks of it, and the model gathers each layer's leaves on use
+(``Model`` reads ``current_plan``).
 """
 from __future__ import annotations
 
@@ -24,30 +29,67 @@ from ..distributed.sharding import (
     PartitionSpec, _axes, _axis_size, _is_dtensor, constrain as _c)
 
 __all__ = ["batch_axes", "constrain", "constrain_heads", "constrain_m",
-           "current_mesh", "shard_scope"]
+           "current_cache_plan", "current_mesh", "current_plan", "rescoped",
+           "shard_scope"]
 
 _VAR: contextvars.ContextVar = contextvars.ContextVar("repro_shard_ctx",
                                                       default=None)
 _BATCH: contextvars.ContextVar = contextvars.ContextVar(
     "repro_shard_ctx_batch", default=())
+_PLAN: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_shard_ctx_plan", default=None)
+_CACHE_PLAN: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_shard_ctx_cache_plan", default=None)
 
 
 @contextlib.contextmanager
-def shard_scope(mesh, *, batch_axes: tuple = ()):
+def shard_scope(mesh, *, batch_axes: tuple = (), plan=None,
+                cache_plan=None):
     """Install ``mesh`` (or None) as the ambient activation-sharding mesh;
     ``batch_axes``: the mesh dims this rank's batch is a block of (none:
-    every rank holds the whole batch)."""
+    every rank holds the whole batch); ``plan``: the plan the parameters
+    are held under (none: they are global); ``cache_plan``: the specs the
+    decode cache is held under (``sharding.cache_pspecs``' tree)."""
     token = _VAR.set(mesh)
     btoken = _BATCH.set(tuple(batch_axes) if mesh is not None else ())
+    ptoken = _PLAN.set(plan if mesh is not None else None)
+    ctoken = _CACHE_PLAN.set(cache_plan if mesh is not None else None)
     try:
         yield
     finally:
+        _CACHE_PLAN.reset(ctoken)
+        _PLAN.reset(ptoken)
         _BATCH.reset(btoken)
         _VAR.reset(token)
 
 
 def current_mesh():
     return _VAR.get()
+
+
+def rescoped(fn):
+    """``fn`` run in the scope that is current now, wherever it is called
+    later: activation recomputation runs a layer again in the backward,
+    after the step's scope has closed."""
+    mesh, batch, plan, cplan = (_VAR.get(), _BATCH.get(), _PLAN.get(),
+                                _CACHE_PLAN.get())
+
+    def run(*args):
+        with shard_scope(mesh, batch_axes=batch, plan=plan,
+                         cache_plan=cplan):
+            return fn(*args)
+
+    return run
+
+
+def current_plan():
+    """The plan of the current scope's parameters, or None."""
+    return _PLAN.get()
+
+
+def current_cache_plan():
+    """The specs of the current scope's decode cache, or None."""
+    return _CACHE_PLAN.get()
 
 
 def batch_axes() -> tuple:

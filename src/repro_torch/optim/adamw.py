@@ -60,15 +60,42 @@ def lr_at(step: torch.Tensor, tc: TrainConfig,
     return torch.where(step < tc.warmup_steps, warm, cos).to(torch.float32)
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, plan=None) -> torch.Tensor:
+    """The L2 norm of every leaf together.  Under ``plan`` (the
+    :class:`~repro_torch.distributed.sharding.NamedSharding` tree the
+    leaves are this rank's blocks of) each block's squared sum is summed
+    over the mesh dims its leaf is laid over, and over no other: a mesh dim
+    the leaf is replicated on holds it whole on every rank."""
     leaves, _ = _flatten(tree)
-    return torch.sqrt(sum(torch.sum(torch.square(l.float())) for l in leaves))
+    squares = [torch.sum(torch.square(l.float())) for l in leaves]
+    if plan is None:
+        return torch.sqrt(sum(squares))
+    import torch.distributed as dist
+
+    from ..distributed.sharding import _all_reduce, _split_dims
+
+    shardings, _ = _flatten(plan)
+    groups: dict = {}  # the mesh dims a leaf is laid over -> its squares
+    for sq, s in zip(squares, shardings):
+        names = tuple(n for _, ns in _split_dims(s.spec, s.mesh) for n in ns)
+        groups.setdefault((id(s.mesh), tuple(sorted(names))),
+                          (s.mesh, []))[1].append(sq)
+    total = 0
+    for (_, names), (mesh, sqs) in groups.items():
+        part = sum(sqs)  # in leaf order, as without a plan
+        if names:
+            part = _all_reduce(part, mesh, names, dist.ReduceOp.SUM)
+        total = total + part
+    return torch.sqrt(total)
 
 
 def adamw_update(grads, state: OptState, params, tc: TrainConfig, *,
-                 inplace: bool = False):
-    """Returns (new_params, new_state, metrics ``grad_norm`` and ``lr``)."""
-    gnorm = global_norm(grads)
+                 inplace: bool = False, plan=None):
+    """Returns (new_params, new_state, metrics ``grad_norm`` and ``lr``).
+    Under ``plan`` the trees are this rank's blocks: the norm sums over the
+    ranks (:func:`global_norm`), the clip and the update are elementwise
+    on each block."""
+    gnorm = global_norm(grads, plan)
     scale = torch.clamp(tc.grad_clip / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
     lr = lr_at(state.step, tc)

@@ -29,23 +29,41 @@ def init_error(params) -> Any:
                                            device=p.device) for p in leaves])
 
 
-def _q(x: torch.Tensor):
-    scale = torch.clamp(x.abs().max(), min=1e-12) / 127.0
+def _q(x: torch.Tensor, sharding=None):
+    """int8 of ``x`` with one scale: the max of ``|x|`` over the whole
+    leaf, of which ``x`` is this rank's block under ``sharding`` (a MAX
+    all-reduce over the mesh dims its spec lays the leaf over)."""
+    amax = x.abs().max()
+    if sharding is not None:
+        import torch.distributed as dist
+
+        from ..distributed.sharding import _all_reduce, _split_dims
+
+        names = tuple(n for _, ns in _split_dims(sharding.spec,
+                                                  sharding.mesh) for n in ns)
+        if names:
+            amax = _all_reduce(amax, sharding.mesh, names,
+                               dist.ReduceOp.MAX)
+    scale = torch.clamp(amax, min=1e-12) / 127.0
     q = torch.clip(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale
 
 
-def compress(grads, err):
-    """(quantized tree, scales tree, new error tree). g_eff = g + err."""
-    def one(g, e):
+def compress(grads, err, plan=None):
+    """(quantized tree, scales tree, new error tree). g_eff = g + err.
+    Under ``plan`` the trees are this rank's blocks and each leaf's scale
+    is its whole leaf's: the blocks of the result are the global
+    result's."""
+    def one(g, e, s=None):
         gf = g.float() + e
-        q, s = _q(gf)
-        deq = q.float() * s
-        return q, s, gf - deq
+        q, sc = _q(gf, s)
+        deq = q.float() * sc
+        return q, sc, gf - deq
 
     flat_g, _ = _flatten(grads)
     flat_e, _ = _flatten(err)
-    out = [one(g, e) for g, e in zip(flat_g, flat_e)]
+    flat_s = _flatten(plan)[0] if plan is not None else [None] * len(flat_g)
+    out = [one(g, e, s) for g, e, s in zip(flat_g, flat_e, flat_s)]
     return (
         _unflatten(grads, [o[0] for o in out]),
         _unflatten(grads, [o[1] for o in out]),

@@ -374,33 +374,102 @@ def train_record():
     return _cell("gemma-2b", "train")
 
 
+def _whole_kv_flops(cfg, tokens: int, passes: int) -> int:
+    """FLOPs of the k and v projections of ``tokens`` tokens over every
+    layer, run ``passes`` times.  Where the kv heads do not divide 'model'
+    every rank computes them whole (``attention._project_qkv``); every
+    other product of a dense layer runs on the rank's 'model' block."""
+    return (passes * cfg.n_layers * 2
+            * 2 * tokens * cfg.d_model * cfg.n_kv_heads * cfg.head_dim)
+
+
+def _gathered_numel(arch: str) -> tuple:
+    """(leaves gathered over 'data' on use in a layer, the f32 words of
+    their gradients' reduce-scatters in a microbatch) of the smoke
+    configuration on MESH: each use gathers a leaf's 'data' dim and keeps
+    its 'model' block; the tied table is used twice (embed, unembed)."""
+    from repro_torch.distributed.sharding import MeshShape, param_pspecs
+
+    model = build_model(get_smoke(arch), "meta")
+    params, _, axes = state_specs(model)
+    specs = param_pspecs(axes, params, MeshShape(MESH, ("data", "model")))
+    flat = zip(torch.utils._pytree.tree_leaves(params),
+               torch.utils._pytree.tree_leaves(
+                   specs, is_leaf=lambda x: isinstance(x, tuple)))
+    layer = words = 0
+    for t, spec in flat:
+        if "data" not in spec:
+            continue
+        per = t.numel() // (MESH[1] if "model" in spec else 1)
+        if spec[0] is None:  # a stacked leaf: one use a layer
+            layer += t.shape[0]
+        words += per * (2 if t.shape[0] == get_smoke(arch).vocab_padded
+                        else 1)
+    return layer, words
+
+
 def test_data_parallel_step_all_reduces_f32_gradients(train_record):
-    """Every gradient leaf, the loss and the ce: one f32 SUM all-reduce
-    each over 'data' (2 ranks), nothing else."""
-    model = build_model(get_smoke("gemma-2b"), "meta")
-    params, _, _ = state_specs(model)
-    leaves = torch.utils._pytree.tree_leaves(params)
+    """The blocked step's collectives: every leaf gathered over 'data' on
+    use (again in the remat recompute: ZeRO-3's backward), its gradient
+    reduce-scattered over 'data' in f32 (one a use), and over 'data'
+    nothing else but four f32 all-reduces (the loss, the ce and two groups
+    of the gradient norm's squares); over 'model' all-reduces alone (the
+    row-parallel sums, the column-parallel inputs' gradients, the
+    vocabulary's max, sum and label logit, the norm)."""
     coll = train_record["collectives"]
-    want = 4 * sum(t.numel() for t in leaves) + 2 * 4
-    assert coll["all-reduce"] == {"bytes": want, "link_bytes": want,
-                                  "count": len(leaves) + 2}
-    assert coll["by_dim"] == {"data": dict(coll["all-reduce"], size=2)}
-    assert coll["total_count"] == len(leaves) + 2
+    mb = train_record["microbatches"]
+    layer, words = _gathered_numel("gemma-2b")
+    uses = layer + 3  # + the table twice and the final norm
+    assert coll["reduce-scatter"] == {"bytes": mb * 4 * words,
+                                      "link_bytes": mb * 2 * words,
+                                      "count": mb * uses}
+    assert coll["all-gather"]["count"] == mb * (2 * layer + 3)
+    data, model = coll["by_dim"]["data"], coll["by_dim"]["model"]
+    assert data["size"] == 2 and model["size"] == 4
+    assert data["count"] == (coll["all-gather"]["count"]
+                             + coll["reduce-scatter"]["count"] + 4)
+    assert data["bytes"] == (coll["all-gather"]["bytes"]
+                             + coll["reduce-scatter"]["bytes"] + 4 * 4)
+    assert model["count"] == coll["all-reduce"]["count"] - 4 > 0
+    assert coll["all-to-all"]["count"] == 0
     assert train_record["devices"] == 8 and train_record["mesh"] == "2x4"
-    # rank 0 runs half the batch: half the probe's FLOPs
-    assert 2 * train_record["cost"]["flops"] == train_record["probe"]["flops"]
+    # rank 0 runs half the batch; of it, the kv projections whole (one kv
+    # head on a 4-way 'model'; forward, recompute, the input's and the
+    # weight's gradient) and every other product over a quarter of its
+    # heads, ffn columns or vocabulary rows.  One product more: the
+    # recompute runs the row-parallel down projection again, where the
+    # probe's plain product is skipped (the checkpoint stops recomputing
+    # once every saved input is packed, and a plain product packs its
+    # inputs before it runs, the autograd.Function after):
+    # flops = (probe - kv) / (2 * 4) + kv / 2 + down
+    cfg = get_smoke("gemma-2b")
+    assert cfg.n_kv_heads % MESH[1]
+    kv = _whole_kv_flops(cfg, 8 * 128, passes=4)
+    tokens = 8 * 128 // MESH[0]
+    down = cfg.n_layers * 2 * tokens * (cfg.d_ff // MESH[1]) * cfg.d_model
+    assert (MESH[0] * MESH[1] * train_record["cost"]["flops"]
+            == train_record["probe"]["flops"] + (MESH[1] - 1) * kv
+            + MESH[0] * MESH[1] * down)
     mem = train_record["memory"]
-    # donated: the parameters and both moments are updated in place; the
+    # donated: the parameter and moment blocks are updated in place; the
     # batch block (4 rows of tokens and labels) and the step count are not
     assert mem["alias_size_in_bytes"] == (mem["argument_size_in_bytes"]
                                           - 2 * 4 * 128 * 4 - 4)
-    assert mem["plan_argument_bytes"] < mem["argument_size_in_bytes"]
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_traced_arguments_equal_the_plan_bytes(kind, train_record):
+    """A rank's traced arguments are its blocks of the state under the
+    plan (the decode cache's too), byte for byte the plan's count."""
+    rec = train_record if kind == "train" else _cell("gemma-2b", kind)
+    mem = rec["memory"]
+    assert mem["argument_size_in_bytes"] == mem["plan_argument_bytes"] > 0
 
 
 def test_moe_prefill_all_to_alls_over_model():
     """moe_ffn_ep's dispatch and return: two all-to-alls a layer over
     'model' of the [E, cap, d] bf16 bucket, cap from the tokens of one
-    (data, model) block; the tokens' all-gather over 'data' and the aux
+    (data, model) block; the leaves' gathers over 'data' and the aux
     loss's all-reduces besides."""
     from repro_torch.models.moe import moe_capacity
 
@@ -418,9 +487,21 @@ def test_moe_prefill_all_to_alls_over_model():
     assert coll["all-gather"]["count"] > 0 and coll["by_dim"]["data"]["size"] == 2
 
 
-def test_moe_train_over_a_model_dim_is_skipped_with_the_reason():
-    rec = _cell("qwen3-moe-235b-a22b", "train")
-    assert rec["status"] == "skipped" and "§A 3" in rec["reason"]
+def test_moe_train_over_a_model_dim_is_traced():
+    """Expert-parallel training: the exchanges carry their gradient (the
+    reverse all-to-all), so the step traces, with the blocks of the plan
+    as its arguments: per microbatch four all-to-alls a layer (the
+    forward's two, the recompute's two) and two in the backward."""
+    rec = dryrun.run_cell("qwen3-moe-235b-a22b", "train_4k", False,
+                          microbatches=2,
+                          cfg=_cfg("qwen3-moe-235b-a22b", 128),
+                          shape=ShapeConfig("train_4k", 128, 8, "train"),
+                          mesh_shape=MESH)
+    assert rec["status"] == "ok"
+    layers = get_smoke("qwen3-moe-235b-a22b").n_layers
+    assert rec["collectives"]["all-to-all"]["count"] == 2 * 6 * layers
+    mem = rec["memory"]
+    assert mem["argument_size_in_bytes"] == mem["plan_argument_bytes"]
 
 
 def test_record_reads_in_roofline_and_both_reports(train_record, tmp_path):
@@ -470,9 +551,19 @@ def test_full_size_cell_main_patch_probe_and_report(tmp_path, capsys):
     f = tmp_path / "h2o-danube-1.8b__decode_32k__pod.json"
     rec = json.loads(f.read_text())
     assert rec["status"] == "ok" and rec["devices"] == 256
-    assert rec["mesh"] == "16x16" and rec["collectives"]["total_count"] == 0
-    # 128 rows over 16 data ranks: rank 0 runs 8 of the probe's 128
-    assert 16 * rec["cost"]["flops"] == rec["probe"]["flops"]
+    assert rec["mesh"] == "16x16"
+    # the serving plan: no leaf over 'data'; the cache's head_dim (80 over
+    # 16: its 8 kv heads do not divide) gathered over 'model' on use
+    assert set(rec["collectives"]["by_dim"]) == {"model"}
+    mem = rec["memory"]
+    assert mem["argument_size_in_bytes"] == mem["plan_argument_bytes"]
+    # 8 of the probe's 128 rows; of them, the kv projections whole and
+    # the heads', MLP's, vocabulary's and B5's products over a sixteenth:
+    # flops = (probe - kv) / (16 * 16) + kv / 16
+    from repro_torch.configs import get_config
+
+    kv = _whole_kv_flops(get_config("h2o-danube-1.8b"), 128, passes=1)
+    assert 16 * 16 * rec["cost"]["flops"] == rec["probe"]["flops"] + 15 * kv
     probe = rec["probe"]
     f.write_text(json.dumps(dict(rec, probe={})))
     assert patch_probe.main(["--dryrun-dir", out, "--kind", "decode"]) == 0

@@ -29,23 +29,38 @@ not rank numbers.  The cases:
   block equal to the reference's shard at the same coordinates.
 * ``sharding.constrain`` on a ``DTensor`` (the port's own: the reference's
   pin changes no value) redistributes it to the spec's placements.
-* the data-parallel train step, ``data=4`` (a ``(4, 2)`` mesh's data dim:
-  two replicas of the group), on the dense and the moe smoke
-  configurations (capacity factor 8), from the port's ``Model.init``
-  weights and ``TokenStream`` batch 0 (B = 4, S = 32).  Against the
-  port's one-process step on the whole batch: ``loss`` and ``ce`` within
-  f32 summation order (``rtol=1e-6``); the gradient is each block's bf16
-  gradient averaged in f32 where the one-process step rounds the whole
-  batch's gradient to bf16 once, so the moments are within bf16 rounding
-  of partial sums (``m`` relative L2 < 2**-6, measured 0.0043 dense and
-  0.0091 moe; ``v`` twice that; ``grad_norm`` ``rtol=1e-3``) and the
-  parameters within ``tests/test_torch_train_step.py``'s slack.  Against
-  the reference's one-program step: that file's bounds for the dense
-  configuration; for the moe configuration ``loss``, ``ce``,
-  ``grad_norm`` and ``lr`` only, since one of the 128 tokens takes
-  another expert at layer 1 in the two packages' bf16 (ROADMAP §C P23),
-  which moves the moments by ~0.08 in the one-process step as in the
-  data-parallel one.
+* the blocked train step (ZeRO-3 over 'data', tensor and expert parallel
+  over 'model') on the dense and the moe smoke configurations (capacity
+  factor 8), from the port's ``Model.init`` weights and ``TokenStream``
+  batch 0 (B = 4, S = 32).  Each rank holds exactly its plan block of
+  every parameter and moment (``param_pspecs`` on the mesh); the blocks,
+  put together by mesh coordinates, are held against the port's
+  one-process step on the whole batch: ``ce`` within f32 summation order
+  (``rtol=1e-6``), and ``loss`` too on the dense configuration (the moe
+  one's aux is the mean of each (data, model) token shard's, as the
+  reference's ``shard_map`` makes it, where the one-process step takes the
+  whole batch's); the gradient is each block's bf16 gradient summed in
+  f32 where the one-process step rounds the whole batch's gradient to
+  bf16 once, so the moments are within bf16 rounding of partial sums
+  (``m`` relative L2 < 2**-6, ``v`` twice that; ``grad_norm``
+  ``rtol=1e-3``) and the parameters within
+  ``tests/test_torch_train_step.py``'s slack.  Against the reference's one
+  program with its plan (``param_shardings`` on 8 forced host devices):
+  that file's bounds for the dense configuration; for the moe
+  configuration ``loss``, ``ce``, ``grad_norm`` and ``lr`` only, since one
+  of the 128 tokens takes another expert at layer 1 in the two packages'
+  bf16 (ROADMAP §C P23).
+* a leaf gathered whole on use (its compute replicated over 'model'): its
+  gradient is the one-process step's, not the 'model' size times it; and
+  the q/k norms of heads split over 'model', whose gradients sum.
+* ``compress`` on the blocks equal, bit for bit, to the blocks of
+  ``compress`` of the global tree (each leaf's scale its whole leaf's).
+* vocab-parallel ``embed``, ``unembed`` and ``cross_entropy`` on a padded
+  vocabulary against the global ones, the logits' gradient too.
+* prefill under the training plan and decode under the serving plan, the
+  cache held as ``cache_pspecs`` lays it out: the logits gathered over the
+  mesh within ``tests/test_torch_lm.py``'s bound of the unsharded
+  model's, the next tokens the argmax of the whole vocabulary.
 """
 import os
 import subprocess
@@ -58,6 +73,7 @@ import pytest
 import torch
 
 import torch_mesh_common as C
+from test_torch_lm import REL_BOUND
 from test_torch_train_step import BOUND, GNORM_RTOL, LOSS_RTOL
 
 HERE = Path(__file__).resolve().parent
@@ -200,17 +216,76 @@ def _run(res: dict, prefix: str) -> dict:
             if k.startswith(prefix)}
 
 
+def _walk(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _walk(tree[k], f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+def _plan(family: str) -> dict:
+    """path -> (spec entries, global shape) of the smoke configuration's
+    leaves under the plan on the (data, model) mesh."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.distributed.sharding import MeshShape, param_pspecs
+    from repro_torch.models.model import Model
+
+    model = Model(get_smoke(C.DP_ARCHS[family]), "meta")
+    shapes = model.init(torch.Generator())
+    specs = param_pspecs(model.logical_axes(), shapes,
+                         MeshShape(C.MESH, ("data", "model")))
+    return {path: (tuple(sp), tuple(t.shape))
+            for (path, t), (_, sp) in zip(_walk(shapes), _walk(specs))}
+
+
+def _assemble(ranks, key: str, spec: tuple, shape: tuple) -> np.ndarray:
+    """The global leaf from each rank's block by its mesh coordinates;
+    each block is exactly the plan's, and ranks at the same coordinates
+    of the spec's mesh dims hold equal blocks."""
+    sizes = dict(zip(("data", "model"), C.MESH))
+    out = np.zeros(shape, np.float32)
+    seen = {}
+    for r in ranks:
+        coord = dict(zip(("data", "model"), (int(c) for c in r["coord"])))
+        idx = []
+        for n, e in zip(shape, spec):
+            step = n // sizes[e] if e else n
+            lo = coord[e] * step if e else 0
+            idx.append(slice(lo, lo + step))
+        block = r[key]
+        assert block.shape == tuple(sl.stop - sl.start for sl in idx), key
+        where = tuple((sl.start, sl.stop) for sl in idx)
+        if where in seen:
+            assert np.array_equal(seen[where], block), key
+        seen[where] = block
+        out[tuple(idx)] = block
+    return out
+
+
+def _blocked_run(ranks, family: str) -> dict:
+    """The blocked step's metrics (equal on every rank) and its leaves put
+    together by mesh coordinates."""
+    prefix = f"dp/{family}/dp/"
+    got = {m: ranks[0][prefix + m] for m in ("loss", "ce", "grad_norm",
+                                             "lr")}
+    for r in ranks[1:]:
+        assert all(r[prefix + m] == v for m, v in got.items())
+    for path, (spec, shape) in _plan(family).items():
+        for name in ("params", "m", "v"):
+            got[f"{name}{path}"] = _assemble(ranks, f"{prefix}{name}{path}",
+                                             spec, shape)
+    return got
+
+
 @pytest.mark.parametrize("family", sorted(C.DP_ARCHS))
 def test_data_parallel_step(runs, family):
     ref, ranks = runs
-    dp = _run(ranks[0], f"dp/{family}/dp/")
-    for r in ranks[1:]:  # parameters and moments stay replicated
-        other = _run(r, f"dp/{family}/dp/")
-        assert all(np.array_equal(other[k], dp[k]) for k in dp)
+    dp = _blocked_run(ranks, family)
     one = _run(ranks[0], f"dp/{family}/one/")
     lr = float(one["lr"])
     assert float(dp["lr"]) == lr
-    for key in ("loss", "ce"):
+    for key in ("loss", "ce") if family == "dense" else ("ce",):
         np.testing.assert_allclose(float(dp[key]), float(one[key]),
                                    rtol=1e-6, err_msg=key)
     np.testing.assert_allclose(float(dp["grad_norm"]),
@@ -226,3 +301,84 @@ def test_data_parallel_step(runs, family):
                                float(want["grad_norm"]), rtol=GNORM_RTOL)
     if family == "dense":
         _check_leaves(dp, want, BOUND["dense"], lr)
+
+
+@pytest.mark.parametrize("family", sorted(C.DP_ARCHS))
+def test_gathered_whole_leaf_gradient_is_not_summed_over_model(runs,
+                                                               family):
+    """A leaf whose spec names no 'model' dim is gathered whole on use and
+    its compute replicated over 'model' (the norms; gemma's single kv
+    head, cut to each rank's heads after the projection): each rank keeps
+    its own block of the gradient, which a sum over 'model' would make 4
+    times the one-process step's.  The q/k norms of heads split over
+    'model' are the other way round: each rank normed its own heads, and
+    without the sum a rank's moment would be a quarter of it.  The first
+    moment is 0.1 x the clipped gradient."""
+    _, ranks = runs
+    dp = _blocked_run(ranks, family)
+    one = _run(ranks[0], f"dp/{family}/one/")
+    scale = float(dp["grad_norm"]) / float(one["grad_norm"])
+    whole = [path for path, (spec, _) in _plan(family).items()
+             if "model" not in spec]
+    assert any("norm" in p for p in whole)
+    for path in whole:
+        got, want = dp[f"m{path}"], one[f"m{path}"]
+        ratio = np.linalg.norm(got) / np.linalg.norm(want)
+        assert abs(ratio - 1.0) < 2.0**-6, (path, ratio, scale)
+        assert _rel_l2(got, want) < 2.0**-6, path
+
+
+def test_compress_on_blocks_equals_the_global_blocks(runs):
+    _, ranks = runs
+    for r in ranks:
+        paths = {k.split("/q")[0] for k in r if k.startswith("compress/")
+                 and k.endswith("/q")}
+        assert paths
+        for p in paths:
+            assert r[f"{p}/q"].dtype == np.int8
+            for part in ("q", "scale", "err"):
+                assert np.array_equal(r[f"{p}/{part}"],
+                                      r[f"{p}/{part}_global"]), (p, part)
+
+
+def test_vocab_parallel_embed_unembed_and_cross_entropy(runs):
+    """250 tokens padded to 256 rows over 4 'model' ranks: each rank's
+    embedding rows summed over 'model' give the global lookup bit for bit;
+    its logits are the global logits' block (the padding, by global index,
+    -1e30 in the last block alone); the cross entropy and its gradient of
+    the logits block agree within f32 summation order."""
+    _, ranks = runs
+    for r in ranks:
+        m = int(r["coord"][1])
+        assert np.array_equal(r["vocab/embed"], r["vocab/embed_global"])
+        v = r["vocab/logits"].shape[-1]
+        cols = slice(m * v, (m + 1) * v)
+        np.testing.assert_allclose(r["vocab/logits"],
+                                   r["vocab/logits_global"][..., cols],
+                                   rtol=1e-6, atol=1e-6)
+        pad = np.arange(m * v, (m + 1) * v) >= C.PAD_VOCAB
+        assert pad.any() == (m == C.MESH[1] - 1)
+        assert np.all(r["vocab/logits"][..., pad] == -1e30)
+        np.testing.assert_allclose(float(r["vocab/ce"]),
+                                   float(r["vocab/ce_global"]), rtol=1e-6)
+        np.testing.assert_allclose(r["vocab/grad"],
+                                   r["vocab/grad_global"][..., cols],
+                                   rtol=1e-5, atol=1e-9)
+
+
+@pytest.mark.parametrize("family", sorted(C.DP_ARCHS))
+def test_prefill_and_decode_on_the_mesh(runs, family):
+    _, ranks = runs
+    steps = C.SERVE[2]
+    for i in range(steps + 1):
+        got = ranks[0][f"serve/{family}/mesh/{i}"]
+        want = ranks[0][f"serve/{family}/one/{i}"]
+        assert got.shape == want.shape
+        for r in ranks[1:]:
+            assert np.array_equal(r[f"serve/{family}/mesh/{i}"], got)
+        scale = max(float(np.abs(want).max()), 1.0)
+        err = float(np.abs(got - want).max())
+        assert err < REL_BOUND * scale, (i, err, scale)
+        if i:
+            assert np.array_equal(ranks[0][f"serve/{family}/next/{i - 1}"][
+                :, 0], got.argmax(-1))

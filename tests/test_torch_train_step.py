@@ -231,10 +231,21 @@ def test_train_loop_with_failures(tmp_path, capsys):
     """A short run on the CPU with a crash at step 4 and a straggling step
     at step 8: finite losses, one restart, and the straggler counted, as
     the reference's ``train_loop`` counts them (the step after the
-    checkpoint at 3 runs twice, so 13 steps run)."""
-    res = train_loop("gemma-2b", steps=12, batch=4, seq=32,
-                     ckpt_dir=str(tmp_path), ckpt_every=3,
-                     inject_failures=True, log_every=4, device="cpu")
+    checkpoint at 3 runs twice, so 13 steps run).
+
+    torch runs on one intra-op thread here: the straggler detection times
+    each step against the median of the ones before, and a pool of threads
+    over cores shared with other busy processes stretched steps of these
+    small tensors several times over (no straggler seen, or three in a row
+    taken for a persistent one)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        res = train_loop("gemma-2b", steps=12, batch=4, seq=32,
+                         ckpt_dir=str(tmp_path), ckpt_every=3,
+                         inject_failures=True, log_every=4, device="cpu")
+    finally:
+        torch.set_num_threads(threads)
     assert res["steps"] == 13 and res["restarts"] == 1
     assert res["straggler_events"] >= 1
     assert math.isfinite(res["loss_first10"])

@@ -12,7 +12,6 @@ import numpy as np
 
 MESH = (2, 4)  # (data, model) over 8 ranks
 RANKS = MESH[0] * MESH[1]
-DP_MESH = (4, 2)  # the data-parallel step: data=4 (two replicas of it)
 
 # tests/test_moe_ep.py's configuration (capacity factor per case)
 MOE = dict(name="moe-test", family="moe", n_layers=1, d_model=64, n_heads=4,
@@ -25,6 +24,21 @@ MOE_CASES = {"train_cf8": (8.0, (4, 8, 64)),
              "train_cf1": (1.0, (4, 64, 64)),
              "serve_s1": (8.0, (4, 1, 64))}
 
+# the blocks each rank holds of the layer's leaves (the plan's specs, as
+# tuples of entries): experts x model, d_model over data (training), or
+# the ffn over data (the serving layout)
+_MOE_TRAIN = {"router": ("data", "model"), "up": ("model", "data", None),
+              "gate": ("model", "data", None),
+              "down": ("model", None, "data")}
+_MOE_SERVE = {"router": (None, "model"), "up": ("model", None, "data"),
+              "gate": ("model", None, "data"),
+              "down": ("model", "data", None)}
+
+
+def moe_specs(case: str) -> dict:
+    return _MOE_SERVE if MOE_CASES[case][1][1] == 1 else _MOE_TRAIN
+
+
 # batch specs for sharded_batches, as tuples of entries
 BATCH_SPECS = {"data": ("data",), "data_model": (("data", "model"),),
                "data_seq": ("data", "model")}
@@ -34,6 +48,8 @@ STREAM_STEPS = (0, 1, 5)
 DP_ARCHS = {"dense": "gemma-2b", "moe": "qwen3-moe-235b-a22b"}
 DP_BATCH, DP_SEQ = 4, 32
 DP_SEED = 1  # torch.Generator seed of the port's Model.init
+PAD_VOCAB = 250  # a vocabulary padded to 256 rows (the last block's 6)
+SERVE = (4, 16, 3)  # prefill B x S on the mesh, then decode steps
 
 
 def moe_inputs(case: str) -> tuple:

@@ -115,9 +115,15 @@ def batch_ref(mesh, out: dict) -> None:
                         shard.data)
 
 
-def dp_ref(out: dict) -> None:
+def dp_ref(mesh, out: dict) -> None:
+    """The reference's one program with its plan on the (data, model)
+    mesh: the model's layout pins installed (``set_mesh``), the
+    parameters ``device_put`` with ``param_shardings`` and the step jitted
+    with them (``make_train_step(param_shardings=)``)."""
     import torch
 
+    from repro.distributed.sharding import param_shardings
+    from repro.launch.specs import state_specs
     from repro_torch import configs as tcfg
     from repro_torch.models.model import Model
 
@@ -128,12 +134,15 @@ def dp_ref(out: dict) -> None:
             tc = dataclasses.replace(tc, capacity_factor=8.0)
         tparams = Model(tc, "cpu").init(
             torch.Generator().manual_seed(C.DP_SEED))
-        params = _tree(tparams)
+        shapes, _, axes = state_specs(build_model(cfg))
+        plan = param_shardings(axes, shapes, mesh)
+        params = jax.device_put(_tree(tparams), plan)
         batch = {k: jnp.asarray(v) for k, v in TokenStream(
             vocab=cfg.vocab, seq_len=C.DP_SEQ,
             global_batch=C.DP_BATCH).batch(0).items()}
-        step = jax.jit(make_train_step(build_model(cfg),
-                                       TrainConfig(warmup_steps=2)))
+        model = build_model(cfg).set_mesh(mesh)
+        step = jax.jit(make_train_step(model, TrainConfig(warmup_steps=2),
+                                       param_shardings=plan))
         p, opt, metrics = step(params, adamw_init(params), batch)
         key = f"dp/{family}/ref"
         for m in ("loss", "ce", "grad_norm", "lr"):
@@ -159,7 +168,10 @@ def main() -> int:
     moe_ref(mesh, out)
     psum_ref(out)
     batch_ref(mesh, out)
-    dp_ref(out)
+    # the one program's layout left to XLA's partitioner (Auto axes), as
+    # the reference's launchers make their meshes
+    dp_ref(jax.make_mesh(C.MESH, ("data", "model"), axis_types=(
+        jax.sharding.AxisType.Auto,) * 2), out)
     np.savez(dest / "ref.npz", **out)
     return 0
 

@@ -26,13 +26,16 @@ from repro_torch.configs import get_smoke  # noqa: E402
 from repro_torch.configs.base import ModelConfig, TrainConfig  # noqa: E402
 from repro_torch.data.pipeline import TokenStream, sharded_batches  # noqa
 from repro_torch.distributed.sharding import (  # noqa: E402
-    PartitionSpec, _block, batch_pspec, constrain, param_shardings)
+    PartitionSpec, _block, _gather, batch_pspec, cache_pspecs, constrain,
+    param_shardings, shard_params)
 from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
-from repro_torch.launch.steps import make_train_step  # noqa: E402
+from repro_torch.launch.steps import (  # noqa: E402
+    cross_entropy, make_decode_step, make_prefill_step, make_train_step)
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.models.moe import _route, moe_capacity, moe_ffn_ep  # noqa
 from repro_torch.models.shard_ctx import shard_scope  # noqa: E402
-from repro_torch.optim import adamw_init, compressed_psum  # noqa: E402
+from repro_torch.models.layers import MODEL_BLOCKS, embed, unembed  # noqa: E402
+from repro_torch.optim import adamw_init, compress, compressed_psum  # noqa
 from repro_torch.optim.compress import _psum_leaf  # noqa: E402
 
 
@@ -56,9 +59,13 @@ def moe_checks(mesh, out: dict) -> None:
         p = {k: torch.from_numpy(v) if k == "router"
              else torch.from_numpy(v).to(torch.bfloat16)
              for k, v in params.items()}
+        specs = C.moe_specs(case)
+        blocks = {k: _block(v, mesh, PartitionSpec(*specs[k]))
+                  for k, v in p.items()}
         with torch.no_grad():
-            y, aux = moe_ffn_ep(p, torch.from_numpy(x).to(torch.bfloat16),
-                                cfg, mesh)
+            y, aux = moe_ffn_ep(blocks, torch.from_numpy(x).to(
+                torch.bfloat16), cfg, mesh,
+                {k: PartitionSpec(*v) for k, v in specs.items()})
         out[f"moe/{case}/y"] = _np(y)
         out[f"moe/{case}/aux"] = _np(aux)
         # the assignments this rank's shard keeps (the training layout's
@@ -111,26 +118,30 @@ def batch_checks(mesh, out: dict) -> None:
         batch_pspec(C.STREAM["global_batch"], mesh))))
 
 
-def dp_checks(rank: int, out: dict) -> None:
-    from torch.distributed.device_mesh import init_device_mesh
+def _smoke(arch: str):
+    cfg = get_smoke(arch)
+    if cfg.family == "moe":  # no expert overflows
+        cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+    return cfg
 
-    mesh42 = init_device_mesh("cpu", C.DP_MESH,
-                              mesh_dim_names=("data", "model"))
-    dmesh = mesh42["data"]  # data=4: this rank's replica of the DP group
+
+def dp_checks(mesh, rank: int, out: dict) -> None:
+    """The blocked train step on the (data, model) mesh: each rank's blocks
+    of the updated parameters and moments; rank 0 also runs the
+    one-process step on the whole batch."""
     for family, arch in C.DP_ARCHS.items():
-        cfg = get_smoke(arch)
-        if cfg.family == "moe":  # no expert overflows
-            cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+        cfg = _smoke(arch)
         model = Model(cfg, "cpu")
         params = model.init(torch.Generator().manual_seed(C.DP_SEED))
-        plan = param_shardings(model.logical_axes(), params, dmesh)
+        plan = param_shardings(model.logical_axes(), params, mesh)
+        blocks = shard_params(params, plan)
         stream = TokenStream(vocab=cfg.vocab, seq_len=C.DP_SEQ,
                              global_batch=C.DP_BATCH)
-        spec = batch_pspec(C.DP_BATCH, dmesh)
-        block = next(sharded_batches(stream, dmesh, spec))
+        spec = batch_pspec(C.DP_BATCH, mesh)
+        block = next(sharded_batches(stream, mesh, spec))
         tc = TrainConfig(warmup_steps=2)
         step = make_train_step(model, tc, param_shardings=plan)
-        runs = {"dp": step(params, adamw_init(params), block)}
+        runs = {"dp": step(blocks, adamw_init(blocks), block)}
         if rank == 0:  # the one-process step on the whole batch
             whole = next(sharded_batches(stream, device="cpu"))
             runs["one"] = make_train_step(model, tc)(
@@ -142,6 +153,114 @@ def dp_checks(rank: int, out: dict) -> None:
             for tree, name in ((p, "params"), (opt.m, "m"), (opt.v, "v")):
                 for path, t in _leaves(tree):
                     out[f"{key}/{name}{path}"] = _np(t)
+
+
+def compress_checks(mesh, out: dict) -> None:
+    """``compress`` on the blocks of the dense model's plan against the
+    blocks of ``compress`` of the global tree (one scale a whole leaf)."""
+    model = Model(_smoke(C.DP_ARCHS["dense"]), "cpu")
+    shapes = model.init(torch.Generator().manual_seed(C.DP_SEED))
+    plan = param_shardings(model.logical_axes(), shapes, mesh)
+    rng = np.random.default_rng(9)
+    g = {path: torch.from_numpy(rng.normal(size=t.shape).astype(np.float32)
+                                * 10.0 ** rng.integers(-3, 3))
+         for path, t in _leaves(shapes)}
+    e = {path: torch.from_numpy(rng.normal(size=t.shape).astype(np.float32)
+                                * 1e-3) for path, t in _leaves(shapes)}
+    flat_plan = dict(_leaves(plan))
+    gb, eb = shard_params(g, flat_plan), shard_params(e, flat_plan)
+    q, scales, err = compress(gb, eb, flat_plan)
+    qg, sg, eg = compress(g, e)
+    for path in g:
+        out[f"compress{path}/q"] = _np(q[path])
+        out[f"compress{path}/scale"] = _np(scales[path])
+        out[f"compress{path}/err"] = _np(err[path])
+        want = shard_params({"x": qg[path], "e": eg[path]},
+                            {"x": flat_plan[path], "e": flat_plan[path]})
+        out[f"compress{path}/q_global"] = _np(want["x"])
+        out[f"compress{path}/scale_global"] = _np(sg[path])
+        out[f"compress{path}/err_global"] = _np(want["e"])
+
+
+def vocab_checks(mesh, out: dict) -> None:
+    """Vocab-parallel ``embed``, ``unembed`` and ``cross_entropy`` on a
+    padded vocabulary (250 tokens in 256 rows, the padding in the last
+    'model' block) against the global ones, with the logits' gradient."""
+    cfg = dataclasses.replace(get_smoke(C.DP_ARCHS["dense"]),
+                              vocab=C.PAD_VOCAB)
+    model = Model(cfg, "cpu")
+    params = model.init(torch.Generator().manual_seed(C.DP_SEED))
+    plan = param_shardings(model.logical_axes(), params, mesh)
+    table = shard_params(params, plan)["embed"]["table"]
+    gen = torch.Generator().manual_seed(4)
+    tokens = torch.randint(0, cfg.vocab, (2, 8), generator=gen)
+    labels = torch.randint(0, cfg.vocab, (2, 8), generator=gen)
+    x = torch.randn((2, 8, cfg.d_model), generator=gen).to(torch.bfloat16)
+    whole = {"table": params["embed"]["table"]}
+    # the data axes gather the table's d_model; 'model' keeps the rows
+    rows = {"table": _gather(table, mesh, ("data",), 1),
+            MODEL_BLOCKS: frozenset({"table"})}
+    with shard_scope(mesh):
+        out["vocab/embed"] = _np(embed(rows, tokens, cfg))
+        logits = unembed(rows, x, cfg).requires_grad_()
+        ce = cross_entropy(logits, labels, mesh)
+        (grad,) = torch.autograd.grad(ce, logits)
+    out["vocab/embed_global"] = _np(embed(whole, tokens, cfg))
+    out["vocab/logits"] = _np(logits)
+    out["vocab/ce"] = _np(ce)
+    out["vocab/grad"] = _np(grad)
+    logits_g = unembed(whole, x, cfg).requires_grad_()
+    ce_g = cross_entropy(logits_g, labels)
+    (grad_g,) = torch.autograd.grad(ce_g, logits_g)
+    out["vocab/logits_global"] = _np(logits_g)
+    out["vocab/ce_global"] = _np(ce_g)
+    out["vocab/grad_global"] = _np(grad_g)
+
+
+def serve_checks(mesh, out: dict) -> None:
+    """Prefill under the training layout's plan and decode steps under the
+    serving layout's (the cache held as ``cache_pspecs`` lays it out), each
+    step's logits gathered over the mesh; rank 0 also runs the unsharded
+    model."""
+    b, s, steps = C.SERVE
+    for family, arch in C.DP_ARCHS.items():
+        cfg = _smoke(arch)
+        model = Model(cfg, "cpu")
+        params = model.init(torch.Generator().manual_seed(C.DP_SEED))
+        axes = model.logical_axes()
+        toks = torch.randint(1, cfg.vocab, (b, s + steps),
+                             generator=torch.Generator().manual_seed(6))
+        cache_plan = cache_pspecs(Model(cfg, "meta").init_cache(
+            b, s + steps), mesh, b)
+        d = mesh.get_local_rank("data")
+        mine = toks.chunk(C.MESH[0])[d]
+        pplan = param_shardings(axes, params, mesh)
+        dplan = param_shardings(axes, params, mesh, fsdp=False, moe_2d=True)
+        logits, cache = make_prefill_step(
+            model, param_shardings=pplan, cache_shardings=cache_plan,
+            max_len=s + steps)(shard_params(params, pplan),
+                               {"tokens": mine[:, :s]})
+        got = [logits]
+        dec = make_decode_step(model, param_shardings=dplan,
+                               cache_shardings=cache_plan)
+        dblocks = shard_params(params, dplan)
+        for i in range(steps):
+            nxt, logits, cache = dec(dblocks, cache, mine[:, s + i:s + i + 1])
+            got.append(logits)
+            out[f"serve/{family}/next/{i}"] = _np(_gather(
+                nxt, mesh, ("data",), 0))
+        for i, lg in enumerate(got):
+            lg = _gather(_gather(lg, mesh, ("model",), 1), mesh, ("data",),
+                         0)
+            out[f"serve/{family}/mesh/{i}"] = _np(lg)
+        if dist.get_rank() == 0:
+            lg, cache = model.prefill(params, {"tokens": toks[:, :s]},
+                                      max_len=s + steps)
+            out[f"serve/{family}/one/0"] = _np(lg)
+            for i in range(steps):
+                lg, cache = model.decode_step(params, cache,
+                                              toks[:, s + i:s + i + 1])
+                out[f"serve/{family}/one/{i + 1}"] = _np(lg)
 
 
 def dtensor_checks(mesh, out: dict) -> None:
@@ -169,7 +288,10 @@ def main() -> int:
     psum_checks(out)
     batch_checks(mesh, out)
     dtensor_checks(mesh, out)
-    dp_checks(rank, out)
+    dp_checks(mesh, rank, out)
+    compress_checks(mesh, out)
+    vocab_checks(mesh, out)
+    serve_checks(mesh, out)
     dist.barrier()
     dist.destroy_process_group()
     np.savez(dest / f"rank{rank}.npz", **out)
