@@ -129,11 +129,19 @@ Phases, each of which raises (and so exits non-zero) on failure:
                  --mesh-rank`` in a process of its own: rank 0 of gemma-2b
                  ``train_4k`` on the (16, 16) plan over a ``fake``
                  256-rank group, its blocks and its 16 rows real CUDA
-                 tensors, one train step (values not checked):
+                 tensors, one train step with the residual stream
+                 sequence parallel over 'model' (values not checked):
                  ``max_memory_allocated`` within 15% of the dry run's
                  fake-tensor peak for the same cell (lm_dryrun's trace)
                  and under the card's memory, its arguments the plan's
-                 bytes.
+                 bytes; (g) in the same process, rank 0 of command-r-35b
+                 ``decode_32k`` at full width on the plan's serving
+                 layout, its cache block seeded in the plan's layout
+                 (head_dim over 'model'), one decode step: peak within
+                 15% of the dry run's for that cell, B5 launched 0 times
+                 by design (the rank attends over its head_dim block),
+                 ms a step printed as compute only (the fake group moves
+                 no bytes).
   7c. lm_dryrun — the dry run (``launch/dryrun.py``) against real steps
                  of gemma-2b at full width: (a) the train step at
                  lm_train's B=2, S=1,024 (remat full): ``FlopCounterMode``
@@ -4029,19 +4037,23 @@ def mesh_roofline(torch, runs=FAMILY_RUNS) -> dict:
     return rows
 
 
-MESH_RANK_TIMEOUT = 600  # (f): seconds for its process
+MESH_RANK_TIMEOUT = 600  # (f) and (g): seconds for their process
+MESH_DECODE_CELL = ("command-r-35b", "decode_32k")  # (g)
+MESH_DECODE_REPS = 3  # (g): timed steps after the measured one
 
 
 def mesh_rank_run() -> int:
-    """(f)'s process (``python3 chip_smoke.py --mesh-rank``): rank 0 of
-    :data:`DRYRUN_CELL` on the (16, 16) plan over a ``fake`` world of 256
-    ranks, with real CUDA tensors holding its blocks of the parameters and
-    moments and its block of the batch (seeded, values not checked): one
-    train step as the dry run traces it (``microbatches`` its default,
-    remat full, donated).  Prints one JSON line: the card's
+    """(f) and (g)'s process (``python3 chip_smoke.py --mesh-rank``): rank
+    0 of :data:`DRYRUN_CELL` on the (16, 16) plan over a ``fake`` world of
+    256 ranks, with real CUDA tensors holding its blocks of the parameters
+    and moments and its block of the batch (seeded, values not checked):
+    one train step as the dry run traces it (``microbatches`` its
+    default, remat full, donated, sequence parallel over 'model'); then
+    (g), :func:`mesh_decode_rank`.  Prints one JSON line: the card's
     ``max_memory_allocated`` over the step, the arguments' bytes, the
-    step's seconds.  The fake group moves no bytes: its gathers leave
-    their outputs as the allocator gave them."""
+    step's seconds, and (g)'s row under ``decode``.  The fake group moves
+    no bytes: its collectives leave their outputs as the allocator gave
+    them."""
     import torch
     import torch.distributed as dist
 
@@ -4084,20 +4096,99 @@ def mesh_rank_run() -> int:
         t0 = time.perf_counter()
         step(params, opt, batch)
         torch.cuda.synchronize()
-        print(json.dumps({
-            "max_memory_allocated": torch.cuda.max_memory_allocated(),
-            "argument_bytes": args, "microbatches": mb, "rows": rows,
-            "seconds": time.perf_counter() - t0}))
+        row = {"max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "argument_bytes": args, "microbatches": mb, "rows": rows,
+               "seconds": time.perf_counter() - t0}
+        del params, opt, batch, step
+        gc_cuda(torch)
+        row["decode"] = mesh_decode_rank(mesh, torch)
+        print(json.dumps(row))
     finally:
         dist.destroy_process_group()
     return 0
 
 
-def mesh_rank(torch, smi, cell) -> dict:
-    """(f) :func:`mesh_rank_run` in a process of its own (a process holds
-    one process group: lm_mesh's NCCL one is up here), its peak against the
-    dry run's fake-tensor peak of the same cell (``cell``: lm_dryrun's
-    trace, :func:`dryrun_cell_start`): within DRYRUN_MEM_BAND, and under
+def mesh_decode_rank(mesh, torch, dev="cuda", cfg=None) -> dict:
+    """(g): rank 0 of :data:`MESH_DECODE_CELL` (command-r-35b x
+    decode_32k) on ``mesh``'s plan (the (16, 16) ``fake`` world) at full
+    width (``cfg``: another configuration, for rehearsals), with real
+    tensors: its blocks of the serving layout's parameters
+    (``fsdp=False, moe_2d=True``) and of a full cache seeded in the plan's
+    layout (``cache_pspecs``: the batch over 'data', the head_dim over
+    'model', every slot but the last holding its position), and its 8
+    rows of tokens.  One decode step at position ``seq_len - 1``, as the
+    dry run traces it: ``max_memory_allocated`` over it, then
+    :data:`MESH_DECODE_REPS` more timed with CUDA events (compute only:
+    the fake group's collectives move nothing).  B5 must not launch: the
+    plan splits the cache's head_dim over 'model' (8 kv heads do not
+    divide 16), so each rank attends over its head_dim block
+    (``attention._attend_blocks``), by design, where B5 needs whole head
+    dims."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.distributed.sharding import (
+        _axis_size, _map, _names, batch_pspec, block_shape, cache_pspecs,
+        param_shardings)
+    from repro_torch.kernels import decode_attn as tda
+    from repro_torch.launch.dryrun import _nbytes
+    from repro_torch.launch.specs import cache_specs, state_specs
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models import build_model
+
+    arch, shape_name = MESH_DECODE_CELL
+    shape, cfg = SHAPES[shape_name], cfg or get_config(arch)
+    serve = dict(fsdp=False, moe_2d=True)
+    model = build_model(cfg, dev).set_mesh(mesh)
+    params_g, _, axes = state_specs(model)
+    plan = param_shardings(axes, params_g, mesh, **serve)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    params = _map(lambda t: (torch.randn(
+        t.shape, generator=gen, device=dev) * 0.02).to(t.dtype),
+        state_specs(model, mesh, **serve)[0])
+    cache_s = cache_specs(model, shape)
+    c_specs = cache_pspecs(cache_s, mesh, shape.global_batch)
+    t = shape.seq_len
+
+    def seeded(leaf, spec):
+        sh = block_shape(leaf.shape, spec, mesh)
+        if leaf.dtype == torch.int32:  # slot i holds position i; last free
+            pos = torch.arange(t, dtype=torch.int32, device=dev)
+            pos[-1] = -1
+            return pos.expand(sh).contiguous()
+        return (torch.randn(sh, generator=gen, device=dev)).to(leaf.dtype)
+
+    layers = _map(seeded, cache_s["layers"], c_specs["layers"])
+    held = tuple(c_specs["layers"][0].k)
+    spec = batch_pspec(shape.global_batch, mesh)
+    baxes = _names(spec[0])
+    rows = shape.global_batch // _axis_size(mesh, baxes)
+    tokens = torch.randint(0, cfg.vocab, (rows, 1), generator=gen,
+                           device=dev, dtype=torch.int32)
+    step = make_decode_step(model, param_shardings=plan,
+                            cache_shardings=c_specs, batch_axes=baxes)
+    args = _nbytes((params, layers, tokens))
+    b5 = tda.launches[B5]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(params, {"layers": layers, "len": t - 1}, tokens)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    ms = cuda_ms(lambda: step(params, {"layers": layers, "len": t - 1},
+                              tokens), MESH_DECODE_REPS, warmup=0)
+    launched = tda.launches[B5] - b5
+    if launched:
+        raise AssertionError(f"lm_mesh (g): B5 launched {launched} times "
+                             f"over a cache held as {held}")
+    return {"max_memory_allocated": peak, "argument_bytes": args,
+            "rows": rows, "held": str(held), "b5_launches": launched,
+            "ms_compute_only": ms}
+
+
+def mesh_rank(torch, smi, cell, dcell) -> dict:
+    """(f) and (g): :func:`mesh_rank_run` in a process of its own (a
+    process holds one process group: lm_mesh's NCCL one is up here), each
+    peak against the dry run's fake-tensor peak of the same cell
+    (``cell``: lm_dryrun's trace, ``dcell``: :data:`MESH_DECODE_CELL`'s,
+    both :func:`dryrun_cell_start`): within DRYRUN_MEM_BAND, and under
     the card's memory."""
     t0 = time.perf_counter()
     r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
@@ -4107,6 +4198,7 @@ def mesh_rank(torch, smi, cell) -> dict:
         raise AssertionError(f"lm_mesh (f): the rank's step failed (rc "
                              f"{r.returncode}): {r.stderr[-4000:]}")
     row = json.loads(r.stdout.strip().splitlines()[-1])
+    row["decode"] = mesh_decode_check(row["decode"], dcell, smi)
     rec = dryrun_cell_end(cell, timeout=600)
     fake = rec["memory"]["peak_bytes"]
     if rec["memory"]["argument_size_in_bytes"] != row["argument_bytes"]:
@@ -4132,15 +4224,48 @@ def mesh_rank(torch, smi, cell) -> dict:
     return row
 
 
+def mesh_decode_check(row, dcell, smi) -> dict:
+    """(g)'s row against the dry run's record of the same cell: the same
+    arguments, the peak within DRYRUN_MEM_BAND."""
+    rec = dryrun_cell_end(dcell, timeout=600, cell=MESH_DECODE_CELL)
+    fake = rec["memory"]["peak_bytes"]
+    if rec["memory"]["argument_size_in_bytes"] != row["argument_bytes"]:
+        raise AssertionError(f"lm_mesh (g): the rank holds "
+                             f"{row['argument_bytes']} bytes of arguments, "
+                             f"the dry run traced "
+                             f"{rec['memory']['argument_size_in_bytes']}")
+    ratio = row["max_memory_allocated"] / fake
+    row.update(fake_peak_bytes=fake, ratio=ratio)
+    log(f"lm_mesh (g) {MESH_DECODE_CELL[0]} x {MESH_DECODE_CELL[1]}, rank 0 "
+        f"of the (16, 16) plan's serving layout on the fake 256-rank group "
+        f"with real CUDA tensors ({row['rows']} rows, the cache held as "
+        f"{row['held']}, seeded): one decode step, max_memory_allocated "
+        f"{row['max_memory_allocated']} bytes against the dry run's "
+        f"fake-tensor peak {fake} ({ratio:.4f}); arguments "
+        f"{row['argument_bytes']} bytes (the plan's); B5 launched "
+        f"{row['b5_launches']} times, by design: the cache's head_dim is "
+        f"split over 'model' (its 8 kv heads do not divide 16), so the rank "
+        f"attends over its head_dim block with the reference's f32 scores "
+        f"summed over 'model' (attention._attend_blocks), where B5 needs "
+        f"whole head dims; {row['ms_compute_only']:.3f} ms a step, compute "
+        f"only (the fake group moves no bytes; CUDA events, "
+        f"{MESH_DECODE_REPS} steps); {smi}")
+    if abs(ratio - 1.0) > DRYRUN_MEM_BAND:
+        raise AssertionError(f"lm_mesh (g): peak {ratio:.4f} of the dry "
+                             f"run's (band {DRYRUN_MEM_BAND})")
+    return row
+
+
 def phase_lm_mesh(torch, smi, dev="cuda", moe_cfg=None,
-                  train_cfg=None, cell=None) -> tuple:
+                  train_cfg=None, cell=None, dcell=None) -> tuple:
     """The multi-card layer on a one-rank NCCL mesh (``make_local_mesh(1,
     1)``, its ``file://`` store under ``build/``): (a) qwen3-moe's serving
     path through the planned steps and ``moe_ffn_ep``, (b) the blocked
     train step with a plan, (c) ``compressed_psum``, (d) the meta-device
     specs, (e) roofline FLOP counts; then (f) one rank of the (16, 16)
-    plan with real allocations (``cell``: lm_dryrun's trace of the same
-    cell; None skips it, for rehearsals).  The group is destroyed at the
+    plan's train step and (g) one of its decode step with real
+    allocations (``cell``, ``dcell``: the dry run's traces of the same
+    cells; None skips them, for rehearsals).  The group is destroyed at the
     end, whatever happens.  Returns (B5 launches of (a)'s meshed decode,
     rows)."""
     import torch.distributed as dist
@@ -4164,7 +4289,7 @@ def phase_lm_mesh(torch, smi, dev="cuda", moe_cfg=None,
         MESH_STORE.unlink(missing_ok=True)
     if cell is not None:
         gc_cuda(torch)
-        rows["rank"] = mesh_rank(torch, smi, cell)
+        rows["rank"] = mesh_rank(torch, smi, cell, dcell)
     rows["seconds"] = time.perf_counter() - t_phase
     log(f"lm_mesh took {rows['seconds']:.1f} s")
     return rows["moe"]["b5_launches"], rows
@@ -4177,20 +4302,20 @@ DRYRUN_MEM_BAND = 0.15  # the fake-tensor peak against the card's, relative
 DRYRUN_DECODE = (4, 1024)  # lm_serve's batch and max_len
 
 
-def dryrun_cell_start():
-    """``python -m repro_torch.launch.dryrun`` on :data:`DRYRUN_CELL` (the
-    (16, 16) mesh), on the CPU in a subprocess with no card visible,
-    started with the LM phases so that it runs beside them (it is killed
-    at exit if it still runs); its output goes to ``build/dryrun/``."""
+def dryrun_cell_start(cell=DRYRUN_CELL):
+    """``python -m repro_torch.launch.dryrun`` on ``cell`` (the (16, 16)
+    mesh), on the CPU in a subprocess with no card visible, started with
+    the LM phases so that it runs beside them (it is killed at exit if it
+    still runs); its output goes to ``build/dryrun/``."""
     import atexit
     import os
 
     DRYRUN_OUT.mkdir(parents=True, exist_ok=True)
-    arch, shape = DRYRUN_CELL
+    arch, shape = cell
     (DRYRUN_OUT / f"{arch}__{shape}__pod.json").unlink(missing_ok=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                CUDA_VISIBLE_DEVICES="")
-    with open(DRYRUN_OUT / "cell.log", "w") as out:
+    with open(DRYRUN_OUT / f"{arch}__{shape}.log", "w") as out:
         proc = subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
              arch, "--shape", shape, "--mesh", "pod", "--out",
@@ -4206,22 +4331,23 @@ def dryrun_cell_start():
     return proc
 
 
-def dryrun_cell_end(proc, timeout: float) -> dict:
-    """Wait for :func:`dryrun_cell_start`'s process (killed past
-    ``timeout`` seconds) and return its record; raises unless it is ok."""
+def dryrun_cell_end(proc, timeout: float, cell=DRYRUN_CELL) -> dict:
+    """Wait for :func:`dryrun_cell_start`'s process on ``cell`` (killed
+    past ``timeout`` seconds) and return its record; raises unless it is
+    ok."""
     try:
         proc.wait(timeout=timeout)
     except subprocess.TimeoutExpired:
         proc.kill()
         proc.wait()
-        raise AssertionError(f"lm_dryrun: the {DRYRUN_CELL} dry run took "
+        raise AssertionError(f"lm_dryrun: the {cell} dry run took "
                              f"more than {timeout} s")
-    arch, shape = DRYRUN_CELL
+    arch, shape = cell
     path = DRYRUN_OUT / f"{arch}__{shape}__pod.json"
     rec = json.loads(path.read_text()) if path.exists() else {}
-    out = (DRYRUN_OUT / "cell.log").read_text()
+    out = (DRYRUN_OUT / f"{arch}__{shape}.log").read_text()
     if proc.returncode != 0 or rec.get("status") != "ok":
-        raise AssertionError(f"lm_dryrun: the {DRYRUN_CELL} dry run failed "
+        raise AssertionError(f"lm_dryrun: the {cell} dry run failed "
                              f"(rc {proc.returncode}): {out[-4000:]}")
     log(f"lm_dryrun (e) {out.strip().splitlines()[-1]}")
     return rec
@@ -4539,6 +4665,7 @@ def main(argv=None) -> int:
     # The LM slice first, while the card holds nothing else; lm_dryrun's
     # full-size cell traces on the CPU meanwhile.
     cell = dryrun_cell_start()
+    dcell = dryrun_cell_start(MESH_DECODE_CELL)
     lm_err = phase_lm_kernel(torch)
     model, params, served, lm = phase_lm_serve(torch)
     lm_times = phase_lm_time(torch)
@@ -4547,7 +4674,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     fam_launches, fam_rows = phase_lm_families(torch)
     train_rows = phase_lm_train(torch)
-    mesh_launches, mesh_rows = phase_lm_mesh(torch, smi, cell=cell)
+    mesh_launches, mesh_rows = phase_lm_mesh(torch, smi, cell=cell,
+                                             dcell=dcell)
     dry_launches, dry_rows = phase_lm_dryrun(torch, smi, cell)
 
     t0 = time.perf_counter()

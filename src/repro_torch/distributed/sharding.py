@@ -26,7 +26,10 @@ and the steps compute with blocks.  :func:`use` gathers a leaf on use
 (ZeRO-3), with a gradient summed over the mesh dims where the rank's
 compute differs and taken as the rank's own block elsewhere;
 :func:`copy_to_model` and :func:`reduce_from_model` are Megatron's two
-tensor-parallel operators; :func:`split`, :func:`gather` and
+tensor-parallel operators; :func:`sum_rows` sums row-parallel partials
+(all-reduced, or reduce-scattered along the sequence under sequence
+parallelism) and :func:`mine` makes a gradient every rank holds whole
+into this rank's part of it; :func:`split`, :func:`gather` and
 :func:`all_to_all` carry their transposes; :func:`relayout` moves a
 decode cache between its plan and a step's layout.
 """
@@ -480,6 +483,59 @@ def copy_to_model(x: torch.Tensor, mesh) -> torch.Tensor:
     """Megatron's column-parallel input: the identity, its gradient summed
     over 'model'."""
     return reduce_sum(x, mesh, (), ("model",))
+
+
+class _Mine(torch.autograd.Function):
+    """The identity, whose gradient keeps this rank's block along ``dim``
+    over 'model' and zeroes the rest."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        out = torch.zeros_like(g)
+        _own(out, ctx.mesh, ("model",), ctx.dim).copy_(
+            _own(g, ctx.mesh, ("model",), ctx.dim))
+        return out, None, None
+
+
+def mine(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """``x``, whose gradient, which every rank holds whole (a replicated
+    compute's), becomes this rank's part of it: its block along ``dim``
+    over 'model', zeros elsewhere, so that a sum over 'model' counts it
+    once (:class:`_Mine`)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Mine.apply(x, mesh, dim)
+    return x
+
+
+class _RowSum(torch.autograd.Function):
+    """Row-parallel partials (f32) summed over 'model' in f32 and rounded
+    once to ``dtype``: all-reduced, or with ``dim`` reduce-scattered along
+    it (sequence parallelism: this rank keeps its block).  The backward
+    is the transpose: the gradient as it is, or gathered along ``dim``
+    in ``dtype``."""
+
+    @staticmethod
+    def forward(ctx, part, mesh, dim, dtype):
+        ctx.mesh, ctx.dim = mesh, dim
+        if dim is None:
+            return _sum_f32(part, mesh, ("model",)).to(dtype)
+        return _scatter_sum(part, mesh, ("model",), dim).to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.dim is not None:
+            g = _gather(g, ctx.mesh, ("model",), ctx.dim)
+        return g.float(), None, None, None
+
+
+def sum_rows(part: torch.Tensor, mesh, dtype, dim=None) -> torch.Tensor:
+    """:class:`_RowSum`."""
+    return _RowSum.apply(part, mesh, dim, dtype)
 
 
 def reduce_from_model(x: torch.Tensor, mesh) -> torch.Tensor:

@@ -132,9 +132,11 @@ class _CollectiveLog(TorchDispatchMode):
         g = pg.size()
         operand = _nbytes(args[at])
         link = int(_link_bytes(op, operand, g))
-        for row in (self.out[op], self.by_dim.setdefault(
-                self.dims.get(pg.group_name, pg.group_name),
-                {"bytes": 0, "link_bytes": 0, "count": 0, "size": g})):
+        dim = self.by_dim.setdefault(
+            self.dims.get(pg.group_name, pg.group_name),
+            {"bytes": 0, "link_bytes": 0, "count": 0, "size": g, "ops": {}})
+        for row in (self.out[op], dim, dim["ops"].setdefault(
+                op, {"bytes": 0, "link_bytes": 0, "count": 0})):
             row["bytes"] += operand
             row["link_bytes"] += link
             row["count"] += 1
@@ -149,7 +151,8 @@ def collective_counts(mesh=None):
     its links on a ring) and ``count``, and ``total_bytes``,
     ``total_link_bytes``, ``total_count``; besides them ``by_dim``: the
     same three and the group ``size`` per mesh dim of ``mesh`` (a group
-    outside the mesh under its process group name).  The totals are filled
+    outside the mesh under its process group name), and under ``ops`` the
+    three per collective.  The totals are filled
     in when the block ends.  The port issues its collectives explicitly
     and runs its layers as a Python loop, so no trip count enters."""
     dims = {}

@@ -6,7 +6,10 @@ fast memory while the O(seq) KV cache is streamed, and sliding-window layers
 keep a rotating window-sized cache, so evicted tokens are never read.  The
 attention after the cache write runs through B5
 (``repro_torch.kernels.decode_attn.decode_attention``): the CUDA kernel on
-the card, its plain version on the CPU.
+the card, its plain version on the CPU; where a plan holds the cache's
+head_dim or sequence split over the mesh, each rank attends over its own
+blocks instead, as the reference's one program computes it
+(:func:`_attend_blocks`).
 
 The full-sequence path (``attn_full``, training and prefill) takes the
 dense ``_sdpa`` below ``FLASH_MIN_SEQ`` query rows and the chunked
@@ -25,7 +28,8 @@ import torch
 from ..configs.base import ModelConfig
 from ..kernels.decode_attn import decode_attention
 from .flash import NEG_INF, TileTable, flash_attention, pick_chunk
-from .layers import apply_rope, on_model_block, rmsnorm
+from .layers import (apply_rope, on_model_block, rmsnorm, stream_inputs,
+                     stream_output)
 from .param import Mk
 from .shard_ctx import constrain, constrain_heads, current_mesh
 
@@ -90,8 +94,8 @@ def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig, positions):
     head (:func:`_local_kv` picks the ones a rank's q heads read)."""
     q_split = on_model_block(p, "wq")
     kv_split = on_model_block(p, "wk")
-    xq = _copy_to_model(x) if q_split else x
-    xk = xq if kv_split else x
+    xq, xw = stream_inputs(x, q_split, whole=not kv_split)
+    xk = xq if kv_split else xw
     q, k, v = _proj(xq, p["wq"]), _proj(xk, p["wk"]), _proj(xk, p["wv"])
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"]["w"])
@@ -140,7 +144,7 @@ def _out_proj(out: torch.Tensor, p) -> torch.Tensor:
         from .layers import row_parallel
 
         return row_parallel(o2, wo.reshape(h * k, d))
-    return o2 @ wo.reshape(h * k, d)
+    return stream_output(o2 @ wo.reshape(h * k, d))
 
 
 def _sdpa(q, k, v, mask):
@@ -210,6 +214,26 @@ class CacheLayout(NamedTuple):
     held: tuple
     want: tuple
 
+    def splits(self) -> tuple:
+        """(the mesh dims the held sequence is split over, whether the held
+        head_dim is split over 'model'), counting dims of more than one
+        rank."""
+        from ..distributed.sharding import _axes, _names
+
+        axes = _axes(self.mesh)
+        seq = tuple(n for n in _names(self.held[1]) if axes[n] > 1)
+        hd = any(axes[n] > 1 for n in _names(self.held[3]))
+        return seq, hd
+
+    def step(self) -> tuple:
+        """The entries a step computes with k and v in: ``want``, but the
+        held sequence and head_dim where :meth:`splits` finds either split
+        (the rank attends over its blocks; nothing is gathered)."""
+        seq, hd = self.splits()
+        if not (seq or hd):
+            return self.want
+        return (self.want[0], self.held[1], self.want[2], self.held[3])
+
 
 def attn_decode(
     p,
@@ -241,9 +265,14 @@ def attn_decode(
     and ``serve_batch`` do.
 
     ``layout``: the cache is this rank's block under the plan (see
-    :class:`CacheLayout`): the new entry is written into the block that
-    holds its slot, and what the step does not split (a head_dim over
-    'model', a sequence over the data axes) is gathered for the attention.
+    :class:`CacheLayout`), and the new entry is written into the block
+    that holds its slot.  Where the plan splits the cache's head_dim over
+    'model' or its sequence over the data axes, the rank attends over its
+    own block, as the reference's one program computes it
+    (:func:`_attend_blocks`), and no cache block moves: B5 needs whole
+    head_dims and the whole sequence, so the layout alone, never a
+    failure of B5, chooses that path.  Otherwise B5 runs on the rank's
+    batch and kv heads.
     """
     q, k_new, v_new = _project_qkv(p, x, cfg, positions)
     pos1d = (positions[0] if cfg.m_rope_sections else positions)[:, 0]  # [B]
@@ -252,6 +281,11 @@ def attn_decode(
         k, v, kpos = cache.k, cache.v, cache.pos
     else:
         k, v, kpos = _write_held(cache, k_new, v_new, pos1d, layout)
+        seq, hd = layout.splits()
+        if seq or hd:
+            out = _attend_blocks(p, q, k, v, kpos, pos1d, window, cfg,
+                                 layout.mesh, seq, hd)
+            return _out_proj(out, p), cache
     # the reference's decode layout: head_dim x 'model'
     q = constrain(q, "dp", None, None, "model")
     k = constrain(k, "dp", None, None, "model")
@@ -279,7 +313,7 @@ def _write(cache: KVCache, k_new, v_new, pos1d) -> None:
 def _write_held(cache: KVCache, k_new, v_new, pos1d, layout: CacheLayout):
     """:func:`_write` into this rank's block of the cache (only the rank
     whose sequence block holds the slot writes it), then (k, v, pos) in
-    the step's layout."""
+    the step's layout (:meth:`CacheLayout.step`)."""
     from ..distributed.sharding import _axis_size, _coord, _names, relayout
 
     mesh, held, want = layout
@@ -297,21 +331,128 @@ def _write_held(cache: KVCache, k_new, v_new, pos1d, layout: CacheLayout):
                                                 new[:, 0], buf[bidx, idx]))
     cache.pos.index_put_((bidx, idx), torch.where(mine, pos1d,
                                                   cache.pos[bidx, idx]))
+    want = layout.step()
     return (relayout(cache.k, mesh, held, want),
             relayout(cache.v, mesh, held, want),
             relayout(cache.pos, mesh, held[:2], want[:2]))
 
 
+def _attend_blocks(p, q, k, v, kpos, pos1d, window: int, cfg: ModelConfig,
+                   mesh, seq: tuple, hd: bool) -> torch.Tensor:
+    """The reference's decode attention (``_sdpa`` after its
+    ``constrain(q, "dp", None, None, "model")``) over this rank's blocks
+    of the cache: k, v ``[B, T_loc, KV', hd_loc]`` and kpos ``[B, T_loc]``
+    (``seq``: the mesh dims the sequence is split over; ``hd``: the
+    head_dim split over 'model').  Returns the heads ``_out_proj`` takes
+    ``[B, 1, H', hd]``.
+
+    With ``hd``, q goes from its heads to the head_dim block (one
+    all-to-all over 'model', or a cut where every rank holds every head),
+    the partial f32 scores ``[B, KV, G, 1, T_loc]`` are summed over
+    'model' in f32, and the output goes back to ``wo``'s heads (the
+    reverse exchange, or a gather of the head_dim).  The scale is the
+    whole head_dim's.  Then the reference's mask (``pos >= 0`` and the
+    window).  With ``seq``, the softmax's max is taken over the data axes
+    (MAX), then the exponentials and their sum (SUM, f32); otherwise one
+    f32 softmax.  The probabilities are rounded to bf16 before p.v, as the
+    reference rounds them (ROADMAP §C P9).  With ``seq``, each rank's p.v
+    over its block is an f32 partial, summed over the data axes in f32 and
+    rounded once (§C P37)."""
+    import torch.distributed as dist
+
+    from ..distributed.sharding import _all_reduce
+
+    b, dtype = q.shape[0], q.dtype
+    if hd:
+        q = _heads_to_dims(q, mesh, on_model_block(p, "wq"))
+    else:
+        k, v = _local_kv(p, q, k, v, cfg)
+    kvh, hq = k.shape[2], q.shape[2]
+    qg = q.reshape(b, 1, kvh, hq // kvh, q.shape[-1])
+    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float())
+    if hd:
+        scores = _all_reduce(scores, mesh, ("model",), dist.ReduceOp.SUM)
+    scores = scores * (cfg.head_dim**-0.5)
+    valid = kpos >= 0
+    if window:
+        valid = valid & (kpos > (pos1d[:, None] - window))
+    scores = scores.masked_fill(~valid[:, None, None, None, :], NEG_INF)
+    if seq:
+        m = _all_reduce(scores.amax(dim=-1, keepdim=True), mesh, seq,
+                        dist.ReduceOp.MAX)
+        e = torch.exp(scores - m)
+        total = _all_reduce(e.sum(dim=-1, keepdim=True), mesh, seq,
+                            dist.ReduceOp.SUM)
+        probs = (e / total).to(dtype)
+        out = torch.einsum("bkgst,btkd->bskgd", probs.float(), v.float())
+        out = _all_reduce(out, mesh, seq, dist.ReduceOp.SUM).to(dtype)
+    else:
+        probs = torch.softmax(scores, dim=-1).to(dtype)
+        out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+    out = out.reshape(b, 1, hq, out.shape[-1])
+    if hd:
+        out = _dims_to_heads(out, mesh, on_model_block(p, "wo"))
+    return out
+
+
+def _heads_to_dims(q: torch.Tensor, mesh, split: bool) -> torch.Tensor:
+    """q ``[B, 1, H', hd]`` (this rank's heads where ``split``, else every
+    head) -> every head's block of the head_dim over 'model' ``[B, 1, H,
+    hd_loc]``: one all-to-all over 'model' (a cut without ``split``)."""
+    from ..distributed.sharding import _axis_size, _exchange, _own
+
+    if not split:
+        return _own(q, mesh, ("model",), 3)
+    m = _axis_size(mesh, "model")
+    b, _, h_loc, hd = q.shape
+    send = q[:, 0].reshape(b, h_loc, m, hd // m).permute(2, 0, 1, 3)
+    got = _exchange(send, mesh.get_group("model"))  # [m, B, h_loc, hd_loc]
+    return got.permute(1, 0, 2, 3).reshape(b, 1, m * h_loc, hd // m)
+
+
+def _dims_to_heads(out: torch.Tensor, mesh, split: bool) -> torch.Tensor:
+    """The inverse of :func:`_heads_to_dims`: ``[B, 1, H, hd_loc]`` ->
+    this rank's heads ``[B, 1, H / model, hd]`` where ``split`` (the
+    reverse all-to-all), else every head (the head_dim gathered over
+    'model')."""
+    from ..distributed.sharding import _axis_size, _exchange, _gather
+
+    if not split:
+        return _gather(out, mesh, ("model",), 3)
+    m = _axis_size(mesh, "model")
+    b, _, h, hd_loc = out.shape
+    send = out[:, 0].reshape(b, m, h // m, hd_loc).permute(1, 0, 2, 3)
+    got = _exchange(send, mesh.get_group("model"))  # [m, B, h_loc, hd_loc]
+    return got.permute(1, 2, 0, 3).reshape(b, 1, h // m, m * hd_loc)
+
+
 def attn_cross(p, x: torch.Tensor, enc_k: torch.Tensor, enc_v: torch.Tensor,
-               cfg: ModelConfig) -> torch.Tensor:
+               cfg: ModelConfig,
+               layout: Optional[CacheLayout] = None) -> torch.Tensor:
     """Cross-attention over precomputed encoder K/V (whisper decoder): no
     mask, the chunked path once either side reaches ``FLASH_MIN_SEQ``.
-    ``enc_k``/``enc_v`` as :func:`project_kv` gives them."""
+    ``enc_k``/``enc_v`` as :func:`project_kv` gives them, or, with
+    ``layout`` (a decode step's), this rank's blocks of them as the cache
+    plan holds them: where it splits their head_dim or sequence, the rank
+    attends over its blocks (:func:`_attend_blocks`), else they are moved
+    to the step's layout."""
+    from ..distributed.sharding import relayout
+
     q_split = on_model_block(p, "wq")
-    q = _proj(_copy_to_model(x) if q_split else x, p["wq"])
+    q = _proj(stream_inputs(x, q_split)[0], p["wq"])
     q, _, _ = constrain_heads(q, q, q)
+    if layout is not None:
+        enc_k, enc_v = (relayout(t, layout.mesh, layout.held,
+                                 layout.step()).contiguous()
+                        for t in (enc_k, enc_v))
+        seq, hd = layout.splits()
+        if seq or hd:
+            valid = torch.zeros(enc_k.shape[:2], dtype=torch.int32,
+                                device=x.device)
+            return _out_proj(_attend_blocks(p, q, enc_k, enc_v, valid, None,
+                                            0, cfg, layout.mesh, seq, hd), p)
     enc_k, enc_v = _local_kv(p, q, enc_k, enc_v, cfg)
-    b, s = x.shape[:2]
+    b, s = q.shape[:2]
     t = enc_k.shape[1]
     if s >= FLASH_MIN_SEQ or t >= FLASH_MIN_SEQ:
         ar = dict(dtype=torch.int32, device=x.device)

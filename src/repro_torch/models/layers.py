@@ -17,7 +17,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from .param import Mk
-from .shard_ctx import constrain, current_mesh
+from .shard_ctx import constrain, current_mesh, seq_split
 
 __all__ = [
     "apply_rope",
@@ -98,33 +98,92 @@ def _f32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.float() @ b.float()
 
 
-class _RowParallel(torch.autograd.Function):
-    """``x2 @ w`` where ``x2`` and ``w`` hold this rank's slice of the
-    reduction over 'model': each rank's partial product in f32, summed over
-    'model' in f32 and rounded once to x2's dtype.  The backward is the
-    plain product's (every rank holds the output's gradient whole)."""
+class _SaveRow(torch.autograd.Function):
+    """The identity on ``x2`` that saves ``(x2, w)`` for
+    :class:`_RowProduct`'s backward (``box`` hands it this node).  Saved
+    ahead of the product, they let activation recomputation stop before
+    it: ``torch.utils.checkpoint`` stops once every saved tensor is saved
+    again, a custom function saves after its forward has run, and the
+    backward needs neither the product nor its sum over 'model'."""
 
     @staticmethod
-    def forward(ctx, x2, w, mesh):
-        from ..distributed.sharding import _sum_f32
-
+    def forward(ctx, x2, w, box):
         ctx.save_for_backward(x2, w)
-        return _sum_f32(_f32_product(x2, w), mesh, ("model",)).to(x2.dtype)
+        box.append(ctx)
+        return x2.view_as(x2)
 
     @staticmethod
     def backward(ctx, g):
-        x2, w = ctx.saved_tensors
+        return g, None, None
+
+
+class _RowProduct(torch.autograd.Function):
+    """This rank's f32 partial ``x2 @ w`` of a reduction split over
+    'model' (bf16 operands, no rounding); its inputs are saved by
+    :class:`_SaveRow`.  The backward is the plain product's, against the
+    output's gradient as the bf16 sum passed it."""
+
+    @staticmethod
+    def forward(ctx, x2, w, box):
+        ctx.box = box
+        return _f32_product(x2, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.box[0].saved_tensors
+        g = g.to(x2.dtype)
         dx = g @ w.T if ctx.needs_input_grad[0] else None
         dw = x2.T @ g if ctx.needs_input_grad[1] else None
         return dx, dw, None
 
 
 def row_parallel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` (w 2-D) over this rank's slice of the reduction, summed
-    over the scope mesh's 'model' dim (:class:`_RowParallel`)."""
+    """``x @ w`` (w 2-D) over this rank's slice of the reduction: each
+    rank's partial product in f32, summed over the scope mesh's 'model'
+    dim in f32 and rounded once to x's dtype (ROADMAP §C P34).  Under
+    sequence parallelism (``shard_ctx.seq_split``) the sum is a
+    reduce-scatter along the sequence (dim 1 of x), and each rank keeps
+    its block of it."""
+    from ..distributed.sharding import sum_rows
+
     x2 = x.reshape(-1, x.shape[-1])
-    out = _RowParallel.apply(x2, w, current_mesh())
-    return out.reshape(*x.shape[:-1], w.shape[-1])
+    box = []
+    part = _RowProduct.apply(_SaveRow.apply(x2, w, box), w, box)
+    part = part.reshape(*x.shape[:-1], w.shape[-1])
+    return sum_rows(part, current_mesh(), x.dtype, 1 if seq_split() else None)
+
+
+def stream_inputs(x: torch.Tensor, split: bool, whole: bool = False):
+    """The residual stream ``x`` as a sublayer's products take it: (the
+    input of products on this rank's 'model' block where ``split``, else
+    of products every rank computes whole; with ``whole`` the latter too
+    beside the former).  Under sequence parallelism ``x`` is this rank's
+    block of the sequence, gathered over 'model' once in its dtype: the
+    gradient of the split products' input is summed over 'model' in f32
+    (a reduce-scatter, one rounding), and of the whole products' this
+    rank's block is kept.  Otherwise the split products' input is
+    Megatron's column input (its gradient summed over 'model')."""
+    from ..distributed.sharding import copy_to_model, gather, mine
+
+    mesh = current_mesh()
+    if not seq_split():
+        return (copy_to_model(x, mesh) if split else x), x
+    if not split:
+        xw = gather(x, mesh, ("model",), 1, partial=False)
+        return xw, xw
+    xs = gather(x, mesh, ("model",), 1, partial=True)
+    return xs, (mine(xs, mesh, 1) if whole else None)
+
+
+def stream_output(y: torch.Tensor) -> torch.Tensor:
+    """A sublayer output every rank computed whole, as the residual stream
+    holds it: under sequence parallelism this rank's block of the
+    sequence (its gradient gathered back), else ``y``."""
+    if not seq_split():
+        return y
+    from ..distributed.sharding import split
+
+    return split(y, current_mesh(), ("model",), 1)
 
 
 def mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -138,16 +197,15 @@ def mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if x.dim() == 3:
         x = constrain(x, "dp", None, None)
     split = on_model_block(p, "up")
-    if split:
-        from ..distributed.sharding import copy_to_model
-
-        x = copy_to_model(x, current_mesh())
+    x = stream_inputs(x, split)[0]
     up = pin(x @ p["up"])
     if cfg.gated_mlp:
         h = _act(pin(x @ p["gate"]), cfg.act) * up
     else:
         h = _act(up, cfg.act)
-    return row_parallel(h, p["down"]) if split else h @ p["down"]
+    if split:
+        return row_parallel(h, p["down"])
+    return stream_output(h @ p["down"])
 
 
 def init_embedding(mk: Mk, cfg: ModelConfig):
@@ -275,10 +333,7 @@ def unembed(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     name = "table" if cfg.tie_embeddings else "head"
     table = p["table"].T if cfg.tie_embeddings else p["head"]
     mesh, lo = _vocab_block(p, name, table.shape[1])
-    if mesh is not None:  # vocab-parallel: this rank's block of the logits
-        from ..distributed.sharding import copy_to_model
-
-        x = copy_to_model(x, mesh)
+    x = stream_inputs(x, mesh is not None)[0]  # vocab-parallel: its block
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x2.device.type in ("cuda", "meta"):

@@ -35,9 +35,8 @@ that keeps the weight products; it changes no value, only training memory
 beside them (``distributed.sharding.param_pspecs`` reads both).
 ``set_mesh`` installs the reference's layout hooks: each call runs in the
 mesh's ``shard_ctx`` scope (so the MoE layers take the expert-parallel
-path where its ``model`` dim is > 1), and ``_constrain`` and
-``_constrain_logits`` pin the residual stream and the logits (the
-identity on plain tensors).
+path where its ``model`` dim is > 1), and ``_constrain_logits`` pins the
+logits (the identity on plain tensors).
 
 Under a scope with a plan (a step's ``param_shardings``), the parameters
 are this rank's blocks of it: each layer gathers its leaves on use inside
@@ -45,9 +44,11 @@ its body (:func:`_gathered`; the remat recompute gathers again, ZeRO-3's
 backward), so one layer's gathered leaves live at a time.  Attention's
 heads, the MLP's ffn, the vocabulary and the experts run on the rank's
 block over 'model' where the plan splits them; every other leaf is
-gathered whole and its compute replicated over 'model'.  The decode cache
-is then held as the scope's cache plan (``cache_pspecs``) lays it out, and
-prefill lays its cache out so.
+gathered whole and its compute replicated over 'model'.  Between
+sublayers each rank holds its block of the sequence over 'model' where the
+sequence divides (sequence parallelism, :meth:`Model._seq_split`).  The
+decode cache is then held as the scope's cache plan (``cache_pspecs``)
+lays it out, and prefill lays its cache out so.
 """
 from __future__ import annotations
 
@@ -86,6 +87,8 @@ from .layers import (
     mlp,
     residual_add,
     rmsnorm,
+    stream_inputs,
+    stream_output,
     unembed,
 )
 from .mamba2 import init_mamba2, init_ssm_cache, mamba2_decode, mamba2_full
@@ -98,6 +101,8 @@ from .shard_ctx import (
     current_mesh,
     current_plan,
     rescoped,
+    seq_scope,
+    seq_split,
     shard_scope,
 )
 
@@ -142,6 +147,12 @@ def _on_model_block(name: str, spec, mesh) -> bool:
             and any("model" in _names(e) for e in spec))
 
 
+# The norms that act on the residual stream: under sequence parallelism
+# each rank applies them to its block of the sequence.
+_STREAM_NORMS = frozenset({"ln", "ln1", "ln2", "ln_x", "final_norm",
+                           "enc_norm"})
+
+
 def _gathered(tree, specs, mesh, data: tuple):
     """A layer's (or the embedding's) blocks as it computes with them: the
     leaves :func:`_on_model_block` picks gathered over the data axes alone
@@ -149,9 +160,10 @@ def _gathered(tree, specs, mesh, data: tuple):
     :data:`~.layers.MODEL_BLOCKS`, which the layer functions read), every
     other leaf gathered whole; a moe layer's leaves stay blocks
     (``moe_apply`` gathers them as its path needs).  Their gradients sum
-    over ``data`` (the mesh dims of the rank's batch block) and, for the
-    q/k norms of heads split over 'model', over 'model' too: each rank
-    normed its own heads."""
+    over ``data`` (the mesh dims of the rank's batch block) and over
+    'model' too for the q/k norms of heads split over 'model' (each rank
+    normed its own heads) and, under sequence parallelism, for the
+    residual stream's norms (each rank normed its own positions)."""
     from ..distributed.sharding import use
 
     out, blocks = {}, set()
@@ -165,7 +177,9 @@ def _gathered(tree, specs, mesh, data: tuple):
             out[k] = {"w": use(t["w"], mesh, s["w"],
                                partial=data + (("model",) if heads else ()))}
         elif isinstance(t, dict):
-            out[k] = _gathered(t, s, mesh, data)
+            stream = k in _STREAM_NORMS and seq_split()
+            out[k] = _gathered(t, s, mesh,
+                               data + (("model",) if stream else ()))
         else:
             block = _on_model_block(k, s, mesh)
             if block:
@@ -214,6 +228,18 @@ def _maybe_remat(body: Callable, remat: str) -> Callable:
     return run
 
 
+def _mixer(p, h: torch.Tensor, cfg: ModelConfig, return_state: bool = False):
+    """The SSD mixer over the residual stream's ``h``.  It computes whole
+    on every rank (its 'inner' split is not realised, ROADMAP §A 1): under
+    sequence parallelism it takes the gathered sequence and keeps its own
+    block of the output (the state, with ``return_state``, is whole)."""
+    hw = stream_inputs(h, False)[0]
+    if return_state:
+        y, st = mamba2_full(p, hw, cfg, return_state=True)
+        return stream_output(y), st
+    return stream_output(mamba2_full(p, hw, cfg))
+
+
 def _default_positions(tokens: torch.Tensor) -> torch.Tensor:
     b, s = tokens.shape
     return torch.arange(s, dtype=torch.int32,
@@ -237,7 +263,6 @@ class Model:
         self.device = resolve_device(device)
         self.attention = attention
         self._mesh = None  # set by set_mesh
-        self._msize = 1
         self._plan_specs = None  # (the plan in scope, its spec trees)
 
     # ------------------------------------------------------- distribution
@@ -248,10 +273,7 @@ class Model:
         'model', and of the logits' vocabulary x 'model').  Returns the
         model.  The parameters stay global unless a scope with a plan is
         open (the steps' ``param_shardings``)."""
-        from ..distributed.sharding import _axes
-
         self._mesh = mesh
-        self._msize = _axes(mesh).get("model", 1)
         return self
 
     def _specs(self):
@@ -290,8 +312,9 @@ class Model:
     def _use(self, tree, specs, key: str):
         """``tree[key]`` as a layer computes with it (:meth:`_use_tree`;
         ``specs``: the plan's spec tree beside ``tree``, or None)."""
-        return self._use_tree(tree[key], None if specs is None
-                              else specs[key])
+        if specs is None:
+            return tree[key]
+        return self._use_tree({key: tree[key]}, {key: specs[key]})[key]
 
     @staticmethod
     def _use_tree(tree, specs):
@@ -356,13 +379,51 @@ class Model:
                            plan=current_plan(),
                            cache_plan=current_cache_plan())
 
-    def _constrain(self, x):
-        """Residual-stream pin (a no-op when no mesh is installed)."""
-        if self._mesh is None or x.dim() != 3:
+    def _seq_split(self, s: int) -> bool:
+        """Whether a stack over ``s`` positions holds its residual stream
+        as each rank's block of the sequence over 'model' (the reference's
+        ``seq -> model`` pin, ``_act_ns``): under a plan, on a 'model' dim
+        of more than one rank, where ``s`` divides over it; else the
+        stream is whole on every rank (``_act_ns_noseq``; decode, s = 1,
+        never splits)."""
+        from ..distributed.sharding import _axes
+
+        mesh = current_mesh()
+        if mesh is None or self._specs() is None:
+            return False
+        m = _axes(mesh).get("model", 1)
+        return m > 1 and s > 1 and s % m == 0
+
+    def _constrain(self, x, seq: bool):
+        """The residual stream's layout at the start of a stack: this
+        rank's block of the sequence over 'model' where ``seq``
+        (:meth:`_seq_split`; its gradient gathered back), else ``x``."""
+        if not seq:
             return x
-        s = x.shape[1]
-        seq = "model" if s > 1 and s % self._msize == 0 else None
-        return constrain_m(self._mesh, x, "dp", seq, None)
+        from ..distributed.sharding import split
+
+        return split(x, current_mesh(), ("model",), 1)
+
+    @staticmethod
+    def _whole(x, seq: bool):
+        """The residual stream whole again (its gradient this rank's
+        block), where ``seq`` held a block of it."""
+        if not seq:
+            return x
+        from ..distributed.sharding import gather
+
+        return gather(x, current_mesh(), ("model",), 1, partial=False)
+
+    @staticmethod
+    def _last(x, seq: bool):
+        """The last position's row ``[B, d]`` of the residual stream (held
+        as a block of the sequence where ``seq``: the last rank's)."""
+        if seq:
+            from ..distributed.sharding import _gather
+
+            x = _gather(x[:, -1:].contiguous(), current_mesh(), ("model",),
+                        1)
+        return x[:, -1]
 
     def _constrain_logits(self, logits):
         if self._mesh is None or logits.dim() != 3:
@@ -454,13 +515,24 @@ class Model:
     def _forward(self, params, batch: dict, remat: str, return_hidden: bool):
         cfg = self.cfg
         specs = self._specs()
-        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        enc_out = None
         if cfg.family == "encdec":
             enc_out = self.encode(params, batch)
             x, positions = self._embed_decoder(params, batch, specs)
         else:
             x, positions = self._embed_inputs(params, batch, specs)
-        x = self._constrain(x)
+        seq = self._seq_split(x.shape[1])
+        with seq_scope(seq):
+            return self._stack(params, specs, self._constrain(x, seq),
+                               positions, batch, remat, return_hidden,
+                               enc_out, seq)
+
+    def _stack(self, params, specs, x, positions, batch, remat: str,
+               return_hidden: bool, enc_out, seq: bool):
+        """The forward's layers, final norm and unembedding over the
+        residual stream ``x`` (a block of the sequence where ``seq``)."""
+        cfg = self.cfg
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
         tiles = self._tiles(positions, batch)
         blocks = _layers(params["blocks"], cfg.n_layers)
         bspecs = specs and specs["blocks"]
@@ -480,7 +552,7 @@ class Model:
                     aux = aux + a
                 else:
                     h = mlp(bp["mlp"], h, cfg)
-                return self._constrain(residual_add(x, h)), aux
+                return residual_add(x, h), aux
 
             layer = _maybe_remat(layer, remat)
             for bp, window in zip(blocks, windows):
@@ -489,13 +561,11 @@ class Model:
             def ssm_layer(x, bp):
                 bp = self._use_tree(bp, bspecs)
                 h = rmsnorm(x, bp["ln"]["w"])
-                return self._constrain(
-                    residual_add(x, mamba2_full(bp["ssm"], h, cfg)))
+                return residual_add(x, _mixer(bp["ssm"], h, cfg))
 
             def shared_block(x):
                 shared = self._use(params, specs, "shared")
-                return self._constrain(self._shared_block(
-                    shared, x, positions, tiles)[0])
+                return self._shared_block(shared, x, positions, tiles)[0]
 
             ssm_layer = _maybe_remat(ssm_layer, remat)
             shared_block = _maybe_remat(shared_block, remat)
@@ -506,8 +576,7 @@ class Model:
         else:  # encdec
             def dec_layer(x, bp):
                 bp = self._use_tree(bp, bspecs)
-                return self._constrain(
-                    self._dec_layer(bp, x, positions, tiles, enc_out)[0])
+                return self._dec_layer(bp, x, positions, tiles, enc_out)[0]
 
             dec_layer = _maybe_remat(dec_layer, remat)
             for bp in blocks:
@@ -515,7 +584,7 @@ class Model:
 
         x = rmsnorm(x, self._use(params, specs, "final_norm")["w"])
         if return_hidden:
-            return x, aux
+            return self._whole(x, seq), aux
         return self._constrain_logits(
             unembed(self._use(params, specs, "embed"), x, cfg)), aux
 
@@ -554,14 +623,18 @@ class Model:
             x = x + self._use(params, specs, "embed")["pos"][:s][None]
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
-        for bp in _layers(params["encoder"], cfg.encoder_layers):
-            bp = self._use_tree(bp, specs and specs["encoder"])
-            h = rmsnorm(x, bp["ln1"]["w"])
-            x = residual_add(x, attn_full(bp["attn"], h, cfg, positions,
-                                          causal=False))
-            h = rmsnorm(x, bp["ln2"]["w"])
-            x = self._constrain(residual_add(x, mlp(bp["mlp"], h, cfg)))
-        return rmsnorm(x, self._use(params, specs, "enc_norm")["w"])
+        seq = self._seq_split(s)
+        x = self._constrain(x, seq)
+        with seq_scope(seq):
+            for bp in _layers(params["encoder"], cfg.encoder_layers):
+                bp = self._use_tree(bp, specs and specs["encoder"])
+                h = rmsnorm(x, bp["ln1"]["w"])
+                x = residual_add(x, attn_full(bp["attn"], h, cfg, positions,
+                                              causal=False))
+                h = rmsnorm(x, bp["ln2"]["w"])
+                x = residual_add(x, mlp(bp["mlp"], h, cfg))
+            x = rmsnorm(x, self._use(params, specs, "enc_norm")["w"])
+        return self._whole(x, seq)
 
     # ------------------------------------------------------------ caches
     def init_cache(self, batch: int, max_len: int, enc_len: int = 0):
@@ -684,11 +757,11 @@ class Model:
                                                   bspecs["self_attn"]))
                 x = residual_add(x, h)
                 h = rmsnorm(x, bp["ln_x"]["w"])
-                cross = bspecs and bspecs["cross_attn"]
-                ek, ev = (self._hold(lc[k], cs and cs[k], cross, back=True)
-                          for k in ("cross_k", "cross_v"))
-                x = residual_add(x, attn_cross(bp["cross_attn"], h, ek, ev,
-                                               cfg))
+                x = residual_add(x, attn_cross(
+                    bp["cross_attn"], h, lc["cross_k"], lc["cross_v"], cfg,
+                    layout=cs and CacheLayout(
+                        current_mesh(), tuple(cs["cross_k"]),
+                        self._want(4, _kv_split(bspecs["cross_attn"])))))
                 h = rmsnorm(x, bp["ln2"]["w"])
                 x = residual_add(x, mlp(bp["mlp"], h, cfg))
             new_layers.append(lc)
@@ -782,28 +855,32 @@ class Model:
         bspecs = specs and specs["blocks"]
         s = batch["tokens"].shape[1]
         x, positions = self._embed_inputs(params, batch, specs)
-        x = self._constrain(x)
+        seq = self._seq_split(s)
+        x = self._constrain(x, seq)
         pos1d = positions[0] if cfg.m_rope_sections else positions
         tiles = self._tiles(positions, batch)
         layers = []
-        for l, w in enumerate(self.layer_windows()):
-            bp = self._use_tree(_at(params["blocks"], l), bspecs)
-            h = rmsnorm(x, bp["ln1"]["w"])
-            out, k, v = attn_full(bp["attn"], h, cfg, positions, w,
-                                  tiles=tiles, return_kv=True)
-            x = residual_add(x, out)
-            h = rmsnorm(x, bp["ln2"]["w"])
-            if cfg.family == "moe":
-                hh, _ = moe_apply(bp["moe"], h, cfg, bspecs and bspecs["moe"])
-            else:
-                hh = mlp(bp["mlp"], h, cfg)
-            x = self._constrain(residual_add(x, hh))
-            layers.append(self._hold(
-                self._cache_layout(k, v, pos1d,
-                                   min(w, max_len) if w else max_len, s),
-                cspecs and cspecs[l], bspecs and bspecs["attn"]))
+        with seq_scope(seq):
+            for l, w in enumerate(self.layer_windows()):
+                bp = self._use_tree(_at(params["blocks"], l), bspecs)
+                h = rmsnorm(x, bp["ln1"]["w"])
+                out, k, v = attn_full(bp["attn"], h, cfg, positions, w,
+                                      tiles=tiles, return_kv=True)
+                x = residual_add(x, out)
+                h = rmsnorm(x, bp["ln2"]["w"])
+                if cfg.family == "moe":
+                    hh, _ = moe_apply(bp["moe"], h, cfg,
+                                      bspecs and bspecs["moe"])
+                else:
+                    hh = mlp(bp["mlp"], h, cfg)
+                x = residual_add(x, hh)
+                layers.append(self._hold(
+                    self._cache_layout(k, v, pos1d,
+                                       min(w, max_len) if w else max_len, s),
+                    cspecs and cspecs[l], bspecs and bspecs["attn"]))
         x = rmsnorm(x, self._use(params, specs, "final_norm")["w"])
-        logits = unembed(self._use(params, specs, "embed"), x[:, -1], cfg)
+        logits = unembed(self._use(params, specs, "embed"),
+                         self._last(x, seq), cfg)
         return logits, {"layers": tuple(layers), "len": s}
 
     def _prefill_fused_ssm(self, params, batch: dict, max_len: int, cspecs):
@@ -814,28 +891,33 @@ class Model:
         bspecs = specs and specs["blocks"]
         s = batch["tokens"].shape[1]
         x, positions = self._embed_inputs(params, batch, specs)
+        seq = self._seq_split(s)
+        x = self._constrain(x, seq)
         pos1d = positions[0] if cfg.m_rope_sections else positions
         tiles = self._tiles(positions, batch)
         layers = []
-        for l in range(cfg.n_layers):
-            bp = self._use_tree(_at(params["blocks"], l), bspecs)
-            cs = cspecs and cspecs[l]
-            h = rmsnorm(x, bp["ln"]["w"])
-            y, st = mamba2_full(bp["ssm"], h, cfg, return_state=True)
-            x = residual_add(x, y)
-            if cfg.family == "ssm":
-                layers.append(self._hold(st, cs))
-                continue
-            entry = {"ssm": self._hold(st, cs and cs["ssm"])}
-            if self._has_shared_attn(l):
-                x, k, v = self._shared_block(
-                    self._use(params, specs, "shared"), x, positions, tiles)
-                entry["attn"] = self._hold(
-                    self._cache_layout(k, v, pos1d, max_len, s),
-                    cs and cs["attn"], specs and specs["shared"]["attn"])
-            layers.append(entry)
+        with seq_scope(seq):
+            for l in range(cfg.n_layers):
+                bp = self._use_tree(_at(params["blocks"], l), bspecs)
+                cs = cspecs and cspecs[l]
+                h = rmsnorm(x, bp["ln"]["w"])
+                y, st = _mixer(bp["ssm"], h, cfg, return_state=True)
+                x = residual_add(x, y)
+                if cfg.family == "ssm":
+                    layers.append(self._hold(st, cs))
+                    continue
+                entry = {"ssm": self._hold(st, cs and cs["ssm"])}
+                if self._has_shared_attn(l):
+                    x, k, v = self._shared_block(
+                        self._use(params, specs, "shared"), x, positions,
+                        tiles)
+                    entry["attn"] = self._hold(
+                        self._cache_layout(k, v, pos1d, max_len, s),
+                        cs and cs["attn"], specs and specs["shared"]["attn"])
+                layers.append(entry)
         x = rmsnorm(x, self._use(params, specs, "final_norm")["w"])
-        logits = unembed(self._use(params, specs, "embed"), x[:, -1], cfg)
+        logits = unembed(self._use(params, specs, "embed"),
+                         self._last(x, seq), cfg)
         return logits, {"layers": tuple(layers), "len": s}
 
     def _prime_cache(self, params, batch, max_len: int, cspecs):
@@ -848,12 +930,15 @@ class Model:
         enc_out = self.encode(params, batch)
         x, positions = self._embed_decoder(params, batch, specs)
         s = positions.shape[1]
+        seq = self._seq_split(s)
+        x = self._constrain(x, seq)
         tiles = self._tiles(positions, batch)
         layers = []
         for l in range(cfg.n_layers):
             bp = self._use_tree(_at(params["blocks"], l), bspecs)
-            x, k, v, ek, ev = self._dec_layer(bp, x, positions, tiles,
-                                              enc_out)
+            with seq_scope(seq):
+                x, k, v, ek, ev = self._dec_layer(bp, x, positions, tiles,
+                                                  enc_out)
             cs = cspecs and cspecs[l]
             cross = bspecs and bspecs["cross_attn"]
             layers.append({

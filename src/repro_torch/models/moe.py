@@ -230,15 +230,15 @@ def _whole(p, specs, mesh, partial):
 
 
 def _ep(p, specs, x: torch.Tensor, cfg: ModelConfig, mesh, *, serving: bool,
-        aux_partial: tuple):
+        aux_partial: tuple, seq_block: bool = False):
     """The expert-parallel layer on this rank's tokens ``x`` (training:
-    its data block [b, s, d], cut here to its sequence block over 'model';
-    serving: every token): route locally with the capacity of the local
-    token count, exchange capacity buckets with the experts' owners over
-    'model' and back, and return (this rank's y, the aux loss averaged
-    over every rank).  ``aux_partial``: the mesh dims over which the
-    loss the aux enters differs (a sharded batch's), whose gradients it
-    sums."""
+    its data block [b, s, d], cut here to its sequence block over 'model',
+    or that block already with ``seq_block``; serving: every token):
+    route locally with the capacity of the local token count, exchange
+    capacity buckets with the experts' owners over 'model' and back, and
+    return (this rank's y, the aux loss averaged over every rank).
+    ``aux_partial``: the mesh dims over which the loss the aux enters
+    differs (a sharded batch's), whose gradients it sums."""
     from ..distributed.sharding import (
         _axes, _axis_size, _names, all_to_all, gather, reduce_sum, split,
         use)
@@ -249,7 +249,8 @@ def _ep(p, specs, x: torch.Tensor, cfg: ModelConfig, mesh, *, serving: bool,
     msize = axes.get("model", 1)
     dp = _data(mesh)
     seq_shard = not serving and msize > 1
-    xl = split(x, mesh, ("model",), 1) if seq_shard else x
+    cut = seq_shard and not seq_block
+    xl = split(x, mesh, ("model",), 1) if cut else x
     b_l, s_l, _ = xl.shape
     t_l = b_l * s_l
     cap = moe_capacity(t_l, cfg)
@@ -281,7 +282,7 @@ def _ep(p, specs, x: torch.Tensor, cfg: ModelConfig, mesh, *, serving: bool,
         out = out.reshape(e_loc, msize, cap, d).transpose(0, 1)
         out = all_to_all(out, group).reshape(e, cap, d)  # [E, cap, d]
     y = _unroute(out, dispatch, t_l, d, x.dtype).reshape(b_l, s_l, d)
-    if seq_shard:
+    if cut:
         y = gather(y, mesh, ("model",), 1, partial=False)
     return y, aux
 
@@ -293,16 +294,33 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, specs=None):
     Under a scope whose batch is sharded (``batch_axes``), ``x`` is this
     rank's block: the training layout routes it as it is (its data block
     is the reference's shard); serving and the single-program path gather
-    the tokens over those dims first and keep this rank's block of y."""
+    the tokens over those dims first and keep this rank's block of y.
+
+    Under sequence parallelism (``shard_ctx.seq_split``) ``x`` is this
+    rank's block of the sequence over 'model' too: where the batch is a
+    block over every data axis, that is the reference's token shard of
+    the training layout, which routes it as it is; any other path takes
+    the sequence gathered and keeps its block of y."""
     from ..distributed.sharding import (
         PartitionSpec, _axes, _axis_size, _block, _entry, gather)
-    from .shard_ctx import batch_axes, current_mesh
+    from .layers import stream_inputs, stream_output
+    from .shard_ctx import batch_axes, current_mesh, seq_scope, seq_split
 
     mesh = current_mesh()
     if mesh is None:
         return moe_ffn(p, x, cfg)
     names = tuple(a for a in batch_axes() if _axes(mesh)[a] > 1)
     b, s, _ = x.shape
+    if seq_split():
+        if names == _data(mesh) and _ep_fits(
+                cfg, mesh, b * _axis_size(mesh, names),
+                s * _axes(mesh)["model"]):
+            p, specs = _ep_blocks(p, specs, mesh, False)
+            return _ep(p, specs, x, cfg, mesh, serving=False,
+                       aux_partial=names, seq_block=True)
+        with seq_scope(False):
+            y, aux = moe_apply(p, stream_inputs(x, False)[0], cfg, specs)
+        return stream_output(y), aux
     ep = (_axes(mesh).get("model", 1) > 1
           and _ep_fits(cfg, mesh, b * _axis_size(mesh, names), s))
     if not names:

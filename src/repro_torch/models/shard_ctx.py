@@ -19,6 +19,11 @@ A scope may carry the plan too (``plan``: a tree of ``NamedSharding``
 beside the parameters): the parameters the model is called with are then
 this rank's blocks of it, and the model gathers each layer's leaves on use
 (``Model`` reads ``current_plan``).
+
+``seq_scope`` marks the residual stream of the model call as split over
+'model' along the sequence (the reference's ``seq -> model`` pin,
+sequence parallelism): the layer functions then take and return this
+rank's block of the sequence (``seq_split``).
 """
 from __future__ import annotations
 
@@ -30,7 +35,7 @@ from ..distributed.sharding import (
 
 __all__ = ["batch_axes", "constrain", "constrain_heads", "constrain_m",
            "current_cache_plan", "current_mesh", "current_plan", "rescoped",
-           "shard_scope"]
+           "seq_scope", "seq_split", "shard_scope"]
 
 _VAR: contextvars.ContextVar = contextvars.ContextVar("repro_shard_ctx",
                                                       default=None)
@@ -40,6 +45,8 @@ _PLAN: contextvars.ContextVar = contextvars.ContextVar(
     "repro_shard_ctx_plan", default=None)
 _CACHE_PLAN: contextvars.ContextVar = contextvars.ContextVar(
     "repro_shard_ctx_cache_plan", default=None)
+_SEQ: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_shard_ctx_seq", default=False)
 
 
 @contextlib.contextmanager
@@ -67,16 +74,33 @@ def current_mesh():
     return _VAR.get()
 
 
+@contextlib.contextmanager
+def seq_scope(on: bool):
+    """Mark the residual stream as this rank's block of the sequence over
+    'model' (``on``), or as whole, inside the block."""
+    token = _SEQ.set(bool(on))
+    try:
+        yield
+    finally:
+        _SEQ.reset(token)
+
+
+def seq_split() -> bool:
+    """Whether the current residual stream is this rank's block of the
+    sequence over the scope mesh's 'model' dim."""
+    return _SEQ.get()
+
+
 def rescoped(fn):
     """``fn`` run in the scope that is current now, wherever it is called
     later: activation recomputation runs a layer again in the backward,
     after the step's scope has closed."""
-    mesh, batch, plan, cplan = (_VAR.get(), _BATCH.get(), _PLAN.get(),
-                                _CACHE_PLAN.get())
+    mesh, batch, plan, cplan, seq = (_VAR.get(), _BATCH.get(), _PLAN.get(),
+                                     _CACHE_PLAN.get(), _SEQ.get())
 
     def run(*args):
         with shard_scope(mesh, batch_axes=batch, plan=plan,
-                         cache_plan=cplan):
+                         cache_plan=cplan), seq_scope(seq):
             return fn(*args)
 
     return run

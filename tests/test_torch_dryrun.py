@@ -413,43 +413,60 @@ def test_data_parallel_step_all_reduces_f32_gradients(train_record):
     use (again in the remat recompute: ZeRO-3's backward), its gradient
     reduce-scattered over 'data' in f32 (one a use), and over 'data'
     nothing else but four f32 all-reduces (the loss, the ce and two groups
-    of the gradient norm's squares); over 'model' all-reduces alone (the
-    row-parallel sums, the column-parallel inputs' gradients, the
-    vocabulary's max, sum and label logit, the norm)."""
+    of the gradient norm's squares).  Over 'model', sequence parallelism
+    (128 positions, a block of 32 a rank): the stream gathered in bf16
+    before each column-parallel sublayer and the unembedding, the
+    row-parallel sums reduce-scattered in f32, and the transposes of both
+    in the backward; all-reduces for the embedding's rows, the
+    vocabulary's max, sum and label logit, the kv heads' gradients (one
+    kv head, computed whole), the stream norms' gradients (each rank
+    normed its block) and the norm."""
     coll = train_record["collectives"]
     mb = train_record["microbatches"]
     layer, words = _gathered_numel("gemma-2b")
     uses = layer + 3  # + the table twice and the final norm
-    assert coll["reduce-scatter"] == {"bytes": mb * 4 * words,
-                                      "link_bytes": mb * 2 * words,
-                                      "count": mb * uses}
-    assert coll["all-gather"]["count"] == mb * (2 * layer + 3)
     data, model = coll["by_dim"]["data"], coll["by_dim"]["model"]
+    assert data["ops"]["reduce-scatter"] == {"bytes": mb * 4 * words,
+                                             "link_bytes": mb * 2 * words,
+                                             "count": mb * uses}
+    assert data["ops"]["all-gather"]["count"] == mb * (2 * layer + 3)
     assert data["size"] == 2 and model["size"] == 4
-    assert data["count"] == (coll["all-gather"]["count"]
-                             + coll["reduce-scatter"]["count"] + 4)
-    assert data["bytes"] == (coll["all-gather"]["bytes"]
-                             + coll["reduce-scatter"]["bytes"] + 4 * 4)
-    assert model["count"] == coll["all-reduce"]["count"] - 4 > 0
+    assert data["ops"]["all-reduce"] == {"bytes": 4 * 4, "link_bytes": 4 * 4,
+                                         "count": 4}
+    assert set(data["ops"]) == {"all-gather", "reduce-scatter", "all-reduce"}
     assert coll["all-to-all"]["count"] == 0
     assert train_record["devices"] == 8 and train_record["mesh"] == "2x4"
+    # a microbatch of rank 0: 2 rows of 128 positions, d = 64; L layers
+    cfg = get_smoke("gemma-2b")
+    n = cfg.n_layers
+    rows = 2 * 128 * cfg.d_model
+    ops = model["ops"]
+    assert set(ops) == {"all-gather", "reduce-scatter", "all-reduce"}
+    # gathers (a bf16 block of 32 positions): attention's and the MLP's
+    # inputs in the forward and the recompute, the unembedding's; the
+    # transposes of the row-parallel sums and of the embedding's split
+    assert ops["all-gather"] == {"bytes": mb * (6 * n + 2) * rows // 4 * 2,
+                                 "link_bytes": mb * (6 * n + 2) * rows * 2
+                                 * 3 // 4, "count": mb * (6 * n + 2)}
+    # f32 reduce-scatters: the two row-parallel sums in the forward, the
+    # attention's again in the recompute (it feeds the MLP; the MLP's
+    # down projection and its sum are not recomputed), the transposes of
+    # the sublayers' and the unembedding's gathers
+    assert ops["reduce-scatter"]["count"] == mb * (5 * n + 1)
+    assert ops["reduce-scatter"]["bytes"] == mb * (5 * n + 1) * rows * 4
+    # all-reduces: the embedding, the three of the cross entropy; the
+    # backward's k and v gradients, ln1 and ln2, the final norm; the norm
+    assert ops["all-reduce"]["count"] == mb * (4 + 4 * n + 1) + 1
     # rank 0 runs half the batch; of it, the kv projections whole (one kv
     # head on a 4-way 'model'; forward, recompute, the input's and the
     # weight's gradient) and every other product over a quarter of its
-    # heads, ffn columns or vocabulary rows.  One product more: the
-    # recompute runs the row-parallel down projection again, where the
-    # probe's plain product is skipped (the checkpoint stops recomputing
-    # once every saved input is packed, and a plain product packs its
-    # inputs before it runs, the autograd.Function after):
-    # flops = (probe - kv) / (2 * 4) + kv / 2 + down
-    cfg = get_smoke("gemma-2b")
+    # heads, ffn columns or vocabulary rows; the recompute stops before the
+    # down projection, as the probe's does:
+    # flops = (probe - kv) / (2 * 4) + kv / 2
     assert cfg.n_kv_heads % MESH[1]
     kv = _whole_kv_flops(cfg, 8 * 128, passes=4)
-    tokens = 8 * 128 // MESH[0]
-    down = cfg.n_layers * 2 * tokens * (cfg.d_ff // MESH[1]) * cfg.d_model
     assert (MESH[0] * MESH[1] * train_record["cost"]["flops"]
-            == train_record["probe"]["flops"] + (MESH[1] - 1) * kv
-            + MESH[0] * MESH[1] * down)
+            == train_record["probe"]["flops"] + (MESH[1] - 1) * kv)
     mem = train_record["memory"]
     # donated: the parameter and moment blocks are updated in place; the
     # batch block (4 rows of tokens and labels) and the step count are not
@@ -464,6 +481,59 @@ def test_traced_arguments_equal_the_plan_bytes(kind, train_record):
     rec = train_record if kind == "train" else _cell("gemma-2b", kind)
     mem = rec["memory"]
     assert mem["argument_size_in_bytes"] == mem["plan_argument_bytes"] > 0
+
+
+@pytest.mark.parametrize("b", [8, 1])
+def test_decode_attends_over_the_held_cache_blocks(b):
+    """Decode under the serving plan, gemma-2b's smoke configuration (one
+    kv head, head_dim 16 over a 4-way 'model'): the cache stays as
+    ``cache_pspecs`` holds it, head_dim over 'model' and, at b = 1, the
+    sequence over 'data'; nothing of it is gathered.  A layer moves q to
+    the head_dim block and the output back (two all-to-alls), sums the f32
+    partial scores ``[B, KV, G, 1, T]`` over 'model', and at b = 1 takes
+    the softmax's max and sum and the f32 output over 'data'; B5 does not
+    run (its products count over a quarter of the head_dim)."""
+    cfg = get_smoke("gemma-2b")
+    n, t, h, d = cfg.n_layers, 128, cfg.n_heads, cfg.d_model
+    rec = _cell("gemma-2b", "decode", t, b)
+    # the batch's block over 'data', else the sequence's
+    rows, t_loc = ((b // MESH[0], t) if b % MESH[0] == 0
+                   else (b, t // MESH[0]))
+    model = rec["collectives"]["by_dim"]["model"]["ops"]
+    assert set(model) == {"all-to-all", "all-reduce", "all-gather"}
+    scores = rows * h * t_loc * 4
+    # + the row-parallel sums of wo and down a layer, the embedding's rows
+    assert model["all-reduce"] == {
+        "bytes": n * scores + (2 * n + 1) * rows * d * 4,
+        "link_bytes": int(n * scores * 3 / 2) + (2 * n + 1) * rows * d * 6,
+        "count": 3 * n + 1}
+    assert model["all-to-all"] == {"bytes": 2 * n * rows * h * 16 // 4 * 2,
+                                   "link_bytes": 2 * n * rows * h * 24 // 4,
+                                   "count": 2 * n}
+    # the argmax's best logits and their indices, not the cache
+    assert model["all-gather"] == {"bytes": rows * 12,
+                                   "link_bytes": rows * 36, "count": 2}
+    if b == 1:
+        data = rec["collectives"]["by_dim"]["data"]["ops"]
+        assert set(data) == {"all-reduce"}  # no sequence block moves
+        # max and sum [1, KV, G, 1, 1], the output [1, 1, KV, G, hd / 4]
+        assert data["all-reduce"] == {"bytes": n * (2 * h * 4 + h * 16),
+                                      "link_bytes": n * (2 * h * 4 + h * 16),
+                                      "count": 3 * n}
+    else:
+        assert "data" not in rec["collectives"]["by_dim"]
+    # the kv projections whole, every other product over a quarter; at
+    # b = 8 of half the batch, at b = 1 the attention's over half the
+    # sequence (4 B H T hd, q.k and p.v)
+    kv = _whole_kv_flops(cfg, b, passes=1)
+    if b % MESH[0] == 0:
+        assert (MESH[0] * MESH[1] * rec["cost"]["flops"]
+                == rec["probe"]["flops"] + (MESH[1] - 1) * kv)
+    else:
+        attn = n * 4 * b * h * t * cfg.head_dim
+        assert (MESH[0] * MESH[1] * rec["cost"]["flops"]
+                == MESH[0] * (rec["probe"]["flops"] - attn
+                              + (MESH[1] - 1) * kv) + attn)
 
 
 def test_moe_prefill_all_to_alls_over_model():
@@ -553,12 +623,16 @@ def test_full_size_cell_main_patch_probe_and_report(tmp_path, capsys):
     assert rec["status"] == "ok" and rec["devices"] == 256
     assert rec["mesh"] == "16x16"
     # the serving plan: no leaf over 'data'; the cache's head_dim (80 over
-    # 16: its 8 kv heads do not divide) gathered over 'model' on use
+    # 16: its 8 kv heads do not divide) split over 'model', attended over
+    # as it is held (q and the output exchanged, the scores summed)
     assert set(rec["collectives"]["by_dim"]) == {"model"}
+    assert "all-gather" not in rec["collectives"]["by_dim"]["model"]["ops"] \
+        or rec["collectives"]["all-gather"]["count"] == 2  # the argmax's
     mem = rec["memory"]
     assert mem["argument_size_in_bytes"] == mem["plan_argument_bytes"]
     # 8 of the probe's 128 rows; of them, the kv projections whole and
-    # the heads', MLP's, vocabulary's and B5's products over a sixteenth:
+    # the heads', MLP's, vocabulary's and attention's products over a
+    # sixteenth:
     # flops = (probe - kv) / (16 * 16) + kv / 16
     from repro_torch.configs import get_config
 

@@ -61,6 +61,23 @@ not rank numbers.  The cases:
   cache held as ``cache_pspecs`` lays it out: the logits gathered over the
   mesh within ``tests/test_torch_lm.py``'s bound of the unsharded
   model's, the next tokens the argmax of the whole vocabulary.
+* the same against the reference's program with its plan (its prefill
+  and ``make_decode_step`` jitted with ``param_shardings``, the serving
+  layout and ``cache_pspecs`` on 8 forced host devices), on gemma-2b's
+  smoke configuration (one kv head on a 4-way 'model': the cache's
+  head_dim splits) at B = 4 (the batch over 'data') and B = 1 (the
+  sequence over 'data'): every rank's logits bit-equal to rank 0's, and
+  within ``REL_BOUND`` of the reference's and of the unsharded port's.
+  The sequence parallelism of the prefill (16 positions, a block of 4 a
+  rank) and of the train step (32 positions) runs in these cases too.
+* the sequence-parallel stream through the encoder-decoder, hybrid and
+  vlm families' own routes (cross attention and the encoder, the SSD
+  mixer and the shared block, the vision embeddings; whisper at 2 heads,
+  so that its self and cross caches hold their head_dim over 'model' and
+  decode attends over both caches' blocks): the blocked train
+  step's loss and ce within ``rtol=1e-6`` of the one-process step's, the
+  prefill and decode logits within ``REL_BOUND`` of the unsharded
+  model's, every rank bit-equal to rank 0.
 """
 import os
 import subprocess
@@ -382,3 +399,46 @@ def test_prefill_and_decode_on_the_mesh(runs, family):
         if i:
             assert np.array_equal(ranks[0][f"serve/{family}/next/{i - 1}"][
                 :, 0], got.argmax(-1))
+
+
+@pytest.mark.parametrize("case", sorted(C.SERVE_REF))
+def test_split_cache_decode_matches_reference_with_its_plan(runs, case):
+    """The decode cache held with its head_dim over 'model' (and at B = 1
+    its sequence over 'data'): each rank attends over its blocks (partial
+    scores summed over 'model'; the softmax's max, sum and the output over
+    'data'), against the reference's program with its plan."""
+    ref, ranks = runs
+    b, _, steps = C.SERVE_REF[case]
+    held = str(ranks[0][f"serve_ref/{case}/held"])
+    assert held == ("('data', None, None, 'model')" if b % C.MESH[0] == 0
+                    else "(None, 'data', None, 'model')")
+    for i in range(steps + 1):
+        got = ranks[0][f"serve_ref/{case}/mesh/{i}"]
+        for r in ranks[1:]:
+            assert np.array_equal(r[f"serve_ref/{case}/mesh/{i}"], got)
+        for want in (ref[f"serve_ref/{case}/{i}"],
+                     ranks[0][f"serve_ref/{case}/one/{i}"]):
+            assert got.shape == want.shape
+            scale = max(float(np.abs(want).max()), 1.0)
+            err = float(np.abs(got - want).max())
+            assert err < REL_BOUND * scale, (i, err, scale)
+
+
+@pytest.mark.parametrize("family", sorted(C.SP_ARCHS))
+def test_sequence_parallel_families_match_one_process(runs, family):
+    _, ranks = runs
+    for m in ("loss", "ce"):
+        got = ranks[0][f"sp/{family}/mesh/{m}"]
+        assert all(r[f"sp/{family}/mesh/{m}"] == got for r in ranks[1:])
+        np.testing.assert_allclose(float(got),
+                                   float(ranks[0][f"sp/{family}/one/{m}"]),
+                                   rtol=1e-6, err_msg=m)
+    for i in range(3):
+        got = ranks[0][f"sp/{family}/mesh/logits/{i}"]
+        want = ranks[0][f"sp/{family}/one/logits/{i}"]
+        for r in ranks[1:]:
+            assert np.array_equal(r[f"sp/{family}/mesh/logits/{i}"], got)
+        assert got.shape == want.shape  # the vocabulary's columns (P24)
+        scale = max(float(np.abs(want).max()), 1.0)
+        err = float(np.abs(got - want).max())
+        assert err < REL_BOUND * scale, (i, err, scale)

@@ -50,6 +50,28 @@ DP_BATCH, DP_SEQ = 4, 32
 DP_SEED = 1  # torch.Generator seed of the port's Model.init
 PAD_VOCAB = 250  # a vocabulary padded to 256 rows (the last block's 6)
 SERVE = (4, 16, 3)  # prefill B x S on the mesh, then decode steps
+# the decode cache's layouts held against the reference's program with its
+# plan (gemma-2b's smoke configuration: one kv head, so the head_dim splits
+# over 'model'): case -> (B, prompt S, decode steps); the cache holds
+# SERVE_LEN slots, which divide over 'data', so at B = 1 (the batch does
+# not divide) the sequence splits over it
+SERVE_REF = {"b4": (4, 16, 3), "b1": (1, 16, 3)}
+SERVE_LEN = 20
+# the families whose sublayers take the sequence-parallel stream by other
+# routes than the dense one: cross attention and the encoder, the SSD
+# mixer and the shared block, the vision embeddings and M-RoPE
+SP_ARCHS = {"encdec": "whisper-base", "hybrid": "zamba2-2.7b",
+            "vlm": "qwen2-vl-72b"}
+# whisper's smoke configuration at 2 heads (and 2 kv heads), so that on a
+# 4-way 'model' its self and cross caches hold their head_dim split
+SP_HEADS = {"encdec": 2}
+SP_VISION = 8  # vision embeddings of the vlm batch
+
+
+def serve_tokens(b: int, n: int, vocab: int) -> np.ndarray:
+    """``b`` rows of ``n`` tokens in [1, vocab), int32."""
+    return np.random.default_rng(6).integers(1, vocab, (b, n)).astype(
+        np.int32)
 
 
 def moe_inputs(case: str) -> tuple:

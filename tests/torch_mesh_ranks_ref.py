@@ -152,6 +152,57 @@ def dp_ref(mesh, out: dict) -> None:
                 out[f"{key}/{name}{path}"] = _np(t)
 
 
+def serve_ref(mesh, out: dict) -> None:
+    """The reference's prefill (the plan of ``param_shardings``, the cache
+    laid out by ``cache_pspecs``) and ``make_decode_step`` (the serving
+    layout: ``fsdp=False, moe_2d=True``), each jitted with its shardings as
+    its dry run lowers them, on ``SERVE_REF``'s cases: the logits of the
+    prefill and of each decode step."""
+    import torch
+    from jax.sharding import NamedSharding
+
+    from repro.distributed.sharding import (
+        batch_pspec, cache_pspecs, param_pspecs, param_shardings)
+    from repro.launch.specs import state_specs
+    from repro.launch.steps import make_decode_step
+    from repro_torch import configs as tcfg
+    from repro_torch.models.model import Model
+
+    arch = C.DP_ARCHS["dense"]
+    cfg = get_smoke(arch)
+    tparams = Model(tcfg.get_smoke(arch), "cpu").init(
+        torch.Generator().manual_seed(C.DP_SEED))
+    shapes, _, axes = state_specs(build_model(cfg))
+    model = build_model(cfg).set_mesh(mesh)
+
+    def named(specs):
+        return jax.tree.map(lambda s: NamedSharding(mesh, s), specs,
+                            is_leaf=lambda x: isinstance(x, P))
+
+    pplan = param_shardings(axes, shapes, mesh)
+    dplan = named(param_pspecs(axes, shapes, mesh, fsdp=False, moe_2d=True))
+
+    for case, (b, s, steps) in C.SERVE_REF.items():
+        toks = jnp.asarray(C.serve_tokens(b, s + steps, cfg.vocab))
+        c_sh = named(cache_pspecs(jax.eval_shape(
+            lambda: model.init_cache(b, C.SERVE_LEN)), mesh, b))
+        tok_sh = NamedSharding(mesh, batch_pspec(b, mesh))
+        prefill = jax.jit(
+            lambda p, t: model.prefill(p, {"tokens": t},
+                                       max_len=C.SERVE_LEN),
+            in_shardings=(pplan, tok_sh), out_shardings=(None, c_sh))
+        decode = jax.jit(make_decode_step(model),
+                         in_shardings=(dplan, c_sh, tok_sh),
+                         out_shardings=(None, None, c_sh))
+        params = jax.device_put(_tree(tparams), pplan)
+        logits, cache = prefill(params, toks[:, :s])
+        out[f"serve_ref/{case}/0"] = _np(logits)
+        params = jax.device_put(params, dplan)
+        for i in range(steps):
+            _, logits, cache = decode(params, cache, toks[:, s + i:s + i + 1])
+            out[f"serve_ref/{case}/{i + 1}"] = _np(logits)
+
+
 def _tree(t):
     import torch
 
@@ -170,8 +221,10 @@ def main() -> int:
     batch_ref(mesh, out)
     # the one program's layout left to XLA's partitioner (Auto axes), as
     # the reference's launchers make their meshes
-    dp_ref(jax.make_mesh(C.MESH, ("data", "model"), axis_types=(
-        jax.sharding.AxisType.Auto,) * 2), out)
+    auto = jax.make_mesh(C.MESH, ("data", "model"), axis_types=(
+        jax.sharding.AxisType.Auto,) * 2)
+    dp_ref(auto, out)
+    serve_ref(auto, out)
     np.savez(dest / "ref.npz", **out)
     return 0
 

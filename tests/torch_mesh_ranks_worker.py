@@ -263,6 +263,126 @@ def serve_checks(mesh, out: dict) -> None:
                 out[f"serve/{family}/one/{i + 1}"] = _np(lg)
 
 
+def serve_ref_checks(mesh, out: dict) -> None:
+    """``SERVE_REF``'s cases (the reference's side:
+    ``torch_mesh_ranks_ref.serve_ref``): prefill under the training plan
+    and decode steps under the serving plan, the cache held as
+    ``cache_pspecs`` lays it out (head_dim over 'model'; at B = 1 the
+    sequence over 'data' too, every rank holding the whole batch), each
+    step's logits gathered over the mesh; rank 0 also runs the unsharded
+    model."""
+    cfg = _smoke(C.DP_ARCHS["dense"])
+    model = Model(cfg, "cpu")
+    params = model.init(torch.Generator().manual_seed(C.DP_SEED))
+    axes = model.logical_axes()
+    pplan = param_shardings(axes, params, mesh)
+    dplan = param_shardings(axes, params, mesh, fsdp=False, moe_2d=True)
+    pblocks, dblocks = shard_params(params, pplan), shard_params(params, dplan)
+    for case, (b, s, steps) in C.SERVE_REF.items():
+        toks = torch.from_numpy(C.serve_tokens(b, s + steps, cfg.vocab))
+        cache_plan = cache_pspecs(Model(cfg, "meta").init_cache(
+            b, C.SERVE_LEN), mesh, b)
+        split = b % C.MESH[0] == 0  # the batch over 'data', else whole
+        baxes = ("data",) if split else ()
+        mine = toks.chunk(C.MESH[0])[mesh.get_local_rank("data")] \
+            if split else toks
+        logits, cache = make_prefill_step(
+            model, param_shardings=pplan, cache_shardings=cache_plan,
+            max_len=C.SERVE_LEN, batch_axes=baxes)(
+                pblocks, {"tokens": mine[:, :s]})
+        got = [logits]
+        dec = make_decode_step(model, param_shardings=dplan,
+                               cache_shardings=cache_plan, batch_axes=baxes)
+        for i in range(steps):
+            _, logits, cache = dec(dblocks, cache, mine[:, s + i:s + i + 1])
+            got.append(logits)
+        out[f"serve_ref/{case}/held"] = np.asarray(str(tuple(
+            cache_plan["layers"][0].k)))
+        for i, lg in enumerate(got):
+            lg = _gather(lg, mesh, ("model",), 1)
+            if split:
+                lg = _gather(lg, mesh, ("data",), 0)
+            out[f"serve_ref/{case}/mesh/{i}"] = _np(lg)
+        if dist.get_rank() == 0:
+            lg, cache = model.prefill(params, {"tokens": toks[:, :s]},
+                                      max_len=C.SERVE_LEN)
+            out[f"serve_ref/{case}/one/0"] = _np(lg)
+            for i in range(steps):
+                lg, cache = model.decode_step(params, cache,
+                                              toks[:, s + i:s + i + 1])
+                out[f"serve_ref/{case}/one/{i + 1}"] = _np(lg)
+
+
+def sp_checks(mesh, rank: int, out: dict) -> None:
+    """``SP_ARCHS``' smoke configurations on the mesh, the residual stream
+    sequence parallel (32 positions, 8 a rank): the blocked train step's
+    metrics (remat full) and the logits of a prefill of 16 positions and
+    two decode steps gathered over the mesh; rank 0 also runs them
+    without a mesh."""
+    b, s, t = C.DP_BATCH, C.DP_SEQ, C.SERVE_LEN
+    d = mesh.get_local_rank("data")
+    for family, arch in C.SP_ARCHS.items():
+        cfg = _smoke(arch)
+        if family in C.SP_HEADS:
+            h = C.SP_HEADS[family]
+            cfg = dataclasses.replace(cfg, n_heads=h, n_kv_heads=h)
+        model = Model(cfg, "cpu")
+        params = model.init(torch.Generator().manual_seed(C.DP_SEED))
+        gen = torch.Generator().manual_seed(2)
+        batch = {k: torch.randint(1, cfg.vocab, (b, s), generator=gen,
+                                  dtype=torch.int32)
+                 for k in ("tokens", "labels")}
+        if cfg.family == "encdec":
+            batch["frames"] = (torch.randn(b, s, cfg.d_model, generator=gen)
+                               * 0.5).to(torch.bfloat16)
+        if cfg.family == "vlm":
+            batch["vision_embeds"] = (torch.randn(
+                b, C.SP_VISION, cfg.d_model, generator=gen) * 0.5).to(
+                    torch.bfloat16)
+        axes = model.logical_axes()
+        plan = param_shardings(axes, params, mesh)
+        dplan = param_shardings(axes, params, mesh, fsdp=False, moe_2d=True)
+        blocks = shard_params(params, plan)
+        tc = TrainConfig(warmup_steps=2, remat="full")
+        mine = {k: v.chunk(C.MESH[0])[d] for k, v in batch.items()}
+        runs = {"mesh": make_train_step(model, tc, param_shardings=plan)(
+            blocks, adamw_init(blocks), mine)[2]}
+        prompt = {k: v[:, :16] if k in ("tokens", "frames") else v
+                  for k, v in batch.items() if k != "labels"}
+        enc = prompt.get("frames", prompt["tokens"]).shape[1]
+        cplan = cache_pspecs(Model(cfg, "meta").init_cache(b, t, enc), mesh,
+                             b)
+        logits, cache = make_prefill_step(
+            model, param_shardings=plan, cache_shardings=cplan, max_len=t)(
+                blocks, {k: v.chunk(C.MESH[0])[d] for k, v in prompt.items()})
+        got = [logits]
+        dec = make_decode_step(model, param_shardings=dplan,
+                               cache_shardings=cplan)
+        dblocks = shard_params(params, dplan)
+        for i in range(2):
+            _, logits, cache = dec(dblocks, cache, mine["tokens"][
+                :, 16 + i:17 + i])
+            got.append(logits)
+        for i, lg in enumerate(got):
+            if lg.shape[-1] < cfg.vocab_padded:  # the vocabulary's block
+                lg = _gather(lg, mesh, ("model",), 1)
+            out[f"sp/{family}/mesh/logits/{i}"] = _np(
+                _gather(lg, mesh, ("data",), 0)[:, :cfg.vocab])
+        if rank == 0:
+            runs["one"] = make_train_step(model, tc)(
+                params, adamw_init(params), batch)[2]
+            lg, cache = model.prefill(params, prompt, max_len=t)
+            out[f"sp/{family}/one/logits/0"] = _np(lg[:, :cfg.vocab])
+            for i in range(2):
+                lg, cache = model.decode_step(
+                    params, cache, batch["tokens"][:, 16 + i:17 + i])
+                out[f"sp/{family}/one/logits/{i + 1}"] = _np(
+                    lg[:, :cfg.vocab])
+        for run, metrics in runs.items():
+            for m in ("loss", "ce"):
+                out[f"sp/{family}/{run}/{m}"] = _np(metrics[m])
+
+
 def dtensor_checks(mesh, out: dict) -> None:
     """A layout pin on a DTensor: a replicated one redistributed to the
     placements of ``P("data", "model")``, its values unchanged."""
@@ -292,6 +412,8 @@ def main() -> int:
     compress_checks(mesh, out)
     vocab_checks(mesh, out)
     serve_checks(mesh, out)
+    serve_ref_checks(mesh, out)
+    sp_checks(mesh, rank, out)
     dist.barrier()
     dist.destroy_process_group()
     np.savez(dest / f"rank{rank}.npz", **out)
