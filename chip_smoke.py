@@ -141,7 +141,18 @@ Phases, each of which raises (and so exits non-zero) on failure:
                  15% of the dry run's for that cell, B5 launched 0 times
                  by design (the rank attends over its head_dim block),
                  ms a step printed as compute only (the fake group moves
-                 no bytes).
+                 no bytes); (h) on the one-rank mesh, mamba2-370m at full
+                 width: the planned train step (B=2, S=512) and the planned
+                 prefill + 4 decode steps bit-equal to the unplanned ones;
+                 then in (f)'s process rank 0 of zamba2-2.7b
+                 ``decode_32k`` on the (16, 16) serving layout (each
+                 mamba2 layer on the rank's 5 of 80 heads, the SSM state
+                 held with its head_dim over 'model'), one decode step:
+                 peak within 15% of the dry run's for that cell, its
+                 collectives over 'model' and 'data' equal to the dry
+                 run's record, its all-gathers over 'model' below the
+                 layers' state blocks (no state gathered whole), B5
+                 launched once a shared attention layer (9).
   7c. lm_dryrun — the dry run (``launch/dryrun.py``) against real steps
                  of gemma-2b at full width: (a) the train step at
                  lm_train's B=2, S=1,024 (remat full): ``FlopCounterMode``
@@ -4039,7 +4050,8 @@ def mesh_roofline(torch, runs=FAMILY_RUNS) -> dict:
 
 MESH_RANK_TIMEOUT = 600  # (f) and (g): seconds for their process
 MESH_DECODE_CELL = ("command-r-35b", "decode_32k")  # (g)
-MESH_DECODE_REPS = 3  # (g): timed steps after the measured one
+MESH_SSD_CELL = ("zamba2-2.7b", "decode_32k")  # (h)
+MESH_DECODE_REPS = 3  # (g), (h): timed steps after the measured one
 
 
 def mesh_rank_run() -> int:
@@ -4051,9 +4063,9 @@ def mesh_rank_run() -> int:
     default, remat full, donated, sequence parallel over 'model'); then
     (g), :func:`mesh_decode_rank`.  Prints one JSON line: the card's
     ``max_memory_allocated`` over the step, the arguments' bytes, the
-    step's seconds, and (g)'s row under ``decode``.  The fake group moves
-    no bytes: its collectives leave their outputs as the allocator gave
-    them."""
+    step's seconds, (g)'s row under ``decode`` and (h)'s under
+    ``ssd_decode``.  The fake group moves no bytes: its collectives leave
+    their outputs as the allocator gave them."""
     import torch
     import torch.distributed as dist
 
@@ -4102,28 +4114,35 @@ def mesh_rank_run() -> int:
         del params, opt, batch, step
         gc_cuda(torch)
         row["decode"] = mesh_decode_rank(mesh, torch)
+        gc_cuda(torch)
+        row["ssd_decode"] = mesh_decode_rank(mesh, torch, cell=MESH_SSD_CELL)
         print(json.dumps(row))
     finally:
         dist.destroy_process_group()
     return 0
 
 
-def mesh_decode_rank(mesh, torch, dev="cuda", cfg=None) -> dict:
+def mesh_decode_rank(mesh, torch, dev="cuda", cfg=None,
+                     cell=MESH_DECODE_CELL) -> dict:
     """(g): rank 0 of :data:`MESH_DECODE_CELL` (command-r-35b x
-    decode_32k) on ``mesh``'s plan (the (16, 16) ``fake`` world) at full
-    width (``cfg``: another configuration, for rehearsals), with real
-    tensors: its blocks of the serving layout's parameters
-    (``fsdp=False, moe_2d=True``) and of a full cache seeded in the plan's
-    layout (``cache_pspecs``: the batch over 'data', the head_dim over
-    'model', every slot but the last holding its position), and its 8
-    rows of tokens.  One decode step at position ``seq_len - 1``, as the
-    dry run traces it: ``max_memory_allocated`` over it, then
-    :data:`MESH_DECODE_REPS` more timed with CUDA events (compute only:
-    the fake group's collectives move nothing).  B5 must not launch: the
-    plan splits the cache's head_dim over 'model' (8 kv heads do not
-    divide 16), so each rank attends over its head_dim block
-    (``attention._attend_blocks``), by design, where B5 needs whole head
-    dims."""
+    decode_32k; (h): :data:`MESH_SSD_CELL`, zamba2-2.7b x decode_32k) on
+    ``mesh``'s plan (the (16, 16) ``fake`` world) at full width (``cfg``:
+    another configuration, for rehearsals), with real tensors: its blocks
+    of the serving layout's parameters (``fsdp=False, moe_2d=True``) and
+    of a full cache seeded in the plan's layout (``cache_pspecs``: the
+    batch over 'data', the head_dim over 'model' (command-r's attention,
+    zamba2's SSM states; zamba2's attention: its kv heads), every slot but
+    the last holding its position), and its 8 rows of tokens.  One decode
+    step at position ``seq_len - 1``, as the dry run traces it, its
+    collectives recorded (``dryrun.collective_counts``):
+    ``max_memory_allocated`` over it, then :data:`MESH_DECODE_REPS` more
+    timed with CUDA events (compute only: the fake group's collectives
+    move nothing).  (g): B5 must not launch: the plan splits the cache's
+    head_dim over 'model' (8 kv heads do not divide 16), so each rank
+    attends over its head_dim block (``attention._attend_blocks``), by
+    design, where B5 needs whole head dims.  (h): B5 launches once a
+    shared attention layer (the rank's 2 of 32 kv heads, whole head
+    dims); each mamba2 layer runs on the rank's 5 of 80 heads."""
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.distributed.sharding import (
         _axis_size, _map, _names, batch_pspec, block_shape, cache_pspecs,
@@ -4134,7 +4153,9 @@ def mesh_decode_rank(mesh, torch, dev="cuda", cfg=None) -> dict:
     from repro_torch.launch.steps import make_decode_step
     from repro_torch.models import build_model
 
-    arch, shape_name = MESH_DECODE_CELL
+    from repro_torch.launch.dryrun import collective_counts
+
+    arch, shape_name = cell
     shape, cfg = SHAPES[shape_name], cfg or get_config(arch)
     serve = dict(fsdp=False, moe_2d=True)
     model = build_model(cfg, dev).set_mesh(mesh)
@@ -4157,7 +4178,8 @@ def mesh_decode_rank(mesh, torch, dev="cuda", cfg=None) -> dict:
         return (torch.randn(sh, generator=gen, device=dev)).to(leaf.dtype)
 
     layers = _map(seeded, cache_s["layers"], c_specs["layers"])
-    held = tuple(c_specs["layers"][0].k)
+    held = c_specs["layers"][0]
+    held = tuple(held["ssm"].state if isinstance(held, dict) else held.k)
     spec = batch_pspec(shape.global_batch, mesh)
     baxes = _names(spec[0])
     rows = shape.global_batch // _axis_size(mesh, baxes)
@@ -4169,27 +4191,34 @@ def mesh_decode_rank(mesh, torch, dev="cuda", cfg=None) -> dict:
     b5 = tda.launches[B5]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    step(params, {"layers": layers, "len": t - 1}, tokens)
+    with collective_counts(mesh) as coll:
+        step(params, {"layers": layers, "len": t - 1}, tokens)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
+    launched = tda.launches[B5] - b5
     ms = cuda_ms(lambda: step(params, {"layers": layers, "len": t - 1},
                               tokens), MESH_DECODE_REPS, warmup=0)
-    launched = tda.launches[B5] - b5
-    if launched:
+    attn = sum(isinstance(c, dict) and "attn" in c for c in layers)
+    if cell == MESH_DECODE_CELL and launched:
         raise AssertionError(f"lm_mesh (g): B5 launched {launched} times "
                              f"over a cache held as {held}")
+    if cell == MESH_SSD_CELL and launched != attn:
+        raise AssertionError(f"lm_mesh (h): B5 launched {launched} times "
+                             f"in a step of {attn} attention layers")
     return {"max_memory_allocated": peak, "argument_bytes": args,
             "rows": rows, "held": str(held), "b5_launches": launched,
-            "ms_compute_only": ms}
+            "ms_compute_only": ms, "layers": cfg.n_layers,
+            "model_ops": coll["by_dim"].get("model", {}).get("ops", {}),
+            "data_ops": coll["by_dim"].get("data", {}).get("ops", {})}
 
 
-def mesh_rank(torch, smi, cell, dcell) -> dict:
-    """(f) and (g): :func:`mesh_rank_run` in a process of its own (a
+def mesh_rank(torch, smi, cell, dcell, scell) -> dict:
+    """(f), (g) and (h): :func:`mesh_rank_run` in a process of its own (a
     process holds one process group: lm_mesh's NCCL one is up here), each
     peak against the dry run's fake-tensor peak of the same cell
     (``cell``: lm_dryrun's trace, ``dcell``: :data:`MESH_DECODE_CELL`'s,
-    both :func:`dryrun_cell_start`): within DRYRUN_MEM_BAND, and under
-    the card's memory."""
+    ``scell``: :data:`MESH_SSD_CELL`'s, all :func:`dryrun_cell_start`):
+    within DRYRUN_MEM_BAND, and under the card's memory."""
     t0 = time.perf_counter()
     r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
                         "--mesh-rank"], capture_output=True, text=True,
@@ -4199,6 +4228,7 @@ def mesh_rank(torch, smi, cell, dcell) -> dict:
                              f"{r.returncode}): {r.stderr[-4000:]}")
     row = json.loads(r.stdout.strip().splitlines()[-1])
     row["decode"] = mesh_decode_check(row["decode"], dcell, smi)
+    row["ssd_decode"] = mesh_ssd_check(row["ssd_decode"], scell, smi)
     rec = dryrun_cell_end(cell, timeout=600)
     fake = rec["memory"]["peak_bytes"]
     if rec["memory"]["argument_size_in_bytes"] != row["argument_bytes"]:
@@ -4256,15 +4286,150 @@ def mesh_decode_check(row, dcell, smi) -> dict:
     return row
 
 
+def mesh_ssd_check(row, scell, smi) -> dict:
+    """(h)'s row against the dry run's record of :data:`MESH_SSD_CELL`:
+    the same arguments and the same collectives over 'model' and 'data'
+    (the rank's step and the trace run one code path), the peak within
+    DRYRUN_MEM_BAND; and no SSM state gathered whole over 'model': the
+    all-gathers there carry less than the layers' state blocks (each
+    layer moves its state block to its heads and back by all-to-alls)."""
+    rec = dryrun_cell_end(scell, timeout=600, cell=MESH_SSD_CELL)
+    fake = rec["memory"]["peak_bytes"]
+    if rec["memory"]["argument_size_in_bytes"] != row["argument_bytes"]:
+        raise AssertionError(f"lm_mesh (h): the rank holds "
+                             f"{row['argument_bytes']} bytes of arguments, "
+                             f"the dry run traced "
+                             f"{rec['memory']['argument_size_in_bytes']}")
+    dims = rec["collectives"]["by_dim"]
+    for dim, ops in (("model", row["model_ops"]), ("data", row["data_ops"])):
+        want = dims.get(dim, {}).get("ops", {})
+        if ops != want:
+            raise AssertionError(f"lm_mesh (h): collectives over {dim!r} "
+                                 f"{ops}, the dry run's {want}")
+    from repro_torch.configs import SHAPES, get_config
+
+    cfg, shape = get_config(MESH_SSD_CELL[0]), SHAPES[MESH_SSD_CELL[1]]
+    state = (row["rows"] * cfg.ssm_heads * cfg.d_inner // cfg.ssm_heads
+             * cfg.ssm_state * 4 // 16)  # a rank's f32 block of a layer's
+    gathered = row["model_ops"].get("all-gather", {}).get("bytes", 0)
+    moved = row["model_ops"].get("all-to-all", {}).get("bytes", 0)
+    if gathered >= row["layers"] * state:
+        raise AssertionError(f"lm_mesh (h): all-gathers over 'model' carry "
+                             f"{gathered} bytes, not below the layers' "
+                             f"state blocks ({row['layers']} x {state})")
+    ratio = row["max_memory_allocated"] / fake
+    row.update(fake_peak_bytes=fake, ratio=ratio, state_block_bytes=state)
+    log(f"lm_mesh (h) {MESH_SSD_CELL[0]} x {MESH_SSD_CELL[1]}, rank 0 of "
+        f"the (16, 16) plan's serving layout on the fake 256-rank group "
+        f"with real CUDA tensors ({row['rows']} rows of "
+        f"{shape.global_batch}, the SSM state held as {row['held']}, "
+        f"seeded): one decode step, each mamba2 layer on the rank's "
+        f"{cfg.ssm_heads // 16} of {cfg.ssm_heads} heads; "
+        f"max_memory_allocated {row['max_memory_allocated']} bytes against "
+        f"the dry run's fake-tensor peak {fake} ({ratio:.4f}); arguments "
+        f"{row['argument_bytes']} bytes (the plan's); collectives over "
+        f"'model' and 'data' the dry run's: all-to-all "
+        f"{moved} bytes (the in_proj and conv columns, the states there and "
+        f"back), all-gather {gathered} bytes (conv histories, the new "
+        f"token's x, the argmax) against {row['layers']} state blocks of "
+        f"{state}: no state gathered whole; B5 launched "
+        f"{row['b5_launches']} times (the shared attention layers); "
+        f"{row['ms_compute_only']:.3f} ms a step, compute only (CUDA "
+        f"events, {MESH_DECODE_REPS} steps); {smi}")
+    if abs(ratio - 1.0) > DRYRUN_MEM_BAND:
+        raise AssertionError(f"lm_mesh (h): peak {ratio:.4f} of the dry "
+                             f"run's (band {DRYRUN_MEM_BAND})")
+    return row
+
+
+MESH_SSD_ARCH = "mamba2-370m"  # (h) on one rank, at full width
+MESH_SSD_SHAPE = (2, 512, 4)  # B, S (train and prefill), decode steps
+
+
+def mesh_ssd(mesh, torch, dev, cfg, smi) -> dict:
+    """(h) on the one-rank mesh: mamba2's planned train step (one step
+    from one state and batch) and planned prefill + decode steps (the
+    cache held as ``cache_pspecs`` lays it out) bit-equal to the unplanned
+    ones: with one rank over 'model' the mixer runs whole."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data import TokenStream, sharded_batches
+    from repro_torch.distributed.sharding import (
+        batch_pspec, cache_pspecs, gather_params, param_shardings,
+        shard_params)
+    from repro_torch.launch.steps import (make_decode_step,
+                                          make_prefill_step, make_train_step)
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+
+    b, s, steps = MESH_SSD_SHAPE
+    t0 = time.perf_counter()
+    model = build_model(cfg, dev)
+    params0 = model.init(torch.Generator(device=dev).manual_seed(0))
+    axes = model.logical_axes()
+    plan = param_shardings(axes, params0, mesh)
+    stream = TokenStream(vocab=cfg.vocab, seq_len=s, global_batch=b)
+    first = next(sharded_batches(stream, mesh, batch_pspec(b, mesh)))
+    tc = TrainConfig()
+    p_a, _, m_a = make_train_step(model, tc)(
+        _clone_tree(params0, torch), adamw_init(params0), first)
+    blocks = shard_params(_clone_tree(params0, torch), plan)
+    p_b, _, m_b = make_train_step(model, tc, param_shardings=plan)(
+        blocks, adamw_init(blocks), first)
+    for key in ("loss", "grad_norm"):
+        if not torch.equal(m_a[key], m_b[key]):
+            raise AssertionError(f"lm_mesh (h): {key} {float(m_b[key])} "
+                                 f"with the plan, {float(m_a[key])} without")
+    if not all(torch.equal(x, y) for x, y in zip(
+            _leaves(p_a), _leaves(gather_params(p_b, plan)))):
+        raise AssertionError("lm_mesh (h): mamba2's updated parameters "
+                             "differ from the step's without a plan")
+    del p_a, p_b, blocks
+    gc_cuda(torch)
+    toks = torch.randint(1, cfg.vocab, (b, s + steps), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(6))
+    cplan = cache_pspecs(build_model(cfg, "meta").init_cache(b, s + steps),
+                         mesh, b)
+    dplan = param_shardings(axes, params0, mesh, fsdp=False, moe_2d=True)
+    lg_a, c_a = model.prefill(params0, {"tokens": toks[:, :s]},
+                              max_len=s + steps)
+    lg_b, c_b = make_prefill_step(model, param_shardings=plan,
+                                  cache_shardings=cplan, max_len=s + steps)(
+        shard_params(params0, plan), {"tokens": toks[:, :s]})
+    same = [torch.equal(lg_a, lg_b)]
+    dec = make_decode_step(model, param_shardings=dplan,
+                           cache_shardings=cplan)
+    dblocks = shard_params(params0, dplan)
+    for i in range(steps):
+        tok = toks[:, s + i:s + i + 1]
+        lg_a, c_a = model.decode_step(params0, c_a, tok)
+        _, lg_b, c_b = dec(dblocks, c_b, tok)
+        same.append(torch.equal(lg_a, lg_b))
+    if not all(same):
+        raise AssertionError(f"lm_mesh (h): mamba2's planned prefill and "
+                             f"decode logits against the unplanned: {same}")
+    row = {"loss": float(m_b["loss"]), "grad_norm": float(m_b["grad_norm"]),
+           "logits_equal": len(same), "seconds": time.perf_counter() - t0}
+    log(f"lm_mesh (h) {cfg.name} at full width on the one-rank mesh: the "
+        f"planned train step (B={b}, S={s}; loss {row['loss']:.6f}, grad "
+        f"norm {row['grad_norm']:.6f}, every updated parameter) and the "
+        f"planned prefill + {steps} decode steps ({len(same)} logits) "
+        f"bit-equal to the unplanned ones; {row['seconds']:.1f} s; {smi}")
+    del model, params0, dblocks, c_a, c_b
+    gc_cuda(torch)
+    return row
+
+
 def phase_lm_mesh(torch, smi, dev="cuda", moe_cfg=None,
-                  train_cfg=None, cell=None, dcell=None) -> tuple:
+                  train_cfg=None, cell=None, dcell=None, scell=None,
+                  ssd_cfg=None) -> tuple:
     """The multi-card layer on a one-rank NCCL mesh (``make_local_mesh(1,
     1)``, its ``file://`` store under ``build/``): (a) qwen3-moe's serving
     path through the planned steps and ``moe_ffn_ep``, (b) the blocked
     train step with a plan, (c) ``compressed_psum``, (d) the meta-device
-    specs, (e) roofline FLOP counts; then (f) one rank of the (16, 16)
-    plan's train step and (g) one of its decode step with real
-    allocations (``cell``, ``dcell``: the dry run's traces of the same
+    specs, (e) roofline FLOP counts, (h) mamba2's planned steps; then
+    (f) one rank of the (16, 16) plan's train step, (g) one of its decode
+    step and (h) one of zamba2's decode step with real allocations
+    (``cell``, ``dcell``, ``scell``: the dry run's traces of the same
     cells; None skips them, for rehearsals).  The group is destroyed at the
     end, whatever happens.  Returns (B5 launches of (a)'s meshed decode,
     rows)."""
@@ -4283,13 +4448,15 @@ def phase_lm_mesh(torch, smi, dev="cuda", moe_cfg=None,
         rows = {"moe": mesh_moe(mesh, torch, dev, moe_cfg, smi),
                 "train": mesh_train(mesh, torch, dev, train_cfg, smi),
                 "specs": mesh_specs(torch, dev),
-                "roofline": mesh_roofline(torch)}
+                "roofline": mesh_roofline(torch),
+                "ssd": mesh_ssd(mesh, torch, dev,
+                                ssd_cfg or get_config(MESH_SSD_ARCH), smi)}
     finally:
         dist.destroy_process_group()
         MESH_STORE.unlink(missing_ok=True)
     if cell is not None:
         gc_cuda(torch)
-        rows["rank"] = mesh_rank(torch, smi, cell, dcell)
+        rows["rank"] = mesh_rank(torch, smi, cell, dcell, scell)
     rows["seconds"] = time.perf_counter() - t_phase
     log(f"lm_mesh took {rows['seconds']:.1f} s")
     return rows["moe"]["b5_launches"], rows
@@ -4666,6 +4833,7 @@ def main(argv=None) -> int:
     # full-size cell traces on the CPU meanwhile.
     cell = dryrun_cell_start()
     dcell = dryrun_cell_start(MESH_DECODE_CELL)
+    scell = dryrun_cell_start(MESH_SSD_CELL)
     lm_err = phase_lm_kernel(torch)
     model, params, served, lm = phase_lm_serve(torch)
     lm_times = phase_lm_time(torch)
@@ -4675,7 +4843,7 @@ def main(argv=None) -> int:
     fam_launches, fam_rows = phase_lm_families(torch)
     train_rows = phase_lm_train(torch)
     mesh_launches, mesh_rows = phase_lm_mesh(torch, smi, cell=cell,
-                                             dcell=dcell)
+                                             dcell=dcell, scell=scell)
     dry_launches, dry_rows = phase_lm_dryrun(torch, smi, cell)
 
     t0 = time.perf_counter()

@@ -31,7 +31,10 @@ tensor-parallel operators; :func:`sum_rows` sums row-parallel partials
 parallelism) and :func:`mine` makes a gradient every rank holds whole
 into this rank's part of it; :func:`split`, :func:`gather` and
 :func:`all_to_all` carry their transposes; :func:`relayout` moves a
-decode cache between its plan and a step's layout.
+decode cache between its plan and a step's layout (an all-to-all where a
+mesh dim moves from one tensor dim to another).  ``use(columns=)`` takes,
+from the contiguous blocks of a dim over 'model', the columns each rank
+computes with (one all-to-all of uneven pieces: the SSD mixer's heads).
 """
 from __future__ import annotations
 
@@ -387,28 +390,98 @@ def _scatter_sum(x: torch.Tensor, mesh, names, dim: int) -> torch.Tensor:
     return _reduce_scatter(x.movedim(dim, 0), mesh, names).movedim(0, dim)
 
 
+_PIECES: dict = {}
+
+
+def _pieces(n: int, me: int, picks: tuple, device) -> tuple:
+    """How the ranks of 'model' exchange the columns ``picks`` (per rank,
+    its sorted ``(lo, hi)`` ranges of global columns) where rank ``me``
+    holds the contiguous block ``me`` of ``n`` columns: (the local
+    indices it sends, rank after rank; how many it sends each rank; how
+    many it takes from each)."""
+    key = (n, me, picks, str(device))
+    hit = _PIECES.get(key)
+    if hit is None:
+        lo_me, hi_me = me * n, (me + 1) * n
+        send, sizes = [], []
+        for ranges in picks:
+            idx = [i - lo_me for lo, hi in ranges
+                   for i in range(max(lo, lo_me), min(hi, hi_me))]
+            send += idx
+            sizes.append(len(idx))
+        takes = [sum(max(0, min(hi, (j + 1) * n) - max(lo, j * n))
+                     for lo, hi in picks[me]) for j in range(len(picks))]
+        hit = (torch.tensor(send, dtype=torch.long, device=device), sizes,
+               takes)
+        _PIECES[key] = hit
+    return hit
+
+
+def _a2a(x: torch.Tensor, group, out_sizes, in_sizes) -> torch.Tensor:
+    """``all_to_all_single`` of uneven pieces along dim 0."""
+    import torch.distributed as dist
+
+    out = x.new_empty((sum(out_sizes),) + tuple(x.shape[1:]))
+    dist.all_to_all_single(out, x.contiguous(), out_sizes, in_sizes,
+                           group=group)
+    return out
+
+
+def _take_columns(x: torch.Tensor, mesh, dim: int, picks: tuple):
+    """The columns ``picks[r]`` on each rank ``r`` of 'model', of a dim
+    that 'model' splits into contiguous blocks (``x``: this rank's block,
+    ``dim`` that dim), in one all-to-all."""
+    xt = x.movedim(dim, 0)
+    idx, sizes, takes = _pieces(xt.shape[0], mesh.get_local_rank("model"),
+                                picks, x.device)
+    out = _a2a(xt.index_select(0, idx), mesh.get_group("model"), takes,
+               sizes)
+    return out.movedim(0, dim)
+
+
+def _give_columns(g: torch.Tensor, mesh, dim: int, picks: tuple,
+                  n: int) -> torch.Tensor:
+    """The transpose of :func:`_take_columns`: the f32 gradient of this
+    rank's block of ``n`` columns from each rank's gradient ``g`` of its
+    columns, summed where several ranks took a column."""
+    idx, sizes, takes = _pieces(n, mesh.get_local_rank("model"), picks,
+                                g.device)
+    back = _a2a(g.movedim(dim, 0).float(), mesh.get_group("model"), sizes,
+                takes)
+    out = back.new_zeros((n,) + tuple(back.shape[1:]))
+    return out.index_add_(0, idx, back).movedim(0, dim)
+
+
 class _Use(torch.autograd.Function):
     """A leaf's block gathered along ``dims`` (``(dim, names)`` pairs) with
-    its gradient.  Backward, over each mesh dim of ``partial`` (the rank's
-    compute differs over it: its batch, or the block of heads it runs) the
-    gradients of the ranks are summed, in f32: a reduce-scatter along a
-    gathered dim, an all-reduce where the leaf is not laid over that mesh
-    dim (``reduce``).  Over any other mesh dim the ranks computed the same
-    gradient, and each keeps its own block of it: a sum there would count
-    it once a rank."""
+    its gradient; with ``cols`` (``(dim, picks)``) then the columns each
+    rank computes with taken over 'model' (:func:`_take_columns`).
+    Backward, over each mesh dim of ``partial`` (the rank's compute
+    differs over it: its batch, or the block of heads it runs) the
+    gradients of the ranks are summed, in f32: the columns' back to their
+    blocks, a reduce-scatter along a gathered dim, an all-reduce where the
+    leaf is not laid over that mesh dim (``reduce``).  Over any other mesh
+    dim the ranks computed the same gradient, and each keeps its own block
+    of it: a sum there would count it once a rank."""
 
     @staticmethod
-    def forward(ctx, x, mesh, dims, partial, reduce):
+    def forward(ctx, x, mesh, dims, partial, reduce, cols):
         ctx.mesh, ctx.dims, ctx.partial, ctx.reduce = (mesh, dims, partial,
                                                        reduce)
         for dim, names in dims:
             x = _gather(x, mesh, names, dim)
+        ctx.cols = None
+        if cols:  # (dim, picks, the block's length along dim)
+            ctx.cols = cols + (x.shape[cols[0]],)
+            x = _take_columns(x, mesh, *cols)
         return x
 
     @staticmethod
     def backward(ctx, g):
         mesh = ctx.mesh
         g = g.float()
+        if ctx.cols:
+            g = _give_columns(g, mesh, *ctx.cols)
         for dim, names in reversed(ctx.dims):
             for name in names:  # major first: the gather's last step
                 g = (_scatter_sum(g, mesh, (name,), dim)
@@ -417,29 +490,34 @@ class _Use(torch.autograd.Function):
             import torch.distributed as dist
 
             g = _all_reduce(g, mesh, ctx.reduce, dist.ReduceOp.SUM)
-        return g, None, None, None, None
+        return g, None, None, None, None, None
 
 
-def use(x: torch.Tensor, mesh, spec, *, keep=(), partial=()) -> torch.Tensor:
+def use(x: torch.Tensor, mesh, spec, *, keep=(), partial=(),
+        columns=None) -> torch.Tensor:
     """What a rank computes with from its block ``x`` of a leaf that
     ``spec`` lays out on ``mesh``: ``x`` gathered over every mesh dim the
     spec names, save the dims whose entry names one of ``keep`` (the rank
     runs on its block there: its heads, its ffn slice, its vocabulary, its
-    experts).  ``partial``: the mesh dims over which the rank's gradient
-    of the result is a part of the whole (see :class:`_Use`); outside
-    autograd it changes nothing."""
+    experts).  ``columns`` (``(dim, picks)``, with 'model' kept on
+    ``dim``): then the columns ``picks[r]`` of that dim on the rank of
+    'model' coordinate ``r``, taken from the ranks' contiguous blocks.
+    ``partial``: the mesh dims over which the rank's gradient of the
+    result is a part of the whole (see :class:`_Use`); outside autograd
+    it changes nothing."""
     dims = _split_dims(spec, mesh, keep)
+    cols = tuple(columns) if columns else None
     if not (torch.is_grad_enabled() and x.requires_grad):
         for dim, names in dims:
             x = _gather(x, mesh, names, dim)
-        return x
+        return _take_columns(x, mesh, *cols) if cols else x
     named = {n for e in spec for n in _names(e)}
     axes = _axes(mesh)
     reduce = tuple(a for a in axes if a in partial and a not in named
                    and axes[a] > 1)
-    if not (dims or reduce):
+    if not (dims or reduce or cols):
         return x
-    return _Use.apply(x, mesh, dims, frozenset(partial), reduce)
+    return _Use.apply(x, mesh, dims, frozenset(partial), reduce, cols)
 
 
 class _Reduce(torch.autograd.Function):
@@ -608,18 +686,40 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     return _exchange(x, group)
 
 
+def _move(x: torch.Tensor, mesh, name: str, src: int,
+          dst: int) -> torch.Tensor:
+    """``x``, a block along ``src`` over the mesh dim ``name``, as a block
+    along ``dst`` over it (``src`` whole): one all-to-all over ``name``."""
+    m = _axes(mesh)[name]
+    send = torch.stack(x.chunk(m, dst))
+    got = _exchange(send, mesh.get_group(name))
+    return torch.cat(got.unbind(0), dim=src)
+
+
 def relayout(x: torch.Tensor, mesh, held, want) -> torch.Tensor:
     """A tensor laid out by the entries ``held`` (one a dim) in the layout
-    ``want``, outside autograd: gathered where ``held`` names mesh dims
-    that ``want`` does not, cut to this rank's block where ``want`` names
-    ones that ``held`` does not (a decode cache between its plan and the
-    layout a step computes in)."""
+    ``want``, outside autograd (a decode cache between its plan and the
+    layout a step computes in): gathered where ``held`` names mesh dims
+    that ``want`` does not; a mesh dim that is a whole entry of both on
+    different dims moves between them by one all-to-all (:func:`_move`),
+    after the gathers; then cut to this rank's block where ``want`` names
+    ones that ``held`` does not."""
+    axes = _axes(mesh)
+    held, want = list(held), list(want)
+    moves = []
+    for name in axes:
+        src = [d for d, e in enumerate(held) if e == name]
+        dst = [d for d, e in enumerate(want) if e == name]
+        if axes[name] > 1 and src and dst and src != dst:
+            moves.append((name, src[0], dst[0]))
+            held[src[0]] = want[dst[0]] = None
     for dim, (h, w) in enumerate(zip(held, want)):
-        if h == w:
-            continue
-        if h is not None:
+        if h != w and h is not None:
             x = _gather(x, mesh, _names(h), dim)
-        if w is not None:
+    for move in moves:
+        x = _move(x, mesh, *move)
+    for dim, (h, w) in enumerate(zip(held, want)):
+        if h != w and w is not None:
             x = _own(x, mesh, _names(w), dim)
     return x
 

@@ -8,6 +8,15 @@ chunks that emits the state before each chunk (the reference's
 ``lax.scan``).  Decode is a one-token state update: O(state) work and no
 cache growth.  Neither is a TPU kernel in the reference; this is plain
 torch.
+
+Under a plan that splits the mixer's 'inner' dim over 'model' (the
+layer tree as ``models.model._gathered`` makes it: ``out_proj`` named
+under ``layers.MODEL_BLOCKS``), each rank runs its block of the heads,
+Megatron style: its columns of z, x and dt and B and C whole
+(:func:`head_columns`), the SSD over its heads, the gated norm's sum of
+squares summed over 'model', and ``out_proj`` row parallel.  With the
+whole mixer (no plan, or one rank over 'model') the same functions run
+the one program's path, bit for bit.
 """
 from __future__ import annotations
 
@@ -17,10 +26,12 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from .layers import on_model_block, row_parallel
 from .param import Mk
+from .shard_ctx import current_mesh
 
-__all__ = ["SSMCache", "init_mamba2", "init_ssm_cache", "mamba2_decode",
-           "mamba2_full"]
+__all__ = ["SSMCache", "head_columns", "init_mamba2", "init_ssm_cache",
+           "mamba2_decode", "mamba2_full"]
 
 
 def init_mamba2(mk: Mk, cfg: ModelConfig, layers: Optional[int] = None):
@@ -58,8 +69,43 @@ def init_ssm_cache(batch: int, cfg: ModelConfig, device) -> SSMCache:
     )
 
 
-def _split_proj(p, x: torch.Tensor, cfg: ModelConfig):
-    di, n = cfg.d_inner, cfg.ssm_state
+def head_columns(di: int, n: int, nh: int, m: int) -> dict:
+    """The columns each of ``m`` ranks computes with where the mixer's
+    heads split over 'model': per leaf (``in_proj``'s fused z | x | B | C
+    | dt columns, the conv's x | B | C channels), per rank, its sorted
+    ``(lo, hi)`` ranges: z, x and dt of its ``nh / m`` heads, B and C
+    whole (ngroups = 1: every head reads them)."""
+    w, h = di // m, nh // m
+    inp, conv = [], []
+    for r in range(m):
+        inp.append(((r * w, (r + 1) * w), (di + r * w, di + (r + 1) * w),
+                    (2 * di, 2 * di + 2 * n),
+                    (2 * di + 2 * n + r * h, 2 * di + 2 * n + (r + 1) * h)))
+        conv.append(((r * w, (r + 1) * w), (di, di + 2 * n)))
+    return {"in_proj": tuple(inp), "conv_w": tuple(conv),
+            "conv_b": tuple(conv)}
+
+
+def _widths(p, cfg: ModelConfig) -> tuple:
+    """(d_inner, heads) of the mixer ``p`` computes: its block of the
+    heads over 'model' (:func:`on_model_block`), else the whole."""
+    if on_model_block(p, "out_proj"):
+        return p["norm_w"].shape[0], p["A_log"].shape[0]
+    return cfg.d_inner, cfg.ssm_heads
+
+
+def _whole_x(xbc: torch.Tensor, di: int) -> torch.Tensor:
+    """The conv's channels whole ``[..., d_inner + 2n]`` from a rank's
+    ``[..., di | B | C]`` (its heads' x, B and C whole): the x blocks
+    gathered over 'model' (outside autograd: a cache's)."""
+    from ..distributed.sharding import _gather
+
+    xs = _gather(xbc[..., :di].contiguous(), current_mesh(), ("model",),
+                 xbc.dim() - 1)
+    return torch.cat([xs, xbc[..., di:]], dim=-1)
+
+
+def _split_proj(p, x: torch.Tensor, di: int, n: int):
     zxbcdt = x @ p["in_proj"]
     return (zxbcdt[..., :di], zxbcdt[..., di:2 * di + 2 * n],
             zxbcdt[..., 2 * di + 2 * n:])
@@ -80,10 +126,21 @@ def _causal_conv(p, xbc: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return F.silu(out + p["conv_b"].float()).to(xbc.dtype)
 
 
-def _gated_norm(y: torch.Tensor, z: torch.Tensor,
-                w: torch.Tensor) -> torch.Tensor:
+def _gated_norm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
+                whole: int = 0) -> torch.Tensor:
+    """RMS norm of ``y * silu(z)``.  ``whole``: ``y`` is a rank's block of
+    the heads of a ``whole``-wide inner dim; the f32 sums of squares are
+    summed over 'model' (and so is their gradient) and divided by
+    ``whole`` (ROADMAP §C P38: another order than the one program's)."""
     g = y.float() * F.silu(z.float())
-    var = (g * g).mean(dim=-1, keepdim=True)
+    if whole:
+        from ..distributed.sharding import reduce_sum
+
+        sq = reduce_sum((g * g).sum(dim=-1, keepdim=True), current_mesh(),
+                        ("model",), ("model",))
+        var = sq / whole
+    else:
+        var = (g * g).mean(dim=-1, keepdim=True)
     return (g * torch.rsqrt(var + 1e-6) * (1.0 + w.float())).to(y.dtype)
 
 
@@ -105,9 +162,17 @@ def mamba2_full(p, x: torch.Tensor, cfg: ModelConfig,
     and the real outputs are exact).
 
     ``return_state=True`` also returns the :class:`SSMCache` after the last
-    token, for the prefill -> decode handoff."""
+    token, for the prefill -> decode handoff.
+
+    On a block of the heads (see the module's docstring) ``x`` is the
+    whole input (the column-parallel input, gathered under sequence
+    parallelism), the output is ``out_proj``'s row-parallel sum (this
+    rank's block of the sequence under sequence parallelism) and the state
+    holds the rank's heads ``[B, heads / model, hp, n]``; the conv cache
+    is whole."""
     b, s, _ = x.shape
-    di, n, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    split = on_model_block(p, "out_proj")
+    (di, nh), n = _widths(p, cfg), cfg.ssm_state
     hp = di // nh
     cl = min(cfg.ssm_chunk, s)
     pad = (-s) % cl
@@ -117,7 +182,7 @@ def mamba2_full(p, x: torch.Tensor, cfg: ModelConfig,
         s = s + pad
     nc = s // cl
 
-    z, xbc_raw, dt_raw = _split_proj(p, x, cfg)
+    z, xbc_raw, dt_raw = _split_proj(p, x, di, n)
     xbc = _causal_conv(p, xbc_raw, cfg)
     xin = xbc[..., :di].reshape(b, nc, cl, nh, hp)
     B = xbc[..., di:di + n].reshape(b, nc, cl, n)
@@ -157,30 +222,46 @@ def mamba2_full(p, x: torch.Tensor, cfg: ModelConfig,
     y = y + xin.reshape(b, s, nh, hp).float() * p["D"].float().reshape(
         1, 1, nh, 1)
     y = y.reshape(b, s, di).to(x.dtype)
-    y = _gated_norm(y, z, p["norm_w"])
-    out = y @ p["out_proj"]
-    if pad:
-        out = out[:, :s_real]
+    y = _gated_norm(y, z, p["norm_w"], cfg.d_inner if split else 0)
+    if split:  # the padding's rows are cut before the row-parallel sum
+        out = row_parallel(y[:, :s_real], p["out_proj"])
+    else:
+        out = y @ p["out_proj"]
+        if pad:
+            out = out[:, :s_real]
     if not return_state:
         return out
     # decode handoff: the conv cache holds the last (k-1) RAW xbc inputs
     conv_tail = xbc_raw[:, s_real - (cfg.ssm_conv - 1):s_real, :]
+    if split:
+        conv_tail = _whole_x(conv_tail, di)
     return out, SSMCache(conv=conv_tail.contiguous(), state=h)
 
 
 def mamba2_decode(p, x: torch.Tensor, cache: SSMCache,
                   cfg: ModelConfig) -> tuple[torch.Tensor, SSMCache]:
-    """Single-token SSD step.  x: [B, 1, d]."""
+    """Single-token SSD step.  x: [B, 1, d].  On a block of the heads the
+    cache's conv is whole and its state the rank's heads, and so are the
+    returned ones; the output is ``out_proj``'s row-parallel sum."""
     b = x.shape[0]
-    di, n, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    split = on_model_block(p, "out_proj")
+    (di, nh), n = _widths(p, cfg), cfg.ssm_state
     hp = di // nh
 
-    z, xbc, dt_raw = _split_proj(p, x, cfg)  # [b, 1, ...]
-    hist = torch.cat([cache.conv, xbc], dim=1)  # [b, k, ch]
+    z, xbc, dt_raw = _split_proj(p, x, di, n)  # [b, 1, ...]
+    conv = cache.conv
+    if split:  # the rank's channels of the whole history: its x, B, C
+        lo = di * current_mesh().get_local_rank("model")
+        conv = torch.cat([conv[..., lo:lo + di], conv[..., cfg.d_inner:]],
+                         dim=-1)
+    hist = torch.cat([conv, xbc], dim=1)  # [b, k, ch]
     conv_out = ((hist.float() * p["conv_w"].float()).sum(dim=1)
                 + p["conv_b"].float())
     xbc1 = F.silu(conv_out).to(x.dtype)[:, None, :]
-    new_conv = hist[:, 1:, :]
+    if split:
+        new_conv = torch.cat([cache.conv, _whole_x(xbc, di)], dim=1)[:, 1:]
+    else:
+        new_conv = hist[:, 1:, :]
 
     xin = xbc1[..., :di].reshape(b, nh, hp).float()
     B = xbc1[..., di:di + n].reshape(b, n).float()
@@ -196,5 +277,6 @@ def mamba2_decode(p, x: torch.Tensor, cache: SSMCache,
     y = torch.einsum("bhpn,bn->bhp", state, C)
     y = y + xin * p["D"].float().reshape(1, nh, 1)
     y = y.reshape(b, 1, di).to(x.dtype)
-    y = _gated_norm(y, z, p["norm_w"])
-    return y @ p["out_proj"], SSMCache(conv=new_conv, state=state)
+    y = _gated_norm(y, z, p["norm_w"], cfg.d_inner if split else 0)
+    out = row_parallel(y, p["out_proj"]) if split else y @ p["out_proj"]
+    return out, SSMCache(conv=new_conv, state=state)

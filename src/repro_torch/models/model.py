@@ -42,9 +42,10 @@ Under a scope with a plan (a step's ``param_shardings``), the parameters
 are this rank's blocks of it: each layer gathers its leaves on use inside
 its body (:func:`_gathered`; the remat recompute gathers again, ZeRO-3's
 backward), so one layer's gathered leaves live at a time.  Attention's
-heads, the MLP's ffn, the vocabulary and the experts run on the rank's
-block over 'model' where the plan splits them; every other leaf is
-gathered whole and its compute replicated over 'model'.  Between
+heads, the MLP's ffn, the vocabulary, the experts and the SSD mixer's
+heads run on the rank's block over 'model' where the plan splits them;
+every other leaf is gathered whole and its compute replicated over
+'model'.  Between
 sublayers each rank holds its block of the sequence over 'model' where the
 sequence divides (sequence parallelism, :meth:`Model._seq_split`).  The
 decode cache is then held as the scope's cache plan (``cache_pspecs``)
@@ -85,13 +86,15 @@ from .layers import (
     init_mlp,
     init_rmsnorm,
     mlp,
+    on_model_block,
     residual_add,
     rmsnorm,
     stream_inputs,
     stream_output,
     unembed,
 )
-from .mamba2 import init_mamba2, init_ssm_cache, mamba2_decode, mamba2_full
+from .mamba2 import (head_columns, init_mamba2, init_ssm_cache, mamba2_decode,
+                     mamba2_full)
 from .moe import init_moe, moe_apply
 from .param import AxesMk, Mk
 from .shard_ctx import (
@@ -147,6 +150,60 @@ def _on_model_block(name: str, spec, mesh) -> bool:
             and any("model" in _names(e) for e in spec))
 
 
+# The SSD mixer's leaves that the plan's 'inner' lays over 'model', and
+# the dim it names in each (one layer's).
+_SSD_INNER = {"in_proj": 1, "conv_w": 1, "conv_b": 0, "norm_w": 0,
+              "out_proj": 0}
+
+
+def _ssd_on_heads(tree, specs, mesh) -> bool:
+    """Whether the SSD mixer ``tree`` (one layer's blocks, laid out by
+    ``specs``) runs on the rank's block of its heads over 'model': the
+    plan lays every leaf of :data:`_SSD_INNER` over a 'model' dim of more
+    than one rank, and the heads divide it.  Else (a divisibility
+    fallback replicated a leaf, or the heads do not divide) the mixer is
+    gathered whole and runs replicated.  The one place this is decided."""
+    from ..distributed.sharding import _axes, _names
+
+    m = _axes(mesh).get("model", 1)
+    return (m > 1 and tree["A_log"].shape[-1] % m == 0
+            and all("model" in _names(specs[k][d])
+                    for k, d in _SSD_INNER.items()))
+
+
+def _ssd_heads(tree, specs, mesh, data: tuple):
+    """The SSD mixer's blocks as a rank computes with them on its block of
+    the heads (:func:`_ssd_on_heads`): ``in_proj`` and the conv gathered
+    over the data axes, then their columns of the rank's heads (z, x, dt)
+    and B and C whole taken over 'model' (one all-to-all a leaf); the
+    norm and ``out_proj`` its block as the plan holds it; ``A_log``,
+    ``D`` and ``dt_bias`` its heads of the whole.  Every leaf is named
+    under :data:`~.layers.MODEL_BLOCKS`.  The gradients: B's and C's
+    columns summed over 'model' (each rank's from its heads), the heads'
+    vectors too (zero off the rank's heads)."""
+    from ..distributed.sharding import _axes, use
+
+    m = _axes(mesh)["model"]
+    r = mesh.get_local_rank("model")
+    nh = tree["A_log"].shape[-1]
+    di = tree["norm_w"].shape[-1] * m
+    n = (tree["in_proj"].shape[-1] * m - 2 * di - nh) // 2
+    cols = head_columns(di, n, nh, m)
+    h = nh // m
+    out = {}
+    for k, t in tree.items():
+        if k in cols:
+            out[k] = use(t, mesh, specs[k], keep=("model",), partial=data,
+                         columns=(_SSD_INNER[k], cols[k]))
+        elif k in _SSD_INNER:
+            out[k] = use(t, mesh, specs[k], keep=("model",), partial=data)
+        else:
+            out[k] = use(t, mesh, specs[k],
+                         partial=data + ("model",))[r * h:(r + 1) * h]
+    out[MODEL_BLOCKS] = frozenset(tree)
+    return out
+
+
 # The norms that act on the residual stream: under sequence parallelism
 # each rank applies them to its block of the sequence.
 _STREAM_NORMS = frozenset({"ln", "ln1", "ln2", "ln_x", "final_norm",
@@ -157,9 +214,10 @@ def _gathered(tree, specs, mesh, data: tuple):
     """A layer's (or the embedding's) blocks as it computes with them: the
     leaves :func:`_on_model_block` picks gathered over the data axes alone
     (kept as the rank's block over 'model', and named under
-    :data:`~.layers.MODEL_BLOCKS`, which the layer functions read), every
-    other leaf gathered whole; a moe layer's leaves stay blocks
-    (``moe_apply`` gathers them as its path needs).  Their gradients sum
+    :data:`~.layers.MODEL_BLOCKS`, which the layer functions read), the
+    SSD mixer's on its heads where :func:`_ssd_on_heads` says so
+    (:func:`_ssd_heads`), every other leaf gathered whole; a moe layer's
+    leaves stay blocks (``moe_apply`` gathers them as its path needs).  Their gradients sum
     over ``data`` (the mesh dims of the rank's batch block) and over
     'model' too for the q/k norms of heads split over 'model' (each rank
     normed its own heads) and, under sequence parallelism, for the
@@ -171,6 +229,8 @@ def _gathered(tree, specs, mesh, data: tuple):
         s = specs[k]
         if k == "moe":
             out[k] = t
+        elif k == "ssm" and _ssd_on_heads(t, s, mesh):
+            out[k] = _ssd_heads(t, s, mesh, data)
         elif k in ("q_norm", "k_norm"):
             w = "wq" if k == "q_norm" else "wk"
             heads = _on_model_block(w, specs[w], mesh)
@@ -229,15 +289,20 @@ def _maybe_remat(body: Callable, remat: str) -> Callable:
 
 
 def _mixer(p, h: torch.Tensor, cfg: ModelConfig, return_state: bool = False):
-    """The SSD mixer over the residual stream's ``h``.  It computes whole
-    on every rank (its 'inner' split is not realised, ROADMAP §A 1): under
-    sequence parallelism it takes the gathered sequence and keeps its own
-    block of the output (the state, with ``return_state``, is whole)."""
-    hw = stream_inputs(h, False)[0]
+    """The SSD mixer over the residual stream's ``h``: on the rank's block
+    of its heads where ``p`` is (the column-parallel input; under sequence
+    parallelism the gathered sequence, and ``out_proj``'s reduce-scatter
+    gives the rank's block of the output; the state, with
+    ``return_state``, holds the rank's heads), else whole on every rank
+    (under sequence parallelism on the gathered sequence, keeping its own
+    block of the output; the state whole)."""
+    split = on_model_block(p, "out_proj")
+    hw = stream_inputs(h, split)[0]
     if return_state:
         y, st = mamba2_full(p, hw, cfg, return_state=True)
-        return stream_output(y), st
-    return stream_output(mamba2_full(p, hw, cfg))
+        return (y if split else stream_output(y)), st
+    y = mamba2_full(p, hw, cfg)
+    return y if split else stream_output(y)
 
 
 def _default_positions(tokens: torch.Tensor) -> torch.Tensor:
@@ -325,15 +390,19 @@ class Model:
         return _gathered(tree, specs, current_mesh(), batch_axes())
 
     @staticmethod
-    def _want(ndim: int, kv_split: bool = False) -> tuple:
+    def _want(ndim: int, kv_split: bool = False,
+              heads: bool = False) -> tuple:
         """The layout a step computes with a cache tensor of ``ndim`` dims
         in: this rank's batch block, and its kv heads (dim 2 of a K or V)
-        where the plan splits them."""
+        where the plan splits them, or its SSD heads (dim 1 of a state)
+        where the mixer runs on them."""
         from ..distributed.sharding import _entry
 
         want = [_entry(batch_axes())] + [None] * (ndim - 1)
         if kv_split:
             want[2] = "model"
+        if heads:
+            want[1] = "model"
         return tuple(want)
 
     def _kv_layout(self, spec: KVCache, attn_specs) -> CacheLayout:
@@ -343,11 +412,15 @@ class Model:
         return CacheLayout(current_mesh(), tuple(spec.k),
                            self._want(4, _kv_split(attn_specs)))
 
-    def _hold(self, entry, spec, attn_specs=None, back: bool = False):
+    def _hold(self, entry, spec, attn_specs=None, back: bool = False,
+              heads: bool = False):
         """One layer's cache ``entry`` (a ``KVCache``, an ``SSMCache`` or a
         cross K or V) made in a step's layout, as the cache plan holds it
         (``spec``: its specs there; None: no plan, as it is); ``back``: the
-        other way."""
+        other way.  ``heads``: the step holds an ``SSMCache``'s state as
+        the rank's SSD heads over 'model' (the conv whole); between that
+        and the plan's layout the state moves by all-to-alls over 'model'
+        (``sharding.relayout``), never whole."""
         from ..distributed.sharding import relayout
 
         if spec is None:
@@ -355,8 +428,8 @@ class Model:
         mesh = current_mesh()
         split = attn_specs is not None and _kv_split(attn_specs)
 
-        def one(t, sp, kv):
-            want = self._want(t.dim(), kv and split)
+        def one(t, sp, kv, on_heads=False):
+            want = self._want(t.dim(), kv and split, on_heads)
             src, dst = (tuple(sp), want) if back else (want, tuple(sp))
             return relayout(t, mesh, src, dst).contiguous()
 
@@ -365,8 +438,8 @@ class Model:
                            one(entry.v, spec.v, True),
                            one(entry.pos, spec.pos, False))
         if isinstance(entry, tuple):  # SSMCache
-            return type(entry)(*(one(t, sp, False)
-                                 for t, sp in zip(entry, spec)))
+            return type(entry)(one(entry.conv, spec.conv, False),
+                               one(entry.state, spec.state, False, heads))
         return one(entry, spec, True)
 
     def _scope(self):
@@ -725,18 +798,22 @@ class Model:
                     h = mlp(bp["mlp"], h, cfg)
                 x = residual_add(x, h)
             elif cfg.family == "ssm":
+                heads = on_model_block(bp["ssm"], "out_proj")
                 h = rmsnorm(x, bp["ln"]["w"])
-                h, st = mamba2_decode(bp["ssm"], h,
-                                      self._hold(lc, cs, back=True), cfg)
+                h, st = mamba2_decode(
+                    bp["ssm"], h, self._hold(lc, cs, back=True, heads=heads),
+                    cfg)
                 x = residual_add(x, h)
-                lc = self._hold(st, cs)
+                lc = self._hold(st, cs, heads=heads)
             elif cfg.family == "hybrid":
+                heads = on_model_block(bp["ssm"], "out_proj")
                 h = rmsnorm(x, bp["ln"]["w"])
                 h, st = mamba2_decode(
                     bp["ssm"], h, self._hold(lc["ssm"], cs and cs["ssm"],
-                                             back=True), cfg)
+                                             back=True, heads=heads), cfg)
                 x = residual_add(x, h)
-                lc = dict(lc, ssm=self._hold(st, cs and cs["ssm"]))
+                lc = dict(lc, ssm=self._hold(st, cs and cs["ssm"],
+                                             heads=heads))
                 if "attn" in lc:
                     shared = self._use(params, specs, "shared")
                     h = rmsnorm(x, shared["ln1"]["w"])
@@ -903,10 +980,12 @@ class Model:
                 h = rmsnorm(x, bp["ln"]["w"])
                 y, st = _mixer(bp["ssm"], h, cfg, return_state=True)
                 x = residual_add(x, y)
+                heads = on_model_block(bp["ssm"], "out_proj")
                 if cfg.family == "ssm":
-                    layers.append(self._hold(st, cs))
+                    layers.append(self._hold(st, cs, heads=heads))
                     continue
-                entry = {"ssm": self._hold(st, cs and cs["ssm"])}
+                entry = {"ssm": self._hold(st, cs and cs["ssm"],
+                                           heads=heads)}
                 if self._has_shared_attn(l):
                     x, k, v = self._shared_block(
                         self._use(params, specs, "shared"), x, positions,

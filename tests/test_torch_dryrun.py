@@ -536,6 +536,118 @@ def test_decode_attends_over_the_held_cache_blocks(b):
                               + (MESH[1] - 1) * kv) + attn)
 
 
+def _ssd_whole_flops(cfg, b: int, s: int, passes: int) -> int:
+    """FLOPs every rank computes whole on its rows where the SSD mixer
+    runs on its heads (ngroups = 1): the B and C columns of the input
+    projection, and in a full sequence's chunks C·Bᵀ (``scores``); a pass
+    each in the forward (and the recompute), two in the backward."""
+    n = cfg.ssm_state
+    bc = 2 * b * s * cfg.d_model * 2 * n
+    scores = 2 * b * s * cfg.ssm_chunk * n if s > 1 else 0
+    return passes * cfg.n_layers * (bc + scores)
+
+
+@pytest.mark.parametrize("kind,b", [("train", 8), ("prefill", 8),
+                                    ("decode", 8), ("decode", 1)])
+def test_ssd_mixer_runs_on_the_ranks_heads(kind, b):
+    """mamba2's smoke configuration (8 heads of 16, 2 a rank over a 4-way
+    'model') under the plan: each layer takes its heads' columns of
+    ``in_proj`` and the conv (z, x, dt; B and C whole) by one all-to-all a
+    leaf from the plan's blocks (rank 0 holds no B or C column, so it
+    sends each column of its blocks once; the backward gives the f32
+    gradients of its columns back), sums the gated norm's squares and
+    ``out_proj``'s f32 partials over 'model', and moves the SSM state
+    between the cache plan's head_dim split and its heads by all-to-alls;
+    nothing of the state or of ``in_proj`` is gathered whole.  FLOPs: every
+    product over the rank's rows and heads but the B and C terms, whole
+    on every rank (:func:`_ssd_whole_flops`)."""
+    cfg = get_smoke("mamba2-370m")
+    n, d, L = cfg.n_layers, cfg.d_model, 128
+    m, dd = MESH[1], MESH[0]
+    di, st, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    k, ch = cfg.ssm_conv, di + 2 * st
+    # rank 0's blocks of in_proj, conv_w and conv_b (bf16) and the f32
+    # gradients of its columns (its heads' z, x, dt; B and C whole)
+    take = (d * (2 * di + 2 * st + nh) + k * ch + ch) // m * 2
+    cols = 2 * di // m + 2 * st + nh // m
+    give = (d * cols + (k + 1) * (di // m + 2 * st)) * 4
+    rec = _cell("mamba2-370m", kind, L, b)
+    assert rec["status"] == "ok"
+    ops = rec["collectives"]["by_dim"]["model"]["ops"]
+    rows = b // dd if b % dd == 0 else b
+    state = rows * nh * (di // nh) * st // m * 4  # a rank's f32 block
+    if kind == "train":
+        mb = rec["microbatches"]
+        r = rows // mb  # a microbatch's rows
+        blk = r * L // m * d  # a block of the sequence
+        assert ops["all-to-all"] == {"bytes": mb * n * (2 * take + give),
+                                     "link_bytes": mb * n * (2 * take + give)
+                                     * 3 // 4, "count": mb * 9 * n}
+        # SP: the stream gathered (forward, recompute, the row sums'
+        # transposes), the unembedding's input, the embedding's transpose
+        assert ops["all-gather"] == {"bytes": mb * (3 * n + 2) * blk * 2,
+                                     "link_bytes": mb * (3 * n + 2) * blk
+                                     * 2 * 3, "count": mb * (3 * n + 2)}
+        assert ops["reduce-scatter"] == {
+            "bytes": mb * (2 * n + 1) * r * L * d * 4,
+            "link_bytes": mb * (2 * n + 1) * r * L * d * 3, "count":
+                mb * (2 * n + 1)}
+        # the embedding, the cross entropy's three, per layer the norm's
+        # squares (forward, recompute, backward), the gradients of A_log,
+        # D, dt_bias and ln, the final norm's; the gradient norm's two
+        # groups laid over 'model'
+        assert ops["all-reduce"]["count"] == mb * (5 + 7 * n) + 2
+        passes = 4
+    elif kind == "prefill":
+        assert ops["all-to-all"] == {"bytes": n * (take + state),
+                                     "link_bytes": n * (take + state) * 3
+                                     // 4, "count": 4 * n}
+        # SP: the stream a layer, the conv tail's x; the last row
+        conv = rows * (k - 1) * di // m * 2
+        assert ops["all-gather"] == {
+            "bytes": n * (rows * L // m * d * 2 + conv) + rows * d * 2,
+            "link_bytes": 3 * (n * (rows * L // m * d * 2 + conv)
+                               + rows * d * 2), "count": 2 * n + 1}
+        assert ops["reduce-scatter"]["count"] == n
+        assert ops["all-reduce"] == {
+            "bytes": n * rows * L * 4 + rows * L * d * 4,
+            "link_bytes": (n * rows * L * 4 + rows * L * d * 4) * 3 // 2,
+            "count": n + 1}
+        passes = 1
+    else:
+        # the state there and back, each layer
+        assert ops["all-to-all"] == {"bytes": n * (take + 2 * state),
+                                     "link_bytes": n * (take + 2 * state)
+                                     * 3 // 4, "count": 5 * n}
+        # the conv history's channels, the new token's x; the argmax's
+        # best logits and their indices
+        gathered = n * (rows * (k - 1) * ch // m + rows * di // m) * 2
+        assert ops["all-gather"] == {"bytes": gathered + rows * 12,
+                                     "link_bytes": 3 * (gathered + rows
+                                                        * 12), "count":
+                                         2 * n + 2}
+        assert ops["all-reduce"] == {
+            "bytes": n * (rows * 4 + rows * d * 4) + rows * d * 4,
+            "link_bytes": (n * (rows * 4 + rows * d * 4) + rows * d * 4)
+            * 3 // 2, "count": 2 * n + 1}
+        data = rec["collectives"]["by_dim"].get("data")
+        if b % dd == 0:
+            assert data is None
+        else:  # the state's heads, held over 'data', gathered there
+            assert data["ops"] == {"all-gather": {
+                "bytes": n * state // dd, "link_bytes": n * state // dd,
+                "count": n}}
+        passes = 1
+    assert set(ops) <= {"all-to-all", "all-gather", "reduce-scatter",
+                        "all-reduce"}
+    whole = _ssd_whole_flops(cfg, b, L if kind != "decode" else 1, passes)
+    split = dd if b % dd == 0 else 1
+    assert (split * m * rec["cost"]["flops"]
+            == rec["probe"]["flops"] + (m - 1) * whole)
+    mem = rec["memory"]
+    assert mem["argument_size_in_bytes"] == mem["plan_argument_bytes"]
+
+
 def test_moe_prefill_all_to_alls_over_model():
     """moe_ffn_ep's dispatch and return: two all-to-alls a layer over
     'model' of the [E, cap, d] bf16 bucket, cap from the tokens of one

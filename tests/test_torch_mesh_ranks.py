@@ -30,14 +30,15 @@ not rank numbers.  The cases:
 * ``sharding.constrain`` on a ``DTensor`` (the port's own: the reference's
   pin changes no value) redistributes it to the spec's placements.
 * the blocked train step (ZeRO-3 over 'data', tensor and expert parallel
-  over 'model') on the dense and the moe smoke configurations (capacity
-  factor 8), from the port's ``Model.init`` weights and ``TokenStream``
+  over 'model') on the dense, the moe (capacity factor 8) and the ssm
+  smoke configurations (mamba2: its SSD mixer on each rank's 2 of 8
+  heads), from the port's ``Model.init`` weights and ``TokenStream``
   batch 0 (B = 4, S = 32).  Each rank holds exactly its plan block of
   every parameter and moment (``param_pspecs`` on the mesh); the blocks,
   put together by mesh coordinates, are held against the port's
   one-process step on the whole batch: ``ce`` within f32 summation order
-  (``rtol=1e-6``), and ``loss`` too on the dense configuration (the moe
-  one's aux is the mean of each (data, model) token shard's, as the
+  (``rtol=1e-6``), and ``loss`` too but on the moe configuration (its
+  aux is the mean of each (data, model) token shard's, as the
   reference's ``shard_map`` makes it, where the one-process step takes the
   whole batch's); the gradient is each block's bf16 gradient summed in
   f32 where the one-process step rounds the whole batch's gradient to
@@ -46,13 +47,15 @@ not rank numbers.  The cases:
   ``rtol=1e-3``) and the parameters within
   ``tests/test_torch_train_step.py``'s slack.  Against the reference's one
   program with its plan (``param_shardings`` on 8 forced host devices):
-  that file's bounds for the dense configuration; for the moe
+  that file's bounds for the dense and ssm configurations; for the moe
   configuration ``loss``, ``ce``, ``grad_norm`` and ``lr`` only, since one
   of the 128 tokens takes another expert at layer 1 in the two packages'
   bf16 (ROADMAP §C P23).
 * a leaf gathered whole on use (its compute replicated over 'model'): its
   gradient is the one-process step's, not the 'model' size times it; and
-  the q/k norms of heads split over 'model', whose gradients sum.
+  the q/k norms of heads split over 'model', whose gradients sum; so do
+  mamba2's per-head vectors and the B and C columns of its input
+  projection and conv, which every rank takes whole for its heads.
 * ``compress`` on the blocks equal, bit for bit, to the blocks of
   ``compress`` of the global tree (each leaf's scale its whole leaf's).
 * vocab-parallel ``embed``, ``unembed`` and ``cross_entropy`` on a padded
@@ -68,6 +71,10 @@ not rank numbers.  The cases:
   head_dim splits) at B = 4 (the batch over 'data') and B = 1 (the
   sequence over 'data'): every rank's logits bit-equal to rank 0's, and
   within ``REL_BOUND`` of the reference's and of the unsharded port's.
+  The same for mamba2 and zamba2 (``SSD_ARCHS``), each rank's mixer on
+  its heads: the SSM state held with its head_dim over 'model' (at B = 1
+  its heads over 'data' too) and moved to the rank's heads and back by
+  all-to-alls each step.
   The sequence parallelism of the prefill (16 positions, a block of 4 a
   rank) and of the train step (32 positions) runs in these cases too.
 * the sequence-parallel stream through the encoder-decoder, hybrid and
@@ -302,7 +309,7 @@ def test_data_parallel_step(runs, family):
     one = _run(ranks[0], f"dp/{family}/one/")
     lr = float(one["lr"])
     assert float(dp["lr"]) == lr
-    for key in ("loss", "ce") if family == "dense" else ("ce",):
+    for key in ("loss", "ce") if family != "moe" else ("ce",):
         np.testing.assert_allclose(float(dp[key]), float(one[key]),
                                    rtol=1e-6, err_msg=key)
     np.testing.assert_allclose(float(dp["grad_norm"]),
@@ -316,8 +323,8 @@ def test_data_parallel_step(runs, family):
     assert float(dp["lr"]) == float(want["lr"])
     np.testing.assert_allclose(float(dp["grad_norm"]),
                                float(want["grad_norm"]), rtol=GNORM_RTOL)
-    if family == "dense":
-        _check_leaves(dp, want, BOUND["dense"], lr)
+    if family != "moe":
+        _check_leaves(dp, want, BOUND[family], lr)
 
 
 @pytest.mark.parametrize("family", sorted(C.DP_ARCHS))
@@ -343,6 +350,33 @@ def test_gathered_whole_leaf_gradient_is_not_summed_over_model(runs,
         ratio = np.linalg.norm(got) / np.linalg.norm(want)
         assert abs(ratio - 1.0) < 2.0**-6, (path, ratio, scale)
         assert _rel_l2(got, want) < 2.0**-6, path
+
+
+def test_ssd_head_split_gradients_sum_over_model(runs):
+    """mamba2's mixer on each rank's 2 of 8 heads: ``A_log``, ``D`` and
+    ``dt_bias`` are whole on every rank but each rank's gradient is
+    non-zero on its heads alone, and every rank takes the B and C columns
+    of ``in_proj`` (and their conv channels) whole, its gradient of them
+    from its heads alone.  Summed over 'model' they are the one-process
+    step's (without the sum a rank's moment would be a quarter of it, or
+    wrong by head): first moments within 2**-6 relative L2."""
+    from repro_torch.configs import get_smoke
+
+    _, ranks = runs
+    dp = _blocked_run(ranks, "ssm")
+    one = _run(ranks[0], "dp/ssm/one/")
+    cfg = get_smoke(C.DP_ARCHS["ssm"])
+    di, n = cfg.d_inner, cfg.ssm_state
+    pick = {"A_log": np.s_[...], "D": np.s_[...], "dt_bias": np.s_[...],
+            "in_proj": np.s_[..., 2 * di:2 * di + 2 * n],
+            "conv_w": np.s_[..., di:di + 2 * n],
+            "conv_b": np.s_[..., di:di + 2 * n]}
+    for leaf, cols in pick.items():
+        got = dp[f"m/blocks/ssm/{leaf}"][cols]
+        want = one[f"m/blocks/ssm/{leaf}"][cols]
+        ratio = np.linalg.norm(got) / np.linalg.norm(want)
+        assert abs(ratio - 1.0) < 2.0**-6, (leaf, ratio)
+        assert _rel_l2(got, want) < 2.0**-6, leaf
 
 
 def test_compress_on_blocks_equals_the_global_blocks(runs):
@@ -418,6 +452,33 @@ def test_split_cache_decode_matches_reference_with_its_plan(runs, case):
             assert np.array_equal(r[f"serve_ref/{case}/mesh/{i}"], got)
         for want in (ref[f"serve_ref/{case}/{i}"],
                      ranks[0][f"serve_ref/{case}/one/{i}"]):
+            assert got.shape == want.shape
+            scale = max(float(np.abs(want).max()), 1.0)
+            err = float(np.abs(got - want).max())
+            assert err < REL_BOUND * scale, (i, err, scale)
+
+
+@pytest.mark.parametrize("case", sorted(C.SERVE_REF))
+@pytest.mark.parametrize("family", sorted(C.SSD_ARCHS))
+def test_ssd_head_split_decode_matches_reference_with_its_plan(runs, family,
+                                                               case):
+    """Prefill and decode with the SSD mixer on each rank's heads, the
+    SSM state held as ``cache_pspecs`` lays it out (its head_dim over
+    'model'; at B = 1 its heads over 'data') and moved to the rank's heads
+    by all-to-alls: every rank's logits bit-equal to rank 0's, and within
+    ``REL_BOUND`` of the reference's program with its plan and of the
+    unsharded port's."""
+    ref, ranks = runs
+    b, _, steps = C.SERVE_REF[case]
+    key = f"serve_ssd/{family}/{case}"
+    held = str(ranks[0][f"{key}/held"])
+    assert held == ("('data', None, 'model', None)" if b % C.MESH[0] == 0
+                    else "(None, 'data', 'model', None)")
+    for i in range(steps + 1):
+        got = ranks[0][f"{key}/mesh/{i}"]
+        for r in ranks[1:]:
+            assert np.array_equal(r[f"{key}/mesh/{i}"], got)
+        for want in (ref[f"{key}/{i}"], ranks[0][f"{key}/one/{i}"]):
             assert got.shape == want.shape
             scale = max(float(np.abs(want).max()), 1.0)
             err = float(np.abs(got - want).max())

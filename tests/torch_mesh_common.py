@@ -45,7 +45,8 @@ BATCH_SPECS = {"data": ("data",), "data_model": (("data", "model"),),
 STREAM = dict(vocab=128, seq_len=16, global_batch=8, seed=3)
 STREAM_STEPS = (0, 1, 5)
 
-DP_ARCHS = {"dense": "gemma-2b", "moe": "qwen3-moe-235b-a22b"}
+DP_ARCHS = {"dense": "gemma-2b", "moe": "qwen3-moe-235b-a22b",
+            "ssm": "mamba2-370m"}
 DP_BATCH, DP_SEQ = 4, 32
 DP_SEED = 1  # torch.Generator seed of the port's Model.init
 PAD_VOCAB = 250  # a vocabulary padded to 256 rows (the last block's 6)
@@ -57,6 +58,12 @@ SERVE = (4, 16, 3)  # prefill B x S on the mesh, then decode steps
 # not divide) the sequence splits over it
 SERVE_REF = {"b4": (4, 16, 3), "b1": (1, 16, 3)}
 SERVE_LEN = 20
+# the families whose SSD mixer runs on each rank's block of its heads (8
+# heads, 2 a rank), held through SERVE_REF's cases against the reference's
+# program with its plan: the state held with its head_dim over 'model'
+# (and at B = 1 its heads over 'data'), moved to the rank's heads by
+# all-to-alls
+SSD_ARCHS = {"ssm": "mamba2-370m", "hybrid": "zamba2-2.7b"}
 # the families whose sublayers take the sequence-parallel stream by other
 # routes than the dense one: cross attention and the encoder, the SSD
 # mixer and the shared block, the vision embeddings and M-RoPE

@@ -152,12 +152,13 @@ def dp_ref(mesh, out: dict) -> None:
                 out[f"{key}/{name}{path}"] = _np(t)
 
 
-def serve_ref(mesh, out: dict) -> None:
+def serve_ref(mesh, out: dict, arch: str = C.DP_ARCHS["dense"],
+              key: str = "serve_ref") -> None:
     """The reference's prefill (the plan of ``param_shardings``, the cache
     laid out by ``cache_pspecs``) and ``make_decode_step`` (the serving
     layout: ``fsdp=False, moe_2d=True``), each jitted with its shardings as
     its dry run lowers them, on ``SERVE_REF``'s cases: the logits of the
-    prefill and of each decode step."""
+    prefill and of each decode step, under ``key``."""
     import torch
     from jax.sharding import NamedSharding
 
@@ -168,7 +169,6 @@ def serve_ref(mesh, out: dict) -> None:
     from repro_torch import configs as tcfg
     from repro_torch.models.model import Model
 
-    arch = C.DP_ARCHS["dense"]
     cfg = get_smoke(arch)
     tparams = Model(tcfg.get_smoke(arch), "cpu").init(
         torch.Generator().manual_seed(C.DP_SEED))
@@ -196,11 +196,11 @@ def serve_ref(mesh, out: dict) -> None:
                          out_shardings=(None, None, c_sh))
         params = jax.device_put(_tree(tparams), pplan)
         logits, cache = prefill(params, toks[:, :s])
-        out[f"serve_ref/{case}/0"] = _np(logits)
+        out[f"{key}/{case}/0"] = _np(logits)
         params = jax.device_put(params, dplan)
         for i in range(steps):
             _, logits, cache = decode(params, cache, toks[:, s + i:s + i + 1])
-            out[f"serve_ref/{case}/{i + 1}"] = _np(logits)
+            out[f"{key}/{case}/{i + 1}"] = _np(logits)
 
 
 def _tree(t):
@@ -225,6 +225,8 @@ def main() -> int:
         jax.sharding.AxisType.Auto,) * 2)
     dp_ref(auto, out)
     serve_ref(auto, out)
+    for family, arch in C.SSD_ARCHS.items():
+        serve_ref(auto, out, arch, f"serve_ssd/{family}")
     np.savez(dest / "ref.npz", **out)
     return 0
 

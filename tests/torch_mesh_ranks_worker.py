@@ -263,15 +263,16 @@ def serve_checks(mesh, out: dict) -> None:
                 out[f"serve/{family}/one/{i + 1}"] = _np(lg)
 
 
-def serve_ref_checks(mesh, out: dict) -> None:
+def serve_ref_checks(mesh, out: dict, arch: str = C.DP_ARCHS["dense"],
+                     key: str = "serve_ref") -> None:
     """``SERVE_REF``'s cases (the reference's side:
     ``torch_mesh_ranks_ref.serve_ref``): prefill under the training plan
     and decode steps under the serving plan, the cache held as
     ``cache_pspecs`` lays it out (head_dim over 'model'; at B = 1 the
     sequence over 'data' too, every rank holding the whole batch), each
-    step's logits gathered over the mesh; rank 0 also runs the unsharded
-    model."""
-    cfg = _smoke(C.DP_ARCHS["dense"])
+    step's logits gathered over the mesh, under ``key``; rank 0 also runs
+    the unsharded model."""
+    cfg = _smoke(arch)
     model = Model(cfg, "cpu")
     params = model.init(torch.Generator().manual_seed(C.DP_SEED))
     axes = model.logical_axes()
@@ -296,21 +297,23 @@ def serve_ref_checks(mesh, out: dict) -> None:
         for i in range(steps):
             _, logits, cache = dec(dblocks, cache, mine[:, s + i:s + i + 1])
             got.append(logits)
-        out[f"serve_ref/{case}/held"] = np.asarray(str(tuple(
-            cache_plan["layers"][0].k)))
+        held = cache_plan["layers"][0]
+        held = held["ssm"] if isinstance(held, dict) else held
+        out[f"{key}/{case}/held"] = np.asarray(str(tuple(
+            held.state if hasattr(held, "state") else held.k)))
         for i, lg in enumerate(got):
             lg = _gather(lg, mesh, ("model",), 1)
             if split:
                 lg = _gather(lg, mesh, ("data",), 0)
-            out[f"serve_ref/{case}/mesh/{i}"] = _np(lg)
+            out[f"{key}/{case}/mesh/{i}"] = _np(lg)
         if dist.get_rank() == 0:
             lg, cache = model.prefill(params, {"tokens": toks[:, :s]},
                                       max_len=C.SERVE_LEN)
-            out[f"serve_ref/{case}/one/0"] = _np(lg)
+            out[f"{key}/{case}/one/0"] = _np(lg)
             for i in range(steps):
                 lg, cache = model.decode_step(params, cache,
                                               toks[:, s + i:s + i + 1])
-                out[f"serve_ref/{case}/one/{i + 1}"] = _np(lg)
+                out[f"{key}/{case}/one/{i + 1}"] = _np(lg)
 
 
 def sp_checks(mesh, rank: int, out: dict) -> None:
@@ -413,6 +416,8 @@ def main() -> int:
     vocab_checks(mesh, out)
     serve_checks(mesh, out)
     serve_ref_checks(mesh, out)
+    for family, arch in C.SSD_ARCHS.items():
+        serve_ref_checks(mesh, out, arch, f"serve_ssd/{family}")
     sp_checks(mesh, rank, out)
     dist.barrier()
     dist.destroy_process_group()
