@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py
 
+The whole run, the builds included, has 1,200 s to end on one H100; the
+depth cuts named below keep it inside that on the slower hosts.
+
 Phases, each of which raises (and so exits non-zero) on failure:
 
   1. build     — compile ``src/repro_torch/csrc/spmv.cu`` (kernels B1-B4)
@@ -26,11 +29,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
                  G=16 (KV=4, hd=128, T=1088) and whisper's KV=8, G=1 at
                  hd=64 (T=1564).  The build fails if ptxas spills in B5's
                  bf16 kernel.
-  3. lm_serve  — ``serve_batch('gemma-2b', smoke=False, n_requests=8,
+  3. lm_serve  — ``serve_batch('gemma-2b', smoke=False, n_requests=5,
                  max_batch=4, max_new=16, max_len=1024, seed=0)`` at the
                  published width and depth, weights from the port's own
                  ``Model.init`` with a seeded generator; the cache wraps past
-                 1024.  B5's count is zeroed just before and read just
+                 1024 before the fifth request refills a slot.  B5's count
+                 is zeroed just before and read just
                  after: it must be 18 x decode_steps.  Logs ms per decode
                  step, tokens/s and the weight-streaming bound of a step.
                  Then 32 teacher-forced steps of the same tokens through B5
@@ -231,19 +235,21 @@ Phases, each of which raises (and so exits non-zero) on failure:
   14. host    — host residency (edges in host RAM, streamed per superstep)
                against device residency in this process:
                (a) ``rmat(20, edge_factor=16, seed=1)`` (n=1,048,576) on scan
-                   and compact: ``pagerank()`` push and pull (pull capped
-                   at 30 supersteps), ``bfs(hub)``;
+                   and compact: ``pagerank()`` push and pull (capped at 8
+                   and 15 supersteps), ``bfs(hub)``;
                (b) ``rmat(14, edge_factor=16, seed=1, symmetrize=True)`` on
                    blocked and blocked_compact: WCC, ``bfs(hub)`` and
                    ``pagerank()`` (capped at 20 supersteps) at the default
                    ``stream_buffer=16``, then
                    WCC on a 'hilbert' schedule at 16 and WCC and
-                   ``bfs(hub)`` there at ``stream_buffer=1`` (a batch per run,
-                   several runs per block).
-               BFS levels and WCC labels exact, PageRank within atol 1e-6,
-               rtol 1e-5, BFS/WCC IOStats equal except host_bytes and
-               retries (PageRank's are logged: f32 rounding order moves its
-               counters, ROADMAP §C P2), ``device_edge_total == 0`` under
+                   ``bfs(hub)`` there at ``stream_buffer=1`` (a batch per
+                   run, several runs per block).
+               BFS levels, WCC labels and (a)'s PageRank bit-equal (the
+               chunk stream's running sums, ``Semiring.fold``), (b)'s
+               PageRank within atol 1e-6, rtol 1e-5; IOStats equal except
+               host_bytes and retries (but (b)'s PageRank counters, logged:
+               f32 rounding order moves them, ROADMAP §C P2),
+               ``device_edge_total == 0`` under
                host residency, and ``peak_stage_bytes <= 2 *
                stream_buffer_bytes`` where no run exceeds the buffer.  Tile
                batches stage the tile-major payload of their tiles:
@@ -355,10 +361,34 @@ Phases, each of which raises (and so exits non-zero) on failure:
                BFS, no task lost or committed twice, and more than 0 late
                commits refused.
 
+  22. examples — the six twins of ``examples/`` in ``examples_torch/``,
+               each through its ``main`` on the card (its wall logged with
+               the card's ``name, power.limit``; ``Graph`` methods and the
+               LM drivers wrapped to keep what they return):
+               ``custom_program`` (WCC labels equal numpy union-find),
+               ``quickstart`` (PageRank push and pull within the numpy
+               bound of phase 10, BFS levels equal numpy BFS, kmax and the
+               WCC labels equal numpy's, the host session's
+               ``device_edge_total`` 0, its ranks bit-equal to the device
+               run's by the twin's own assert) and ``batched_queries``
+               (each PPR column within the numpy bound, each BFS column
+               equal numpy BFS) as written; ``graph_analytics --scale 16``
+               (``rmat(16, edge_factor=8, symmetrize=True)``; kmax equal
+               numpy peeling; its host rerun bit-equal by its assert);
+               B1-B4 launches over the graph twins logged (0: their
+               policies pick scan and compact); ``serve_lm`` (gemma3-4b
+               smoke) and ``serve_lm --full`` (34 layers), B5's count
+               zeroed before each and read after: n_layers x
+               decode_steps, tokens, ms a decode step, peak GB;
+               ``train_lm`` (300 steps, checkpoints under the git-ignored
+               ``build/examples/``): exit 0, so the loss fell and a
+               restart happened.
+
 Prints the card's ``name, power.limit``, a ``{"kernels": [...]}`` line
 (B1-B5; B1/B2's launches are the main, batched, algorithm, host batched,
 recovery and analysis paths', B3/B4's the WCC, recovery and analysis
-paths', B5's the lm_serve, lm_families, lm_mesh and lm_dryrun paths')
+paths', B5's the lm_serve, lm_families, lm_mesh, lm_dryrun and examples
+paths')
 and, last, ``{"ok": true, "device": {...}}``.  ``--seed`` seeds
 the batched phase's reset matrix (default 0).  Exits non-zero without a CUDA
 device, and when the repository's ``src/`` is not beside it.
@@ -388,12 +418,14 @@ KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-5
 # layout.
 LAYOUT_FREE = ("messages", "supersteps")
 # Depth cuts of the host phase, for the script's time: PageRank pull at
-# scale 20 runs into its default cap of 100 supersteps (31 s on host), the
+# scale 20 runs into its default cap of 100 supersteps (31 s on host; at
+# 30, four push and pull runs took 115 s of a 1,128 s run on a slow H100
+# host), push at 8 (65 to convergence at 0.33-0.7 s a superstep), the
 # scale-14 tile PageRank takes 36-40 s on host, and the profiler multiplies
 # a host PageRank's 18 s wall by ten (at 10 supersteps its key_averages
 # took 90 s of a 1,107 s run on one H100 host; 3 keep the idle share's
 # reading).  Host and device runs get the same cap.
-PULL_ITERS_20, PUSH_ITERS_14, PROFILE_ITERS = 30, 20, 3
+PULL_ITERS_20, PUSH_ITERS_20, PUSH_ITERS_14, PROFILE_ITERS = 15, 8, 20, 3
 
 
 def log(msg: str) -> None:
@@ -951,10 +983,10 @@ def phase_host(torch):
     dev_cache: dict = {}
     for backend in ("scan", "compact"):
         pol = repro_torch.ExecutionPolicy(backend=backend)
-        twin("pr_push", Da, Ha, lambda G, p: G.pagerank(policy=p), pol, False,
-             dev_cache)
+        twin("pr_push", Da, Ha, lambda G, p: G.pagerank(
+            max_iters=PUSH_ITERS_20, policy=p), pol, True, dev_cache)
         twin("pr_pull", Da, Ha, lambda G, p: G.pagerank(
-            mode="pull", max_iters=PULL_ITERS_20, policy=p), pol, False,
+            mode="pull", max_iters=PULL_ITERS_20, policy=p), pol, True,
              dev_cache)
         twin("bfs_hub", Da, Ha, lambda G, p: G.bfs(hub_a, policy=p), pol,
              True, dev_cache)
@@ -1445,7 +1477,7 @@ def phase_algs(wg, torch):
 
 # ------------------------------------------------- fault tolerance
 RECOVERY_DIR = ROOT / "build" / "recovery"  # git-ignored, inside the checkout
-PUSH_ITERS_20 = 16  # host (a) PageRank push: ~0.33 s a superstep on host
+RECOVERY_PUSH_ITERS = 16  # host (a) PageRank push: ~0.33 s a superstep on host
 Q_RECOVERY = 8  # batched BFS sources of the recovery phase
 CHAOS_SHARD = 2  # sources per chaos task
 CHAOS_COMBOS = ("scan", "compact", "blocked")  # device residency, rmat(14)
@@ -1656,7 +1688,7 @@ def phase_recovery(g, hub, G, W, Ha, Hb, torch):
     push = PageRankPushProgram()
     rows["host_a/scan/pr_push"] = recovery_case(
         "host_a/scan/pr_push", Ha.host_view(), push, hscan, torch,
-        max_supersteps=PUSH_ITERS_20, every_k=4, kills=(6,),
+        max_supersteps=RECOVERY_PUSH_ITERS, every_k=4, kills=(6,),
         host=Ha.host_view())
     log(f"recovery path kernel launches: {counts}")
     require_launched("recovery path", counts, KERNELS)
@@ -1666,7 +1698,7 @@ def phase_recovery(g, hub, G, W, Ha, Hb, torch):
         max_supersteps=100)
     rows["cadence/host_a/scan/pr_push"] = cadence_walls(
         "host_a/scan/pr_push", Ha.host_view(), push, hscan, torch,
-        max_supersteps=PUSH_ITERS_20)
+        max_supersteps=RECOVERY_PUSH_ITERS)
     return counts, rows
 
 
@@ -2595,8 +2627,10 @@ BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 LM_ATOL = LM_RTOL = 1e-4  # B5 vs plain: same inputs, f32 math, other order
 LM_ARCH = "gemma-2b"
 # serve_batch's arguments in the lm_serve phase (the reference's defaults
-# but for max_len, which makes the cache wrap: ~2,100 steps > 1,024 slots)
-SERVE = dict(n_requests=8, max_batch=4, max_new=16, max_len=1024, seed=0)
+# but for max_len, which makes the cache wrap, and n_requests, cut from 8
+# for the script's time: the first four prompts take 1,384 steps, past the
+# 1,024 slots, and the fifth refills a slot; 8 took 3,111 steps)
+SERVE = dict(n_requests=5, max_batch=4, max_new=16, max_len=1024, seed=0)
 TEACHER_STEPS = PROFILE_STEPS = 32
 LOGIT_BOUND = 0.05  # tests/test_serving_parity.py:73
 B5 = "decode_attention"
@@ -4765,6 +4799,159 @@ def phase_lm_profile(model, params, torch, steps=PROFILE_STEPS,
     return next(iter(out.values()))
 
 
+# ------------------------------------------------------------ the examples
+EXAMPLES = ROOT / "examples_torch"
+EXAMPLE_SCALE = 16  # graph_analytics: rmat(16, edge_factor=8, symmetrize)
+EXAMPLE_CKPT = ROOT / "build" / "examples" / "ckpt"  # git-ignored
+EXAMPLE_GRAPH_CALLS = ("run", "bfs", "pagerank", "coreness", "memory_report")
+
+
+def run_example(name: str, argv, torch, smi, target=None, names=(),
+                method=True):
+    """A twin's ``main(argv)`` on the card, with ``target.<name>`` for each
+    of ``names`` recorded (``tests/example_recording.py``'s ``Recorded``,
+    which the twins' CPU tests use; ``target`` None: the twin's module);
+    fails unless it exits 0.  Returns (calls, wall s)."""
+    if str(ROOT / "tests") not in sys.path:
+        sys.path.insert(0, str(ROOT / "tests"))
+    from example_recording import Recorded, load_example
+
+    mod = load_example(name)
+    with Recorded(mod if target is None else target, names, method) as rec:
+        t0 = time.perf_counter()
+        rc = mod.main(list(argv))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"examples_torch/{name}.py {' '.join(argv)}: "
+                             f"exit {rc}")
+    log(f"examples {name} {' '.join(argv)}: exit 0, wall {wall:.3f} s "
+        f"({smi})")
+    return rec.calls, wall
+
+
+def check_pagerank_oracle(label, res, g, damping=0.85, tol=1e-3) -> None:
+    """Ranks finite and within tol / (1 - damping) in L1 of a numpy power
+    iteration (phase 10's bound)."""
+    import numpy as np
+
+    vals = res.values.double().cpu().numpy()
+    l1 = float(np.abs(vals - numpy_pagerank(g, damping)).sum())
+    if not np.isfinite(vals).all() or l1 > tol / (1 - damping):
+        raise AssertionError(f"{label}: L1 error {l1} vs numpy")
+
+
+def phase_examples(torch, smi, dev="cuda"):
+    """The six twins of ``examples/`` on the card, through their ``main``
+    (see the module docstring).  Returns B5's launches and the phase's
+    rows."""
+    import numpy as np
+
+    import repro_torch
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.kernels import decode_attn as tda
+    from repro_torch.kernels.spmv import kernel as K
+
+    card = ["--device", dev]
+    graph = (repro_torch.Graph, EXAMPLE_GRAPH_CALLS)
+    rows = {}
+    K.reset_launches()
+
+    calls, rows["custom_program"] = run_example("custom_program", card,
+                                                torch, smi, *graph)
+    (_, G, _, _, res), = calls
+    if not np.array_equal(res.values.cpu().numpy(), numpy_wcc(G.host)):
+        raise AssertionError("custom_program: labels differ from numpy")
+
+    calls, rows["quickstart"] = run_example("quickstart", card, torch, smi,
+                                            *graph)
+    want = ["pagerank", "pagerank", "bfs", "coreness", "run", "pagerank",
+            "memory_report", "memory_report", "pagerank"]
+    if [c.name for c in calls] != want:
+        raise AssertionError(f"quickstart calls {[c.name for c in calls]}")
+    (_, g1, _, _, push), (_, _, _, _, pull), (_, _, _, _, bfs) = calls[:3]
+    (_, gu, _, _, core), (_, _, _, _, wcc) = calls[3:5]
+    for label, res in (("push", push), ("pull", pull)):
+        check_pagerank_oracle(f"quickstart {label}", res, g1.host)
+    if not np.array_equal(bfs.values.cpu().numpy(), numpy_bfs(g1.host, 0)):
+        raise AssertionError("quickstart: BFS levels differ from numpy")
+    kmax = int(numpy_coreness(gu.host).max())
+    if int(core.values.max()) != kmax:
+        raise AssertionError(f"quickstart: kmax {int(core.values.max())} "
+                             f"against numpy's {kmax}")
+    if not np.array_equal(wcc.values.cpu().numpy(), numpy_wcc(gu.host)):
+        raise AssertionError("quickstart: WCC labels differ from numpy")
+    if calls[6][4]["device_edge_total"] != 0:
+        raise AssertionError("quickstart: the host session holds edges")
+    log(f"examples quickstart: PageRank push and pull within the numpy "
+        f"bound, BFS levels, kmax {kmax} and WCC labels equal numpy's; host "
+        f"ranks bit-equal to the device run's (its own assert)")
+
+    calls, rows["batched_queries"] = run_example("batched_queries", card,
+                                                 torch, smi, *graph)
+    (_, gb, _, kw, ppr) = calls[0]
+    (_, _, (seeds,), _, multi) = calls[1 + 8]
+    gh = gb.host
+    one_hot = np.zeros((gh.n, len(seeds)))
+    one_hot[seeds, np.arange(len(seeds))] = 1.0
+    ref = numpy_ppr(gh, one_hot, 0.85)
+    for q, s in enumerate(seeds):
+        l1 = float(np.abs(ppr.values[:, q].double().cpu().numpy()
+                          - ref[:, q]).sum())
+        if l1 > 1e-3 / (1 - 0.85):
+            raise AssertionError(f"batched_queries: PPR column {q} L1 {l1}")
+        if not np.array_equal(multi.values[:, q].cpu().numpy(),
+                              numpy_bfs(gh, s)):
+            raise AssertionError(f"batched_queries: BFS column {q} differs")
+    log("examples batched_queries: 8 PPR columns within the numpy bound, "
+        "8 BFS columns equal numpy BFS")
+
+    calls, rows["graph_analytics"] = run_example(
+        "graph_analytics", ["--scale", str(EXAMPLE_SCALE)] + card, torch,
+        smi, *graph)
+    (_, ga, _, _, core), = [c for c in calls if c.name == "coreness"]
+    kmax = int(numpy_coreness(ga.host).max())
+    if int(core.values.max()) != kmax:
+        raise AssertionError(f"graph_analytics: kmax {int(core.values.max())}"
+                             f" against numpy's {kmax}")
+    graph_launches = dict(K.launches)
+    log(f"examples graph twins: B1-B4 launches {graph_launches} (their "
+        f"policies pick scan and compact); graph_analytics n={ga.n} "
+        f"m={ga.m}, kmax {kmax} equal numpy's")
+
+    b5 = 0
+    for argv in ([], ["--full"]):
+        arch_cfg = (get_config if argv else get_smoke)("gemma3-4b")
+        torch.cuda.reset_peak_memory_stats()
+        tda.reset_launches()
+        calls, wall = run_example("serve_lm", argv + card, torch, smi,
+                                  names=("serve_batch",), method=False)
+        launched = tda.launches[B5]
+        (_, _, _, _, res), = calls
+        steps = res["decode_steps"]
+        if launched == 0 or launched != arch_cfg.n_layers * steps:
+            raise AssertionError(f"serve_lm {argv}: B5 ran {launched} times,"
+                                 f" not {arch_cfg.n_layers} x {steps}")
+        b5 += launched
+        name = "serve_lm" + (" --full" if argv else "")
+        rows[name] = wall
+        rows[f"{name} detail"] = dict(
+            tokens=res["tokens"], decode_steps=steps,
+            ms_per_step=res["seconds"] / steps * 1e3, b5_launches=launched,
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        log(f"examples {name}: {res['tokens']} tokens, {steps} decode steps, "
+            f"{rows[name + ' detail']['ms_per_step']:.3f} ms a step, B5 "
+            f"{launched} launches ({arch_cfg.n_layers} layers x {steps}), "
+            f"peak {rows[name + ' detail']['peak_gb']:.2f} GB ({smi})")
+        del calls, res
+        gc_cuda(torch)
+
+    _, rows["train_lm"] = run_example(
+        "train_lm", ["--ckpt", str(EXAMPLE_CKPT)] + card, torch, smi)
+    return b5, {k: (round(v, 3) if isinstance(v, float) else v)
+                for k, v in rows.items()}
+
+
 def check_no_spill(lib: Path, kernel: str) -> None:
     """Fail if ptxas reports spill stores or loads for any instantiation of
     ``kernel`` in the build log of ``lib``."""
@@ -4911,6 +5098,7 @@ def main(argv=None) -> int:
     log(f"chaos: parent holds {torch.cuda.memory_allocated() / 1e9:.2f} GB "
         "on the card before spawning its workers")
     chaos_row = phase_chaos(torch)
+    ex_launches, ex_rows = phase_examples(torch, smi)
 
     # B1/B2: the main path and the batched, algorithm, host batched,
     # recovery and analysis paths; B3/B4: the WCC, recovery and analysis
@@ -4940,7 +5128,7 @@ def main(argv=None) -> int:
          "source": "src/repro_torch/csrc/decode_attn.cu",
          "replaces": "src/repro/kernels/decode_attn/kernel.py:44",
          "launches": lm["launches"] + fam_launches + mesh_launches
-         + dry_launches,
+         + dry_launches + ex_launches,
          "max_abs_err": max([lm_err] + [r["err"] for r in lm_times.values()]),
          "ms": serve_t["ms"], "plain_ms": serve_t["plain_ms"],
          "bound_ms": serve_t["bound_ms"], "bound_by": serve_t["bound_by"],
@@ -4968,6 +5156,7 @@ def main(argv=None) -> int:
     log(f"recovery: {json.dumps(rec_rows)}")
     log(f"analysis: {json.dumps(an_rows)}")
     log(f"chaos: {json.dumps(chaos_row)}")
+    log(f"examples (wall s): {json.dumps(ex_rows)}")
     peak = max(an_rows["peak_gb/before"],
                torch.cuda.max_memory_allocated() / 1e9)
     log(f"peak device memory {peak:.2f} GB")

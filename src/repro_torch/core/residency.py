@@ -466,6 +466,11 @@ def _stream_chunks(hg: HostGraph, store: HostChunkStore, x, active,
     has_w = store.w is not None
     xp = pad_state(x, sr)
     y = _pad_y_init(sr, xp, y_init, n)
+    # Where the device path's one scatter sums each key's terms from zero
+    # (a float add on the card), the batches continue one running sum,
+    # added to y at the end: the device path's bits.
+    fold = sr.folds(y)
+    acc = torch.zeros_like(y) if fold else y
     msgs = torch.zeros((), dtype=torch.int64, device=x.device)
 
     # numpy mirror of chunk_activity: frontier prefix sums over [lo, hi].
@@ -496,17 +501,19 @@ def _stream_chunks(hg: HostGraph, store: HostChunkStore, x, active,
         return _ship(hg, pol, layout, fill)
 
     def compute(_, staged):
-        nonlocal y, msgs
+        nonlocal acc, msgs
         major, minor = staged.arrays[0], staged.arrays[1]
         w = staged.arrays[2].reshape(-1) if has_w else None
         valid = staged.arrays[-1][:, None].expand(B, S).reshape(-1)
-        y, m = _fetch(sr, xp, active, n, gather_on_major, major.reshape(-1),
-                      minor.reshape(-1), w, y, valid=valid)
+        acc, m = _fetch(sr, xp, active, n, gather_on_major,
+                        major.reshape(-1), minor.reshape(-1), w, acc,
+                        valid=valid, fold=fold)
         msgs = msgs + m
 
     batches = [live[i:i + B] for i in range(0, len(live), B)]
     host_bytes, peak, retr = _double_buffered(batches, ship, compute)
     hg._note_stage(peak)
+    y = y + acc if fold else acc
 
     n_live = int(live.size)
     st = _stats(

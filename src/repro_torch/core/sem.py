@@ -96,6 +96,12 @@ class IOStats(NamedTuple):
         return IOStats(*(i32(a.to(torch.int64) + b.to(torch.int64))
                          for a, b in zip(self, other)))
 
+    def bytes(self, weighted: Optional[bool] = None) -> int:
+        """Layout-aware bytes moved.  ``weighted`` is deprecated and
+        ignored: each execution path charges its own record layout into
+        ``bytes_moved`` at the point of transfer."""
+        return int(self.bytes_moved)
+
 
 def _stats(device, **fields) -> IOStats:
     """An IOStats with the named counters (int32-wrapped) and zeros elsewhere."""
@@ -327,11 +333,12 @@ def bucket_index(count, buckets: tuple) -> int:
 
 
 def _fetch(sr, xp, active, n, gather_on_major, major, minor, w, y,
-           valid=None):
+           valid=None, fold=False):
     """The SEM hot loop over a batch of edge records: gather, mask,
     scatter-combine.  ``valid`` (bool per record) additionally masks
-    records out, as host residency does with its padding chunks.  Returns
-    ``(y, messages)``."""
+    records out, as host residency does with its padding chunks; ``fold``
+    continues the running sums ``y`` (:meth:`Semiring.fold`) where host
+    residency's batches need it.  Returns ``(y, messages)``."""
     gather_idx = major if gather_on_major else minor
     key = minor if gather_on_major else major
     xv = xp[gather_idx.long()]
@@ -343,7 +350,8 @@ def _fetch(sr, xp, active, n, gather_on_major, major, minor, w, y,
     ident = torch.tensor(sr.identity, dtype=contrib.dtype, device=contrib.device)
     contrib = torch.where(m2, contrib, ident)
     key = torch.where(mask, key, n).long()  # sentinel row for masked lanes
-    return sr.scatter(y, key, contrib), mask.sum()
+    combine = sr.fold if fold else sr.scatter
+    return combine(y, key, contrib), mask.sum()
 
 
 def _pad_y_init(sr, xp, y_init, n):

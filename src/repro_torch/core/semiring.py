@@ -45,7 +45,7 @@ class Semiring:
         masked terms and which every caller drops; on the card the add
         leaves it as it is (:func:`_ordered_add`)."""
         if self.combine == "add":
-            if y.is_cuda and y.is_floating_point():
+            if _ordered(y):
                 return _ordered_add(y, keys, contrib.to(y.dtype))
             return y.index_add(0, keys, contrib.to(y.dtype))
         if self.combine not in _REDUCE:
@@ -57,6 +57,25 @@ class Semiring:
         buf.scatter_reduce_(0, idx, src, _REDUCE[self.combine],
                             include_self=True)
         return buf.bool() if boolean else buf
+
+    def folds(self, y: torch.Tensor) -> bool:
+        """Whether a scatter into ``y`` that comes in batches must go
+        through :meth:`fold`: a float add on the card sums each key's
+        terms from zero and adds the sum to ``y`` once, so one scatter a
+        batch would sum the batches apart and give other bits than one
+        scatter of all their terms."""
+        return self.combine == "add" and _ordered(y)
+
+    def fold(self, part: torch.Tensor, keys: torch.Tensor,
+             contrib: torch.Tensor) -> torch.Tensor:
+        """Continue each key's running sum ``part`` (zeros before the
+        first batch) with this batch's terms, in edge order.  After the
+        last batch, ``y + part`` has the bits of one :meth:`scatter` of
+        every batch's terms into ``y``, in batch order."""
+        if keys.numel() == 0:
+            return part
+        return _run_sums(part.shape[0], keys, contrib.to(part.dtype),
+                         first=part).reshape(part.shape)
 
     def combine_elem(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """Elementwise form of the scatter reduction (same dispatch)."""
@@ -80,29 +99,50 @@ class Semiring:
         return torch.where(active, x, ident)
 
 
+def _ordered(y: torch.Tensor) -> bool:
+    """Whether a float add into ``y`` sums in a fixed order
+    (:func:`_ordered_add`) rather than with ``index_add``: on the card."""
+    return y.is_cuda and y.is_floating_point()
+
+
 def _ordered_add(y: torch.Tensor, keys: torch.Tensor,
                  contrib: torch.Tensor) -> torch.Tensor:
     """``y.index_add(0, keys, contrib)`` with each key's terms summed in
-    edge order, ``y[k] + (((0 + c_1) + c_2) + ...)``: a stable sort by key,
-    then ``segment_reduce`` over every row's run (empty runs give 0).  The
-    contributions go in as (E, lanes), so that a lane's sum runs the same
-    sequential loop whatever the lane count; the run offsets come from
-    ``searchsorted``, so nothing waits on the device.  The last row of
-    ``y`` is the sentinel row that takes the masked terms (up to all E of
-    them) and that every caller drops: its run is not summed, since one
-    sequential loop over it would cost more than all the others.  No
-    terms at all (a compact gather with no live chunk) leave ``y`` as it
-    is, as ``index_add`` does."""
+    edge order, ``y[k] + (((0 + c_1) + c_2) + ...)`` (:func:`_run_sums`).
+    No terms at all (a compact gather with no live chunk) leave ``y`` as
+    it is, as ``index_add`` does."""
     if keys.numel() == 0:
         return y.clone()
+    return y + _run_sums(y.shape[0], keys, contrib).reshape(y.shape)
+
+
+def _run_sums(rows: int, keys: torch.Tensor, contrib: torch.Tensor,
+              first: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Each of ``rows`` rows' terms summed in edge order, ``((0 + c_1) +
+    c_2) + ...`` (empty runs give 0), or ``((0 + first[k]) + c_1) + ...``
+    where ``first`` opens every row's run: a stable sort by key, then
+    ``segment_reduce`` over every row's run.  The contributions go in as
+    (E, lanes), so that a lane's sum runs the same sequential loop
+    whatever the lane count; the run offsets come from ``searchsorted``,
+    and ``first`` goes in at offsets computed from them, so nothing waits
+    on the device.  The last row is the sentinel row that takes the
+    masked terms (up to all E of them) and that every caller drops: its
+    terms are not summed, since one sequential loop over them would cost
+    more than all the others.  Returns (rows, lanes)."""
     keys, order = torch.sort(keys.to(torch.int32), stable=True)
-    starts = torch.searchsorted(keys, torch.arange(
-        y.shape[0], dtype=torch.int32, device=keys.device))
+    row = torch.arange(rows, dtype=torch.int32, device=keys.device)
+    starts = torch.searchsorted(keys, row)
     lengths = torch.diff(starts, append=starts[-1:])  # the sentinel's is 0
     flat = contrib[order].reshape(keys.shape[0], -1)
-    sums = torch.segment_reduce(flat, "sum", lengths=lengths, axis=0,
+    if first is not None:
+        # row k's run opens at starts[k] + k: its first term, then its own
+        stream = flat.new_empty((flat.shape[0] + rows, flat.shape[1]))
+        stream[(starts + row).long()] = first.reshape(rows, -1)
+        stream[torch.arange(keys.shape[0], device=keys.device)
+               + keys.long() + 1] = flat
+        flat, lengths = stream, lengths + 1
+    return torch.segment_reduce(flat, "sum", lengths=lengths, axis=0,
                                 unsafe=True)
-    return y + sums.reshape(y.shape)
 
 
 def _times(xv, w):
